@@ -1,0 +1,99 @@
+"""Flag parsing for the port's entry points: the inference CLI's flags
+(ref inference.py:12-37, with the JAX package's extensions), and the
+optional ``--config`` YAML of flag defaults.
+
+The port runs on the card by default (``--device cuda``) and raises when
+there is none; ``--device cpu`` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def parse_with_config(parser: argparse.ArgumentParser, argv=None):
+    """Parse args with optional --config YAML defaults (CLI flags win).
+
+    Config values go through the same ``type`` conversion and ``choices``
+    checks a command-line string would, and unknown keys are refused."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--config", type=str, default=None)
+    known, _ = pre.parse_known_args(argv)
+    parser.add_argument("--config", type=str, default=None,
+                        help="YAML file of flag defaults (CLI flags override)")
+    if known.config:
+        import yaml
+
+        with open(known.config) as f:
+            conf = yaml.safe_load(f) or {}
+        actions = {a.dest: a for a in parser._actions}
+        unknown = set(conf) - set(actions)
+        if unknown:
+            raise SystemExit(f"unknown config keys: {sorted(unknown)}")
+        checked = {}
+        for key, val in conf.items():
+            a = actions[key]
+            if a.type is not None and isinstance(val, str):
+                try:
+                    val = a.type(val)
+                except (TypeError, ValueError):
+                    raise SystemExit(
+                        f"config key {key!r}: invalid value {val!r} "
+                        f"(expected {getattr(a.type, '__name__', a.type)})")
+            elif a.type in (int, float) and val is not None:
+                if isinstance(val, bool) or not isinstance(val, (int, float)):
+                    raise SystemExit(
+                        f"config key {key!r}: invalid value {val!r} "
+                        f"(expected {a.type.__name__})")
+                coerced = a.type(val)
+                if coerced != val:
+                    raise SystemExit(
+                        f"config key {key!r}: value {val!r} is not a valid "
+                        f"{a.type.__name__} (lossy conversion)")
+                val = coerced
+            if a.choices is not None and val is not None \
+                    and val not in a.choices:
+                raise SystemExit(
+                    f"config key {key!r}: invalid choice {val!r} "
+                    f"(choose from {sorted(map(str, a.choices))})")
+            checked[key] = val
+        parser.set_defaults(**checked)
+    return parser.parse_args(argv)
+
+
+def inference_parser() -> argparse.ArgumentParser:
+    """inference.py flags (ref :12-37)."""
+    p = argparse.ArgumentParser(description='DiscoGAN inference (PyTorch/CUDA)')
+    p.add_argument('--device', type=str, default='cuda',
+                   help='Device to use (cuda/cpu); cuda raises when no card '
+                        'is available')
+    p.add_argument('--model_path', type=str, required=True,
+                   help='Directory with gen_A_final.pth / gen_B_final.pth')
+    p.add_argument('--input_path', type=str, required=True,
+                   help='Path to input image or directory with images')
+    p.add_argument('--output_dir', type=str, default='./inference_results',
+                   help='Directory to save the inference results')
+    p.add_argument('--image_size', type=int, default=64,
+                   help='Image size')
+    p.add_argument('--direction', type=str, default='AtoB',
+                   choices=['AtoB', 'BtoA'],
+                   help='Translation direction: AtoB or BtoA')
+    p.add_argument('--use_extra_layers', action='store_true',
+                   help='Kept for reference compatibility: the reference '
+                        'Generator\'s extra_layers branches are functionally '
+                        'identical (model.py:77-212), so this is accepted '
+                        'and ignored')
+    p.add_argument('--precision', type=str, default=None,
+                   choices=['bf16', 'f32'],
+                   help='(extension) compute precision; default bf16 on '
+                        'CUDA, f32 on the CPU')
+    p.add_argument('--dataset_type', type=str, default=None,
+                   choices=['edges2handbags', 'edges2shoes', 'handbags2shoes',
+                            'celebA', None],
+                   help='Dataset type for domain-specific preprocessing')
+    p.add_argument('--domain', type=str, default=None, choices=['A', 'B', None],
+                   help='Domain for preprocessing (A: edge/sketch, B: real image)')
+    p.add_argument('--batch_size', type=int, default=1,
+                   help='(extension) batch directory inputs through the '
+                        'generator for throughput; 1 = reference behavior')
+    return p

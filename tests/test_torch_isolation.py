@@ -1,0 +1,77 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to run on the CPU when asked for CUDA."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "discogan_modernized_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|discogan_modernized_tpu)\b", re.M)
+
+
+def port_modules():
+    return sorted(
+        "discogan_modernized_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "import importlib\n"
+        f"for m in {port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.startswith('discogan_modernized_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_sources_import_no_jax():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if FORBIDDEN.search(f.read_text())]
+    assert not offenders
+
+
+@pytest.mark.parametrize("entry", ["inference", "serve", "device"])
+def test_cuda_request_raises_without_a_card(entry, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "inference":
+            from discogan_modernized_torch.cli.inference import main
+
+            main([f"--model_path={tmp_path}", f"--input_path={tmp_path}"])
+        elif entry == "serve":
+            from discogan_modernized_torch.tools.serve import parse_args, serve
+
+            serve(parse_args([f"--model_path={tmp_path}", "--port=0"]))
+        else:
+            from discogan_modernized_torch.core.device import resolve_device
+
+            resolve_device("cuda")
+
+
+def test_defaults_are_cuda_and_bf16_there():
+    from discogan_modernized_torch.cli.common import inference_parser
+    from discogan_modernized_torch.core.precision import BF16, F32, default_policy
+    from discogan_modernized_torch.tools.serve import parse_args
+
+    args = inference_parser().parse_args(["--model_path=m", "--input_path=i"])
+    assert args.device == "cuda"
+    assert parse_args(["--model_path=m"]).device == "cuda"
+    assert default_policy(None, "cuda") is BF16
+    assert default_policy(None, "cpu") is F32
+    with pytest.raises(ValueError):
+        default_policy("fp32")
