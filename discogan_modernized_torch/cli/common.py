@@ -1,6 +1,8 @@
 """Flag parsing for the port's entry points: the inference CLI's flags
-(ref inference.py:12-37, with the JAX package's extensions), and the
-optional ``--config`` YAML of flag defaults.
+(ref inference.py:12-37) and the trainer's (ref image_translation.py
+:21-81), with the JAX package's extensions that are ported, and the
+optional ``--config`` YAML of flag defaults. Flags of features not ported
+yet are left out, so argparse refuses them.
 
 The port runs on the card by default (``--device cuda``) and raises when
 there is none; ``--device cpu`` runs on the CPU.
@@ -96,4 +98,67 @@ def inference_parser() -> argparse.ArgumentParser:
     p.add_argument('--batch_size', type=int, default=1,
                    help='(extension) batch directory inputs through the '
                         'generator for throughput; 1 = reference behavior')
+    return p
+
+
+def translation_parser() -> argparse.ArgumentParser:
+    """image_translation.py flags (ref :21-81; the JAX package's
+    ``cli/common.py:81-237`` for the extensions). Not ported yet, and so
+    refused: --paired, --lean_dis, --remat, --remat_policy,
+    --steps_per_call, --no_device_cache, --bn_sync, --xla_copts, --profile,
+    --resume, --ckpt_backend, and --n_test and the CelebA style flags,
+    which belong to the real-data tasks."""
+    p = argparse.ArgumentParser(description='DiscoGAN trainer (PyTorch/CUDA)')
+    p.add_argument('--device', type=str, default='cuda',
+                   help='Device to use (cuda/cpu); cuda raises when no card '
+                        'is available')
+    p.add_argument('--task_name', type=str, default='facescrub',
+                   help='Set data name; only synthetic is ported so far')
+    p.add_argument('--results_dir', type=str, default='./results/',
+                   help='Directory to save the results')
+    p.add_argument('--models_dir', type=str, default='./models/',
+                   help='Directory to save models')
+    p.add_argument('--model_arch', type=str, default='discogan',
+                   help='Model architecture: gan/recongan/discogan')
+    p.add_argument('--epochs', type=int, default=100,
+                   help='Number of epochs to train')
+    p.add_argument('--batch_size', type=int, default=64, help='Batch size')
+    p.add_argument('--learning_rate', type=float, default=0.0002,
+                   help='Learning rate for optimizer')
+    p.add_argument('--beta1', type=float, default=0.5,
+                   help='Beta1 for Adam optimizer')
+    p.add_argument('--beta2', type=float, default=0.999,
+                   help='Beta2 for Adam optimizer')
+    p.add_argument('--image_size', type=int, default=64, help='Image size')
+    p.add_argument('--gan_curriculum', type=int, default=10000,
+                   help='Number of steps with strong GAN loss')
+    p.add_argument('--starting_rate', type=float, default=0.01,
+                   help='Initial lambda weight between GAN and Recon loss')
+    p.add_argument('--default_rate', type=float, default=0.5,
+                   help='Lambda weight between GAN and Recon loss after '
+                        'curriculum')
+    p.add_argument('--update_interval', type=int, default=3,
+                   help='Interval for discriminator updates')
+    p.add_argument('--log_interval', type=int, default=50,
+                   help='Print loss interval')
+    p.add_argument('--image_save_interval', type=int, default=1000,
+                   help='Image save interval')
+    p.add_argument('--model_save_interval', type=int, default=10000,
+                   help='Model save interval')
+    p.add_argument('--precision', type=str, default=None,
+                   choices=['bf16', 'f32'],
+                   help='(extension) compute precision; default bf16 on '
+                        'CUDA, f32 on the CPU')
+    p.add_argument('--seed', type=int, default=1234,
+                   help='(extension) init and shuffle seed (the reference '
+                        'distributed trainer hardcodes torch.manual_seed(1234))')
+    p.add_argument('--slim_state', type=str, default='mv',
+                   choices=['off', 'mv', 'all'],
+                   help='(extension) optimizer state: mv = Adam moments in '
+                        'bf16 (update math f32; the trainer default), off = '
+                        'f32 moments. all (bf16 master parameters) is not '
+                        'ported yet and raises')
+    p.add_argument('--debug', action='store_true',
+                   help='(extension) autograd anomaly detection: a NaN in '
+                        'the backward raises with the forward op that made it')
     return p

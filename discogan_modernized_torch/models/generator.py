@@ -9,21 +9,26 @@ reference model; depth otherwise follows image_size (models/geometry.py).
 
 The module keeps the reference's ``encoder`` / ``decoder`` Sequentials,
 so a reference-layout ``.pth`` loads with ``strict=True``. Activations are
-NHWC, as in the JAX package. The forward is the eval form only (running
-statistics; the train form comes with training), and it runs through the
-kernels (ops/): per layer
+NHWC, as in the JAX package. Both forms run through the kernels (ops/):
 
-  enc0              K3 conv, LeakyReLU epilogue
-  enc1..            K5f (``takes_halo``: the wide, few-channel layer) or
-                    K3, epilogue = folded eval BN + LeakyReLU
-  latent conv       one matrix product, then K2 (BN + LeakyReLU)
-  dec0 (1 -> 4)     one matrix product, then K2 (BN + ReLU)
-  dec1..            F.conv_transpose2d, then K2 (BN + ReLU)
+  layer             eval form (running statistics)   train form (batch statistics)
+  enc0              K3, LeakyReLU epilogue           the same
+  enc1..            K5f (``takes_halo``: the wide,   K3 with its fused statistics,
+                    few-channel layer) or K3,        or K5f then K1; then K2
+                    epilogue = folded BN + LeakyReLU (BN + LeakyReLU)
+  latent conv       one matrix product, then K2      the product, K1, K2
+  dec0 (1 -> 4)     one matrix product, then K2      the product, K1, K2
+  dec1..            F.conv_transpose2d, then K2      F.conv_transpose2d, K1, K2
   head              K6 convT, then the sigmoid in f32
 
-The kernels' operand copies (HWIO weights in the compute dtype, folded
-BN scale/offset in f32) are derived once per dtype and device, at the
-first forward after the weights were loaded or moved.
+The train form runs under autograd (ops/autograd.py: K4 / K5b weight
+gradients, K6 for the stem's input gradient) and advances the BN running
+statistics in place. The eval form runs without a graph, on operand
+copies (HWIO weights in the compute dtype, folded BN scale/offset in f32)
+derived once per dtype and device and re-derived whenever a parameter or
+buffer has changed since (their ``_version`` counters, which every
+in-place update raises: the optimizer step, ``load_state_dict``, a
+train-mode forward).
 """
 
 from __future__ import annotations
@@ -33,22 +38,13 @@ from torch import nn
 
 from ..core.precision import F32, Policy
 from ..ops.activations import sigmoid
-from ..ops.batchnorm import batchnorm, fold_eval_bn
+from ..ops.autograd import (KERNEL_OPS, PLAIN_OPS, batch_stats_fn, conv,
+                            conv_batch_stats, head_fn, train_bn_act)
+from ..ops.batchnorm import batchnorm, fold_bn
 from ..ops.conv import (conv_transpose2d, init_conv_, latent_conv,
                         latent_conv_transpose)
-from ..ops.conv_k4s2p1 import conv2d_k4s2p1, conv2d_k4s2p1_plain
-from ..ops.fused import bn_act, bn_act_plain
-from ..ops.halo_conv import (halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_plain,
-                             takes_halo)
-from ..ops.head import head_convt, head_convt_plain
+from ..ops.halo_conv import takes_halo
 from .geometry import KERNEL, LATENT_CH, encoder_channels
-
-# The kernels' wrappers, and their plain versions for comparison runs.
-KERNEL_OPS = {"conv": conv2d_k4s2p1, "halo": halo_conv2d_k4s2p1,
-              "bn_act": bn_act, "head": head_convt}
-PLAIN_OPS = {"conv": conv2d_k4s2p1_plain, "halo": halo_conv2d_k4s2p1_plain,
-             "bn_act": bn_act_plain, "head": head_convt_plain}
-
 
 def enc_conv_index(i: int) -> int:
     """encoder Sequential: [conv, lrelu], then (conv, bn, lrelu) groups."""
@@ -94,70 +90,87 @@ class Generator(nn.Module):
         self._derived: dict = {}
         self.eval()
 
-    # -- derived operand copies -------------------------------------------
-
-    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        self._derived.clear()
-        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+    # -- operands ----------------------------------------------------------
 
     def _apply(self, fn, *args, **kwargs):
         self._derived = {}
         return super()._apply(fn, *args, **kwargs)
 
+    def _bn_layers(self) -> tuple[list, nn.Module, list]:
+        """(encoder BNs of enc1.., the latent BN, decoder BNs of dec0..)."""
+        n = self.n_halvings
+        enc = [self.encoder[enc_bn_index(i)] for i in range(1, n)]
+        dec = [self.decoder[3 * j + 1] for j in range(n)]
+        return enc, self.encoder[enc_bn_index(n)], dec
+
+    def _weights(self, dtype: torch.dtype) -> dict:
+        """The layers' weights in the forms the kernels and products take,
+        in ``dtype``: encoder HWIO, the latent conv as (16*C, 100), dec0 as
+        (100, 16*C), the wide convTs channels-last (as cuDNN takes them),
+        the head HWIO."""
+        def hwio(conv_):  # (O,I,kh,kw) -> (kh,kw,I,O)
+            return conv_.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
+
+        n = self.n_halvings
+        latent = hwio(self.encoder[enc_conv_index(n)])
+        dec0 = self.decoder[0].weight  # (I, O, 4, 4) -> (I, 4*4*O)
+        head = self.decoder[3 * n].weight  # (I,O,kh,kw) -> HWIO
+        return {
+            "enc": [hwio(self.encoder[enc_conv_index(i)]) for i in range(n)],
+            "latent": latent.reshape(-1, latent.shape[-1]),
+            "dec0": dec0.permute(0, 2, 3, 1).reshape(dec0.shape[0], -1)
+                        .to(dtype).contiguous(),
+            "dec": [self.decoder[3 * j].weight.to(dtype).contiguous(
+                        memory_format=torch.channels_last)
+                    for j in range(1, n)],
+            "head": head.permute(2, 3, 0, 1).to(dtype).contiguous(),
+        }
+
     @torch.no_grad()
     def _operands(self, dtype: torch.dtype) -> dict:
+        """Eval operands, re-derived when any parameter or buffer changed."""
         key = (dtype, self.encoder[0].weight.device)
-        if key not in self._derived:
-            self._derived[key] = self._derive(dtype)
-        return self._derived[key]
+        version = weights_version(self)
+        if self._derived.get(key, (None,))[0] != version:
+            self._derived[key] = (version, self._derive(dtype))
+        return self._derived[key][1]
 
     def _derive(self, dtype: torch.dtype) -> dict:
         def bn(m):
-            return fold_eval_bn(m.weight, m.bias, m.running_mean,
-                                m.running_var, m.eps)
+            return fold_bn(m.weight, m.bias, m.running_mean, m.running_var,
+                           m.eps)
 
-        def hwio(conv):  # (O,I,kh,kw) -> (kh,kw,I,O)
-            return conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
-
-        enc = []
-        for i in range(self.n_halvings):
-            conv = self.encoder[enc_conv_index(i)]
-            affine = bn(self.encoder[enc_bn_index(i)]) if i > 0 else (None, None)
-            enc.append((hwio(conv), *affine))
-        li = self.n_halvings
-        latent_w = hwio(self.encoder[enc_conv_index(li)])
-        latent = (latent_w.reshape(-1, latent_w.shape[-1]),
-                  *bn(self.encoder[enc_bn_index(li)]))
-        dec0 = self.decoder[0].weight  # (I, O, 4, 4) -> (I, 4*4*O)
-        dec = [(dec0.permute(0, 2, 3, 1).reshape(dec0.shape[0], -1)
-                .to(dtype).contiguous(), *bn(self.decoder[1]))]
-        n_dec = self.n_halvings + 1
-        for j in range(1, n_dec - 1):  # channels-last, as cuDNN takes it
-            w = self.decoder[3 * j].weight.to(dtype)
-            dec.append((w.contiguous(memory_format=torch.channels_last),
-                        *bn(self.decoder[3 * j + 1])))
-        head = self.decoder[3 * (n_dec - 1)].weight  # (I,O,kh,kw) -> HWIO
-        return {"enc": enc, "latent": latent, "dec": dec,
-                "head": head.permute(2, 3, 0, 1).to(dtype).contiguous()}
+        w = self._weights(dtype)
+        enc_bn, latent_bn, dec_bn = self._bn_layers()
+        enc = [(w["enc"][0], None, None)]
+        enc += [(wi, *bn(m)) for wi, m in zip(w["enc"][1:], enc_bn)]
+        dec = [(wj, *bn(m)) for wj, m in zip([w["dec0"], *w["dec"]], dec_bn)]
+        return {"enc": enc, "latent": (w["latent"], *bn(latent_bn)),
+                "dec": dec, "head": w["head"]}
 
     # -- forward ----------------------------------------------------------
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, *, policy: Policy = F32,
                 plain: bool = False) -> torch.Tensor:
         """x: (N,H,W,3) in [0,1] -> (N,H,W,3) float32 in [0,1].
 
-        plain=True runs the kernels' plain PyTorch versions instead, for
-        holding the kernels' path against them on the card."""
-        if self.training:
-            raise RuntimeError("Generator: the train-mode forward is not "
-                               "ported yet; call .eval()")
+        The train form (``.train()``) normalizes with batch statistics,
+        advances the running statistics and keeps the autograd graph; the
+        eval form runs without a graph. plain=True runs the kernels' plain
+        PyTorch versions instead, for holding the kernels' path against
+        them on the card."""
         ops = PLAIN_OPS if plain else KERNEL_OPS
+        if self.training:
+            return self._train_forward(x, policy, ops)
+        with torch.no_grad():
+            return self._eval_forward(x, policy, ops)
+
+    def _eval_forward(self, x, policy, ops):
         p = self._operands(policy.compute_dtype)
         h = x.to(policy.compute_dtype).contiguous()
         for w, scale, offset in p["enc"]:
-            conv = ops["halo"] if takes_halo(h, w) else ops["conv"]
-            h = conv(h, w, scale=scale, offset=offset, act="leaky")
+            conv_op = ops["halo"] if takes_halo(h, w) else ops["conv"]
+            h = conv_op(h, w, scale=scale, offset=offset, act="leaky")
         w, scale, offset = p["latent"]
         h = ops["bn_act"](latent_conv(h, w), scale, offset, "leaky")
         for j, (w, scale, offset) in enumerate(p["dec"]):
@@ -166,3 +179,24 @@ class Generator(nn.Module):
             h = ops["bn_act"](h, scale, offset, "relu")
         h = ops["head"](h, p["head"])
         return sigmoid(h.float())
+
+    def _train_forward(self, x, policy, ops):
+        w = self._weights(policy.compute_dtype)
+        enc_bn, latent_bn, dec_bn = self._bn_layers()
+        h = conv(x.to(policy.compute_dtype).contiguous(), w["enc"][0], ops,
+                 act="leaky")
+        for wi, bn in zip(w["enc"][1:], enc_bn):
+            h = train_bn_act(bn, *conv_batch_stats(h, wi, ops), "leaky", ops)
+        y = latent_conv(h, w["latent"])
+        h = train_bn_act(latent_bn, y, *batch_stats_fn(y, ops), "leaky", ops)
+        for j, bn in enumerate(dec_bn):
+            y = (latent_conv_transpose(h, w["dec0"]) if j == 0
+                 else conv_transpose2d(h, w["dec"][j - 1]))
+            h = train_bn_act(bn, y, *batch_stats_fn(y, ops), "relu", ops)
+        return sigmoid(head_fn(h, w["head"], ops).float())
+
+
+def weights_version(module: nn.Module) -> tuple:
+    """The ``_version`` counters of a module's parameters and buffers: a
+    key that changes whenever any of them is updated in place."""
+    return tuple(t._version for t in (*module.parameters(), *module.buffers()))

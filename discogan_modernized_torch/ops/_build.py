@@ -33,8 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> count of launches
-launches = {"bn_act": 0, "conv_k4s2p1": 0, "halo_conv_k4s2p1": 0,
-            "head_convt": 0}
+launches = {"batch_stats": 0, "bn_act": 0, "conv_k4s2p1": 0,
+            "conv_k4s2p1_dw": 0, "halo_conv_k4s2p1": 0,
+            "halo_conv_k4s2p1_dw": 0, "head_convt": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -42,10 +43,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
+    "discogan_batch_stats": (_I, [_P, _P, _P, _P, _LL, _I, _I, _P]),
+    "discogan_batch_stats_workspace": (_LL, [_LL, _I]),
     "discogan_bn_act": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _P]),
-    "discogan_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _P]),
-    "discogan_conv_k4s2p1_workspace": (_LL, [_I, _I, _I, _I, _I, _I]),
+    "discogan_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P]),
+    "discogan_conv_k4s2p1_workspace": (_LL, [_I] * 7),
+    "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _P]),
+    "discogan_conv_k4s2p1_dw_workspace": (_LL, [_I] * 6),
+    "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _P]),
+    "discogan_halo_conv_k4s2p1_dw_workspace": (_LL, [_I] * 5),
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _P]),
     "discogan_head_convt": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -151,6 +160,17 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None, ndim=None) -> None
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: tensor must be 16-byte aligned (a view at "
                          "an odd storage offset; pass .clone())")
+
+
+def workspace(n_floats: int, like: torch.Tensor) -> torch.Tensor | None:
+    """An f32 scratch buffer of ``n_floats`` on ``like``'s device, or None."""
+    if not n_floats:
+        return None
+    return torch.empty(n_floats, dtype=torch.float32, device=like.device)
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def stream_of(t: torch.Tensor) -> int:

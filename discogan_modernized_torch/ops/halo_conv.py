@@ -1,7 +1,9 @@
 """The k4/s2/p1 conv tiled over bands of output rows with 1-row halos
-(kernel K5f, csrc/halo_conv_k4s2p1.cu), the port of the JAX package's
-``halo_conv2d_k4s2p1``: the same function as ``conv2d_k4s2p1``, for the
-wide-map, few-channel layer.
+(kernel K5f, csrc/halo_conv_k4s2p1.cu) and its weight gradient (kernel
+K5b, csrc/halo_conv_k4s2p1_dw.cu), the port of the JAX package's
+``halo_conv2d_k4s2p1`` and ``halo_conv2d_k4s2p1_dw``: the same functions as
+``conv2d_k4s2p1`` and ``conv2d_k4s2p1_dw``, for the wide-map, few-channel
+layer. The backward routes by the same rule as the forward.
 
 Preconditions (the JAX docstring's, asserted here): even H and W, CI and CO
 multiples of 8, 2*CI <= 256; the kernel's band holds at most 256 output
@@ -19,17 +21,21 @@ import torch
 
 from . import _build
 from .activations import act_code
-from .conv_k4s2p1 import affine_pointers, check_conv_args
+from .conv_k4s2p1 import (affine_pointers, check_conv_args, check_dw_args,
+                          launch_dw)
+from .conv_k4s2p1 import conv2d_k4s2p1_dw_plain as halo_conv2d_k4s2p1_dw_plain
 from .conv_k4s2p1 import conv2d_k4s2p1_plain as halo_conv2d_k4s2p1_plain
 
 MAX_BAND_WIDTH = 256  # output pixels per row a band can hold
 MIN_WIDTH = 128       # input width from which the route takes this kernel
 MAX_ROUTED_CI = 64
 
-__all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain", "takes_halo"]
+__all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain",
+           "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo"]
 
 
 def _check_preconditions(x, w):
+    """w: the (4,4,CI,CO) weight, or dy (N,Ho,Wo,CO) of the backward."""
     ci, co = x.shape[3], w.shape[3]
     if ci % 8 or co % 8 or 2 * ci > 256:
         raise ValueError(f"halo_conv2d_k4s2p1: CI={ci}, CO={co} must be "
@@ -68,3 +74,13 @@ def halo_conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None):
                   ci, co, code, _build.DTYPE_CODES[x.dtype],
                   _build.stream_of(x))
     return y
+
+
+def halo_conv2d_k4s2p1_dw(x, dy):
+    """Weight gradient of ``halo_conv2d_k4s2p1``: (4,4,CI,CO) in x's dtype."""
+    check_dw_args("halo_conv2d_k4s2p1_dw", x, dy)
+    _check_preconditions(x, dy)
+    dy = dy.to(x.dtype)
+    if x.device.type == "cpu":
+        return halo_conv2d_k4s2p1_dw_plain(x, dy)
+    return launch_dw("halo_conv_k4s2p1_dw", x, dy)

@@ -97,8 +97,10 @@ def test_kernel_calls_per_forward(size, want, monkeypatch):
 
 
 def test_train_mode_forward_is_refused():
+    """A single image: the 1x1 latent's BatchNorm would see one value per
+    channel, which the train form refuses as nn.BatchNorm2d does."""
     gen = Generator(16).train()
-    with pytest.raises(RuntimeError, match="train-mode"):
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
         gen(torch.zeros(1, 16, 16, 3))
 
 

@@ -45,7 +45,7 @@ def test_sources_import_no_jax():
     assert not offenders
 
 
-@pytest.mark.parametrize("entry", ["inference", "serve", "device"])
+@pytest.mark.parametrize("entry", ["inference", "serve", "trainer", "device"])
 def test_cuda_request_raises_without_a_card(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -53,6 +53,11 @@ def test_cuda_request_raises_without_a_card(entry, tmp_path, monkeypatch):
             from discogan_modernized_torch.cli.inference import main
 
             main([f"--model_path={tmp_path}", f"--input_path={tmp_path}"])
+        elif entry == "trainer":
+            from discogan_modernized_torch.cli.image_translation import main
+
+            main(["--task_name=synthetic", f"--models_dir={tmp_path}",
+                  f"--results_dir={tmp_path}"])
         elif entry == "serve":
             from discogan_modernized_torch.tools.serve import parse_args, serve
 
@@ -64,13 +69,16 @@ def test_cuda_request_raises_without_a_card(entry, tmp_path, monkeypatch):
 
 
 def test_defaults_are_cuda_and_bf16_there():
-    from discogan_modernized_torch.cli.common import inference_parser
+    from discogan_modernized_torch.cli.common import (inference_parser,
+                                                     translation_parser)
     from discogan_modernized_torch.core.precision import BF16, F32, default_policy
     from discogan_modernized_torch.tools.serve import parse_args
 
     args = inference_parser().parse_args(["--model_path=m", "--input_path=i"])
     assert args.device == "cuda"
     assert parse_args(["--model_path=m"]).device == "cuda"
+    train_args = translation_parser().parse_args([])
+    assert (train_args.device, train_args.slim_state) == ("cuda", "mv")
     assert default_policy(None, "cuda") is BF16
     assert default_policy(None, "cpu") is F32
     with pytest.raises(ValueError):
