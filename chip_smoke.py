@@ -13,7 +13,11 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               (the CLI's) and at batch 1 (the daemon's, where K3 takes other
               split-K counts); all seven kernels (K1, K2, K3 with and
               without its statistics, K4, K5f, K5b, K6) at every shape of
-              one 512px training step at batch 8; one odd shape each. In
+              one 512px training step at batch 8; one odd shape each, and
+              for K5f's tensor-core path enc1 at batch 1, 4 and 8 with and
+              without the epilogue and its edge shapes (bands that do not
+              divide the map, strips under 64 wide, CO off the 64 tile, CI
+              16/32/48, non-square maps), each with and without it. In
               f32 (TF32 off; tolerance 1e-4 of max(1, max|ref|)) and bf16
               (2e-2: the kernel and the plain version round to bf16 at
               different places; statistics 1e-4 in both, from f32 sums of
@@ -29,7 +33,9 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               forward (6 K3, 1 K5f, 8 K2, 1 K6); outputs finite, in [0,1],
               and equal to the plain versions' forward in f32 (1e-4), close
               in bf16 (PATH_TOL); the forward timed and profiled at batch 4
-              and at batch 1.
+              and at batch 1, each profile showing K5f's time under the
+              tensor-core kernel (halo_wgmma_kernel) and none under the
+              FMA one.
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -196,6 +202,12 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
 
 CHANS = [64, 128, 256, 512, 1024, 2048, 2048]
 DEC_CHANS = [2048, 2048, 1024, 512, 256, 128, 64]
+# K5f's tensor-core edge shapes (n, h, w, ci, co): bands that do not divide
+# the map (29 rows in bands of 2, 23 in bands of 6) or hold an odd count (3),
+# strips under 64 wide (20; 100 = 64 + 36; 150 = 64 + 64 + 22), CO off the
+# 64 tile (72, 24, 136), CI 16/32/48, non-square maps.
+K5F_EDGE = [(4, 58, 40, 32, 72), (8, 46, 256, 32, 128), (8, 24, 256, 16, 128),
+            (2, 24, 200, 16, 24), (1, 20, 300, 64, 136), (3, 10, 6, 48, 16)]
 
 
 def kernel_cases():
@@ -256,6 +268,12 @@ def kernel_cases():
         ("bn_act", "odd 75 rows", (3, 5, 5, 100, "leaky"), None, 0),
         ("conv_k4s2p1", "odd 6x10", (3, 6, 10, 16, 72, True, "leaky"), None, 0),
         ("halo_conv_k4s2p1", "odd 14x22", (3, 14, 22, 8, 24, True, "leaky"), None, 0),
+        ("halo_conv_k4s2p1", "enc1 b1 raw", (1, 256, 256, 64, 128, False, None), None, 0),
+        ("halo_conv_k4s2p1", "enc1 b4 raw", (4, 256, 256, 64, 128, False, None), None, 0),
+        ("halo_conv_k4s2p1", "enc1 b8 ep", (8, 256, 256, 64, 128, True, "leaky"), None, 0),
+        *[("halo_conv_k4s2p1", f"odd {h}x{w}{' raw' if not affine else ''}",
+           (n, h, w, ci, co, affine, "leaky" if affine else None), None, 0)
+          for n, h, w, ci, co in K5F_EDGE for affine in (True, False)],
         ("head_convt", "odd 40x24", (1, 40, 24, 8, 3), None, 0),
         ("batch_stats", "odd 75 rows", (3, 5, 5, 100), None, 0),
         ("conv_stats", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
@@ -598,7 +616,7 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "conv_stats_finalize_kernel": "K3 conv_k4s2p1",
     "conv_dw_kernel": "K4 conv_k4s2p1_dw", "conv_dw_tc_kernel": "K4 conv_k4s2p1_dw",
     "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
-    "halo_conv_kernel": "K5f halo_conv_k4s2p1", "halo_tc_kernel": "K5f halo_conv_k4s2p1",
+    "halo_conv_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_tc_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
@@ -617,17 +635,33 @@ def kernel_label(name: str) -> str:
     return "other: " + name[:60]
 
 
-def profile_forward(fwd, x, policy) -> None:
+def profile_forward(fwd, x, policy) -> dict:
     """Device time of one forward by kernel (torch.profiler), and the share
-    of the window in which no kernel ran."""
-    profile_call(lambda: fwd(x, policy=policy), "one forward")
+    of the window in which no kernel ran; returns us by kernel name."""
+    return profile_call(lambda: fwd(x, policy=policy), "one forward")
 
 
-def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> None:
+K5F_TC_KERNEL = "halo_wgmma_kernel"
+
+
+def check_k5f_route(by_kernel: dict, what: str) -> None:
+    """The profile shows K5f's time under its tensor-core kernel and none
+    under the FMA one: the bf16 main path takes the tensor cores."""
+    tc = sum(us for name, us in by_kernel.items() if K5F_TC_KERNEL in name)
+    fma = sum(us for name, us in by_kernel.items() if "halo_conv_kernel" in name)
+    if not tc > 0 or fma > 0:
+        raise AssertionError(f"{what}: K5f {tc:.1f} us under {K5F_TC_KERNEL}, "
+                             f"{fma:.1f} us under halo_conv_kernel")
+    print(f"{what}: K5f {tc / 1e3:.4f} ms under {K5F_TC_KERNEL}, none under "
+          "halo_conv_kernel")
+
+
+def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> dict:
     """Device time of ``fn()`` by kernel (torch.profiler), the share of the
     window in which no kernel ran, and the split into the port's kernels,
     library kernels and the rest; with ``ops``, also the PyTorch operators
-    that launched the most device time."""
+    that launched the most device time. Returns us by kernel name (empty
+    where the profiler recorded no device kernels)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -639,16 +673,17 @@ def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> None:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         print("profiler: no device kernels recorded; breakdown not measured")
-        return
+        return {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     window = spans[-1][1] - spans[0][0]
-    by_name = defaultdict(float)
+    by_name, by_kernel = defaultdict(float), defaultdict(float)
     for e in kernels:
         by_name[kernel_label(e.name)] += e.time_range.elapsed_us()
+        by_kernel[e.name] += e.time_range.elapsed_us()
     print(f"profile of {what}: device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms window (idle share {1 - busy / window:.3f}), "
           f"{len(kernels)} kernels")
@@ -667,6 +702,7 @@ def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> None:
         for e in rows[:ops]:
             print(f"  {e.self_device_time_total / 1e3:9.4f} ms  "
                   f"{e.self_device_time_total / busy:6.1%}  {e.key} x{e.count}")
+    return dict(by_kernel)
 
 
 def time_forward(model_dir: Path, images: np.ndarray, timer, batch: int) -> float:
@@ -682,7 +718,15 @@ def time_forward(model_dir: Path, images: np.ndarray, timer, batch: int) -> floa
     plain_ms = timer.ms(lambda: fwd(x, policy=BF16, plain=True))
     print(f"forward 512px batch {batch} bf16: {ms:.3f} ms through the kernels, "
           f"{plain_ms:.3f} ms through the plain versions")
-    profile_forward(fwd, x, BF16)
+    # The profiler now and then keeps only the tail of a short window (a
+    # batch-1 forward's trace once held 18 of its 39 kernels): profile
+    # again, up to three times, until the trace holds a K5f kernel.
+    for _ in range(3):
+        by_kernel = profile_forward(fwd, x, BF16)
+        if any("halo_" in name for name in by_kernel):
+            break
+        print("the profile holds no K5f kernel; profiling again")
+    check_k5f_route(by_kernel, f"forward batch {batch}")
     return ms
 
 

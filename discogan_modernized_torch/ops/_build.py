@@ -56,7 +56,7 @@ _SIGNATURES = {
                                           _I, _P]),
     "discogan_halo_conv_k4s2p1_dw_workspace": (_LL, [_I] * 5),
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _I, _P]),
+                                       _I, _I, _I, _I, _P]),
     "discogan_head_convt": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 

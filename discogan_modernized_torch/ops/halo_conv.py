@@ -11,11 +11,17 @@ pixels of a row, so W/2 <= 256. ``takes_halo`` is the shape rule that
 sends a layer here instead of to K3: an input at least 128 pixels wide
 with at most 64 channels (at 512px that is enc1 alone; enc2's 128px input
 has 128 channels, where K3's contraction per tap is already deep).
+On the card K5f has two paths, picked here by dtype and shape: bf16 with
+CI % 16 == 0 and CI <= 64 (enc1) takes the tensor-core kernel with the tile
+plan of ``tc_plan``; f32 and the other shapes take the f32-FMA kernel.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,8 +36,60 @@ MAX_BAND_WIDTH = 256  # output pixels per row a band can hold
 MIN_WIDTH = 128       # input width from which the route takes this kernel
 MAX_ROUTED_CI = 64
 
+# The tensor-core path's tiling (csrc/halo_conv_k4s2p1.cu, namespace tc): a
+# block owns a strip of TC_STRIP output columns of one image, a TC_CO_TILE
+# channel tile and a run of output rows, with the tile's weights resident
+# and a ring of TC_SLOTS input rows, each staged as two column-parity
+# planes of TC_STRIP + 1 pixels, TC_PIXEL_BYTES a pixel.
+TC_STRIP = 64
+TC_CO_TILE = 64
+TC_SLOTS = 6
+TC_PIXEL_BYTES = 128
+TC_MAX_CI = 64
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may have (H100)
+H100_SMS = 132
+
 __all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain",
-           "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo"]
+           "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo",
+           "tc_plan", "TilePlan"]
+
+
+class TilePlan(NamedTuple):
+    rows: int       # output rows per block
+    bands: int      # blocks down the map
+    strips: int     # blocks across the map
+    co_tiles: int   # blocks across the output channels
+    smem_bytes: int
+
+    @property
+    def blocks_per_image(self) -> int:
+        return self.bands * self.strips * self.co_tiles
+
+
+def tc_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
+            sms: int = H100_SMS) -> TilePlan | None:
+    """The tensor-core path's tile plan for x (n,h,w,ci) and CO channels, or
+    None where that path does not take the shape (f32, CI % 16 != 0,
+    CI > 64, CO % 8 != 0). Rows per block are as few as keep the grid
+    within one wave of ``sms`` blocks (one block fits an SM): each block
+    pays its weights' copy and two halo rows once, so fewer, longer runs
+    cost less, and one wave of equal blocks ends together."""
+    if dtype != torch.bfloat16 or ci % 16 or not 0 < ci <= TC_MAX_CI or co % 8:
+        return None
+    ho, wo = h // 2, w // 2
+    strips = -(-wo // TC_STRIP)
+    co_tiles = -(-co // TC_CO_TILE)
+    bands_wanted = max(1, min(ho, sms // max(1, n * strips * co_tiles)))
+    rows = max(1, -(-ho // bands_wanted))
+    bands = -(-ho // rows)
+    smem = (TC_SLOTS * 2 * (TC_STRIP + 1) * TC_PIXEL_BYTES
+            + 16 * ci * TC_CO_TILE * 2)
+    return TilePlan(rows, bands, strips, co_tiles, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_preconditions(x, w):
@@ -67,12 +125,13 @@ def halo_conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None):
     _build.check_cuda_tensor("halo_conv2d_k4s2p1 x", x)
     _build.check_cuda_tensor("halo_conv2d_k4s2p1 w", w, dtype=x.dtype)
     sp, op = affine_pointers("halo_conv2d_k4s2p1", scale, offset, co)
+    plan = tc_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
     y = torch.empty(n, h // 2, wd // 2, co, dtype=x.dtype, device=x.device)
     lib = _build.library()
     _build.launch("halo_conv_k4s2p1", lib.discogan_halo_conv_k4s2p1,
                   x.data_ptr(), w.data_ptr(), sp, op, y.data_ptr(), n, h, wd,
                   ci, co, code, _build.DTYPE_CODES[x.dtype],
-                  _build.stream_of(x))
+                  plan.rows if plan else 0, _build.stream_of(x))
     return y
 
 

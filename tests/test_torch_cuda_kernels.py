@@ -100,6 +100,34 @@ def test_halo_conv(gen, dtype, n, h, w, ci, co, affine):
            halo_conv2d_k4s2p1_plain(x, wt, scale=s, offset=o, act="leaky"), dtype)
 
 
+@pytest.mark.parametrize("affine", [True, False], ids=["epilogue", "raw"])
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (1, 256, 256, 64, 128), (4, 256, 256, 64, 128), (8, 256, 256, 64, 128),
+    (4, 58, 40, 32, 72), (8, 46, 256, 32, 128), (8, 24, 256, 16, 128),
+    (2, 24, 200, 16, 24), (1, 20, 300, 64, 136), (3, 10, 6, 48, 16)])
+def test_halo_conv_tensor_cores(gen, n, h, w, ci, co, affine):
+    """The bf16 wgmma path at enc1 (batch 1, 4, 8) and its edge cases: rows
+    per block that do not divide the map (29 rows in bands of 2; 23 in
+    bands of 6) or are odd (3), strips narrower than 64 (20; 100 = 64 + 36;
+    150 = 64 + 64 + 22), CO off the 64 tile (72, 24, 136), CI of 16, 32
+    and 48, non-square maps. One launch each, on the tensor-core route."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.halo_conv import tc_plan
+
+    configure(BF16)
+    assert tc_plan(n, h, w, ci, co, torch.bfloat16) is not None
+    x = _rand(gen, torch.bfloat16, n, h, w, ci)
+    wt = _rand(gen, torch.bfloat16, 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+    s = torch.rand(co, device="cuda", generator=gen) + 0.5 if affine else None
+    o = torch.randn(co, device="cuda", generator=gen) * 0.1 if affine else None
+    act = "leaky" if affine else None
+    before = _build.launches["halo_conv_k4s2p1"]
+    got = halo_conv2d_k4s2p1(x, wt, scale=s, offset=o, act=act)
+    assert _build.launches["halo_conv_k4s2p1"] == before + 1
+    _close(got, halo_conv2d_k4s2p1_plain(x, wt, scale=s, offset=o, act=act),
+           torch.bfloat16)
+
+
 @pytest.mark.parametrize("n,h,w,ci,co", [
     (2, 8, 8, 16, 1), (1, 40, 24, 8, 3), (2, 8, 300, 16, 3), (1, 6, 10, 24, 8),
     (4, 256, 256, 64, 3)])
