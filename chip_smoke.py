@@ -17,7 +17,12 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               for K5f's tensor-core path enc1 at batch 1, 4 and 8 with and
               without the epilogue and its edge shapes (bands that do not
               divide the map, strips under 64 wide, CO off the 64 tile, CI
-              16/32/48, non-square maps), each with and without it. In
+              16/32/48, non-square maps), each with and without it; K4
+              (the halving convs' weight gradient) at enc5 and enc6 at
+              batch 1 and at its edge shapes (CI 16/32/48 under one channel
+              block, CO 72, M under one chunk, a ragged M, enc2 at batch 2
+              with a split, stems of 1 and 4 channels), each K4 call
+              launched twice for the same bits. In
               f32 (TF32 off; tolerance 1e-4 of max(1, max|ref|)) and bf16
               (2e-2: the kernel and the plain version round to bf16 at
               different places; statistics 1e-4 in both, from f32 sums of
@@ -52,7 +57,9 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               against PER_STEP, every loss finite, ms per D and per G step
               (CUDA events, median after the first two iterations), img/s
               and peak memory; gen_B_final.pth through the inference CLI;
-              a torch.profiler split of one G step.
+              a torch.profiler split of one G step, which shows K4's bf16
+              time under its wgmma kernels (conv_dw_wgmma_kernel,
+              conv_dw_stem_kernel) and none under the FMA one.
   8. report   one JSON line of kernels, the nvidia-smi line, and the last
               line {"ok": true, "device": {...}}.
 """
@@ -208,6 +215,15 @@ DEC_CHANS = [2048, 2048, 1024, 512, 256, 128, 64]
 # 64 tile (72, 24, 136), CI 16/32/48, non-square maps.
 K5F_EDGE = [(4, 58, 40, 32, 72), (8, 46, 256, 32, 128), (8, 24, 256, 16, 128),
             (2, 24, 200, 16, 24), (1, 20, 300, 64, 136), (3, 10, 6, 48, 16)]
+# K4's edge shapes (label, (n, h, w, ci, co)): CI 16/32/48 under one 64-channel
+# block, CO off the 128 tile (72), M under one 64-pixel chunk (enc6 at batch
+# 1: 16 pixels), a ragged M (105 pixels) on a map 5 wide, enc2 at batch 2
+# with its split over M, stems of 1 and 4 channels.
+K4_EDGE = [("ci16", (2, 16, 16, 16, 64)), ("ci32", (2, 32, 32, 32, 64)),
+           ("ci48 co72", (3, 16, 16, 48, 72)), ("enc6 b1", (1, 8, 8, 2048, 2048)),
+           ("enc5 b1", (1, 16, 16, 1024, 2048)), ("ragged M", (3, 14, 10, 16, 72)),
+           ("enc2 b2", (2, 128, 128, 128, 256)), ("stem ci1", (2, 16, 16, 1, 8)),
+           ("stem ci4", (2, 32, 32, 4, 72))]
 
 
 def kernel_cases():
@@ -278,6 +294,7 @@ def kernel_cases():
         ("batch_stats", "odd 75 rows", (3, 5, 5, 100), None, 0),
         ("conv_stats", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
         ("conv_k4s2p1_dw", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
+        *[("conv_k4s2p1_dw", label, shape, None, 0) for label, shape in K4_EDGE],
         ("halo_conv_k4s2p1_dw", "odd 14x22", (3, 14, 22, 8, 24), None, 0),
     ]
     return cases
@@ -382,6 +399,9 @@ def run_case(kernel, args, dtype, timer, g):
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    if kernel == "conv_k4s2p1_dw" and not torch.equal(got, kern()):
+        raise AssertionError(f"{kernel} {args} {DTYPE_NAMES[dtype]}: two launches "
+                             "gave different bits")
     # (output, tolerance) pairs: y, and the statistics where there are some
     if kernel == "conv_stats":
         pairs = [(got[0], want[0], TOL[dtype]),
@@ -614,8 +634,8 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "splitk_epilogue_kernel": "K3 conv_k4s2p1",
     "splitk_stats_epilogue_kernel": "K3 conv_k4s2p1",
     "conv_stats_finalize_kernel": "K3 conv_k4s2p1",
-    "conv_dw_kernel": "K4 conv_k4s2p1_dw", "conv_dw_tc_kernel": "K4 conv_k4s2p1_dw",
-    "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
+    "conv_dw_kernel": "K4 conv_k4s2p1_dw", "conv_dw_wgmma_kernel": "K4 conv_k4s2p1_dw",
+    "conv_dw_stem_kernel": "K4 conv_k4s2p1_dw", "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
     "halo_conv_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_tc_kernel": "K5b halo_conv_k4s2p1_dw",
@@ -654,6 +674,22 @@ def check_k5f_route(by_kernel: dict, what: str) -> None:
                              f"{fma:.1f} us under halo_conv_kernel")
     print(f"{what}: K5f {tc / 1e3:.4f} ms under {K5F_TC_KERNEL}, none under "
           "halo_conv_kernel")
+
+
+K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
+
+
+def check_k4_route(by_kernel: dict, what: str) -> None:
+    """The profile shows K4's time under its wgmma kernels (and its split
+    sums) and none under the FMA one: every bf16 K4 call of the training
+    step takes the tensor cores."""
+    tc = {k: sum(us for name, us in by_kernel.items() if k in name) for k in K4_TC_KERNELS}
+    fma = sum(us for name, us in by_kernel.items() if "conv_dw_kernel" in name)
+    if not all(us > 0 for us in tc.values()) or fma > 0:
+        raise AssertionError(f"{what}: K4 {tc} us under its wgmma kernels, "
+                             f"{fma:.1f} us under conv_dw_kernel")
+    print(f"{what}: K4 " + ", ".join(f"{us / 1e3:.4f} ms under {k}" for k, us in tc.items())
+          + ", none under conv_dw_kernel")
 
 
 def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> dict:
@@ -957,8 +993,10 @@ def profile_g_step() -> None:
             for _ in range(2))
     dis_step(ts, A, B, 0.01)
     gen_step(ts, A, B, 0.01)
-    profile_call(lambda: gen_step(ts, A, B, 0.01), "one G step (512px, batch 8, bf16)",
-                 top=16, ops=12)
+    what = "one G step (512px, batch 8, bf16)"
+    by_kernel = profile_call(lambda: gen_step(ts, A, B, 0.01), what, top=16, ops=12)
+    if by_kernel:
+        check_k4_route(by_kernel, what)
     del ts
     torch.cuda.empty_cache()
 

@@ -10,41 +10,48 @@
 // im2col gather of x (tap = k / I, channel = k % I, padding applied on the
 // fly) and B[m, o] = dy.
 //
-// Bound on the H100: operations (2*M*K*O flops) for every layer of the
-// 512px model; bytes only where M is short (enc6 at batch 8: 17 GFLOP
-// against 134 MB of dw and 33 MB of x in bf16).
+// Bound on the H100: operations (2*M*K*O flops) for enc2..enc5 of the
+// 512px model; bytes for the stem (enc0 at batch 8: 67 MB of dy and 12.6 MB
+// of x against 3.2 GFLOP) and where M is short (enc6 at batch 8: 17 GFLOP
+// against 134 MB of dw and 33 MB of x).
 //
-// The layers span two regimes, and one tiling covers both: output tiles
-// of the (K, O) matrix across blocks, and the contraction over M split
-// across blocks as well while the output tiles alone fill fewer than two
-// waves of the card's 132 SMs.
-// - enc0/dis0 (K = 48, O = 64, M = B*65536): one output tile, so M is split
-//   into up to 512 parts;
-// - enc5/enc6 (K = 16384 / 32768, O = 2048, M = B*64 / B*16): thousands of
-//   output tiles and no split.
-// Split parts write f32 partials to a workspace the wrapper allocates, and
-// a second pass sums them in order and casts (the Pallas function's
+// The wrapper plans each call (ops/conv_k4s2p1.py::dw_plan) and passes the
+// path, the split over M, the grid and the shared memory here. Split parts
+// write f32 partials to a workspace the wrapper allocates, and a second
+// pass sums them in a fixed order and casts (the Pallas function's
 // per-batch-tile f32 parts summed by the caller, as one pass). No float
-// atomics: two launches give the same bits.
-// Two paths, chosen by dtype and shape:
-// - bf16 with I % 16 == 0 and O % 8 == 0 (enc2..enc6): the tensor cores.
-//   128 (k) x 128 (o) tiles of 8 warps, each warp 64x32 as 4x2 WMMA
-//   16x16x16 bf16 fragments with f32 accumulators; M in steps of 32 pixels.
-//   Shared tiles are [pixel][k] and [pixel][o]: A^T loads as a col-major
-//   fragment, so a gathered row is 16 contiguous channels of one tap (two
-//   16-byte loads). The next step's tiles are loaded into registers while
-//   the current one multiplies.
-// - everything else (f32, and enc0's 3 channels): f32 FMA on the CUDA
-//   cores, 64x64 output tiles of 256 threads, each a 4x4 micro-tile, M in
-//   steps of 16 pixels.
-#include <mma.h>
-
+// atomics: two launches give the same bits. Three paths:
+// - bf16 with I % 8 == 0 and O % 8 == 0 (enc2..enc6): conv_dw_wgmma_kernel.
+//   A tile is one kernel row kh (its four taps kw), 64 input channels and
+//   128 output channels: a 256 x 128 slice of dw, 128 f32 accumulators a
+//   thread over two warpgroups (taps kw 0, 1 and kw 2, 3). The contraction
+//   runs over chunks of 64 output pixels through a ring of shared-memory
+//   stages that cp.async fills two chunks ahead. Both wgmma operands are
+//   MN-major ("transposed"): x's tile is A, [pixel][64 channels], and dy's
+//   is B, [pixel][128 o] as two 64-wide halves, in 128-byte rows with the
+//   128-byte swizzle (csrc/wgmma.cuh), 8-pixel groups along the
+//   contraction. x is staged once per chunk for the four taps: where
+//   WO % 8 == 0 (enc2..enc5), each 8-pixel group's input segment as two
+//   column-parity planes of 9 pixels, so tap kw's window is plane kw & 1
+//   shifted by kw >> 1 pixels (groups 1152 bytes apart: the descriptor's
+//   stride), the JAX kernel's column-pair view; elsewhere (enc6's 4-wide
+//   map) as the four taps' windows. wgmma m64n128k16 runs 8 times a chunk
+//   per warpgroup, one chunk's group in flight across the barrier that
+//   admits the next. M is split only while the tiles fill less than one
+//   wave of the card's SMs (enc2, enc3); unsplit, one block per SM walks
+//   its tiles with the copies running ahead across tile boundaries, and a
+//   tile's epilogue (through a bf16 buffer, whole rows in 16-byte stores)
+//   overlaps the next tile's loads.
+// - bf16 with I <= 4 (the stem): conv_dw_stem_kernel, one warpgroup a block
+//   over an im2col tile of the 16*I dw rows (x read as 4 contiguous window
+//   rows a pixel), wgmma m64n64k16, parts summed by the second pass.
+// - everything else (f32, channel counts off those tiles): f32 FMA on the
+//   CUDA cores, 64x64 output tiles of 256 threads, each a 4x4 micro-tile, M
+//   in steps of 16 pixels, split while the tiles fill fewer than two waves.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
-
-constexpr int TARGET_BLOCKS = 2 * 132;
-constexpr int MIN_STEPS_PER_SPLIT = 8;
 
 // ---- f32 FMA path ---------------------------------------------------------
 
@@ -140,176 +147,454 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---- tensor-core path (bf16, I % 16 == 0, O % 8 == 0) ---------------------
+// ---- tensor-core path (bf16, CI % 8 == 0, CO % 8 == 0): wgmma -------------
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int BK = 128;  // k rows
-constexpr int BN = 128;  // o columns
-constexpr int BM = 32;   // pixels per step
-constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;  // multiples of 8 (WMMA), padded against bank conflicts
-constexpr int LDB = BN + 8;
+using namespace hopper;
+constexpr int THREADS = 256;        // two warpgroups: taps kw 0, 1 and kw 2, 3
+constexpr int CH = 64;              // input channels of a tile: dw rows per tap
+constexpr int BN = 128;             // output channels of a tile
+constexpr int CHUNK = 64;           // output pixels a pipeline stage holds
+constexpr int GROUPS = CHUNK / 8;   // 8-pixel groups of a chunk
+constexpr int GROUP_PX = 9;         // plane pixels staged per group: 8 + the kw >= 2 shift
+constexpr int PLANE_BYTES = GROUPS * GROUP_PX * 128;
+constexpr int DY_BYTES = CHUNK * BN * 2;
+constexpr int EPI_PITCH = BN + 8;   // bf16 epilogue row, in values (against bank conflicts)
+constexpr int EPI_BYTES = 4 * CH * EPI_PITCH * 2;
+constexpr int MAX_TILES = 64;       // tiles a block walks (the plan keeps to it)
 
-__global__ void __launch_bounds__(THREADS)
-    conv_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                      bf16* __restrict__ dw, float* __restrict__ partial, int n, int h, int wd,
-                      int ci, int co, int steps_per_split) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[BM * LDA];  // [pixel][k]
-  __shared__ __align__(128) bf16 Bs[BM * LDB];  // [pixel][o]
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
+// x bytes of a stage: two column-parity planes, or four per-tap windows.
+template <bool PLANES>
+__host__ __device__ constexpr int x_bytes() { return PLANES ? 2 * PLANE_BYTES : 4 * CHUNK * 128; }
+template <bool PLANES>
+__host__ __device__ constexpr int stage_bytes() { return x_bytes<PLANES>() + DY_BYTES; }
+// Stages of the ring (as many as fit beside the epilogue's buffer); copies
+// run stages - 2 chunks ahead.
+template <bool PLANES>
+__host__ __device__ constexpr int stages() { return PLANES ? 4 : 3; }
+template <bool PLANES>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<PLANES>() * stage_bytes<PLANES>() + EPI_BYTES + MAX_TILES * 16;
+}
 
-  const int ho = h / 2, wo = wd / 2;
-  const long long m_total = static_cast<long long>(n) * ho * wo;
-  const int k0 = blockIdx.x * BK, o0 = blockIdx.y * BN;
-  const long long step_begin = static_cast<long long>(blockIdx.z) * steps_per_split;
-  const long long m_end = min(m_total, (step_begin + steps_per_split) * BM);
-  const long long s_begin = step_begin * BM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // the warp's 64x32: k rows wm*64, o cols wn*32
+// A tile is kernel row kh, input channels ci0 .. ci0+63, output channels
+// o0 .. o0+127 and one part of the split contraction: tile index
+// ((split * Y + y) * X + x), x the o tile, y = 4 * (channel block) + kh.
+// Block b takes tiles b, b + gridDim.x, ... (one tile where M is split);
+// its work is the sequence of (tile, chunk) items, which the copies walk
+// ahead of the wgmmas across tile boundaries, so a tile's epilogue runs
+// while the next tile's first chunks land. Warpgroup g accumulates taps
+// kw = 2g, 2g + 1, each a 64 (channel) x 128 (o) f32 tile in registers.
+template <bool PLANES>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv_dw_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                         bf16* __restrict__ dw, float* __restrict__ partial, int n, int h, int wd,
+                         int ci, int co, int splits, int steps_per_split) {
+  constexpr int STAGE = stage_bytes<PLANES>(), XB = x_bytes<PLANES>(), STAGES = stages<PLANES>();
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  unsigned char* epi = smem + STAGES * STAGE;
+  int4* tab = reinterpret_cast<int4*>(epi + EPI_BYTES);  // this block's tiles
+  const int ho = h / 2, wo = wd / 2, hw = ho * wo;
+  const int m_total = n * hw;
+  const int x_tiles = (co + BN - 1) / BN, y_tiles = (ci + CH - 1) / CH * 4;
+  const int tiles = x_tiles * y_tiles * splits;
+  const int chunks = (m_total + CHUNK - 1) / CHUNK;
+  // chunks per tile: all of M, or this block's one part of the split
+  const int nch = splits > 1 ? min(steps_per_split, chunks - (blockIdx.x / (x_tiles * y_tiles)) *
+                                                            steps_per_split)
+                             : chunks;
+  const int my_tiles = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int items = my_tiles * nch;
+  const int tid = threadIdx.x, g = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
 
-  // A loader: pixel row ld_m of the step, 16 k from ld_c (one tap, I % 16 == 0).
-  const int ld_m = tid / 8, ld_c = (tid % 8) * 16;
-  const int k = k0 + ld_c;
-  const int tap = k / ci, ch = k - tap * ci;
-  const int kh = tap >> 2, kw = tap & 3;
+  // Tile k of this block: {o0, ci0, kh, split}.
+  if (tid < my_tiles) {
+    const int tile = blockIdx.x + tid * gridDim.x;
+    const int xt = tile % x_tiles, rest = tile / x_tiles, yt = rest % y_tiles;
+    tab[tid] = make_int4(xt * BN, (yt >> 2) * CH, yt & 3, rest / y_tiles);
+  }
+  __syncthreads();
 
-  uint4 ra[2], rb[2];
-  auto load = [&](long long ms) {
-    const long long m = ms + ld_m;
-    ra[0] = ra[1] = rb[0] = rb[1] = make_uint4(0, 0, 0, 0);
-    if (m >= m_end) return;
-    const int ox = static_cast<int>(m % wo);
-    const int oy = static_cast<int>((m / wo) % ho);
-    const long long b = m / (static_cast<long long>(wo) * ho);
-    const int iy = 2 * oy - 1 + kh, ix = 2 * ox - 1 + kw;
-    if (iy >= 0 && iy < h && ix >= 0 && ix < wd) {
-      const uint4* src = reinterpret_cast<const uint4*>(x + ((b * h + iy) * wd + ix) * ci + ch);
-      ra[0] = src[0];
-      ra[1] = src[1];
-    }
-    const bf16* drow = dy + m * co;
+  // Copy the next item (chunk cur_t of tile cur_k, the cur_q-th item) into
+  // its ring slot, if `go`; zero-filled past M, past the map's edges (the
+  // padding), past CI and past CO. Each thread's copies keep their place
+  // in every chunk, so their shared-memory offsets are fixed here and an
+  // item costs one pixel decomposition. Unrolled and predicated: it runs while
+  // wgmmas are in flight. Every stage starts on a 1024-byte boundary, so a
+  // unit's swizzle depends on its offset in the stage alone.
+  // dy: 64 pixels x 128 channels as two 64-channel halves of 64 rows; this
+  // thread copies 16 bytes at channel o0 + dy_o of pixels dy_px + 16i.
+  const int dy_px = tid >> 4, dy_o = ((tid >> 3) & 1) * 64 + (tid & 7) * 8;
+  const uint32_t dy_soff =
+      XB + (((tid >> 3) & 1) * CHUNK + dy_px) * 128 + ((tid & 7) ^ (dy_px & 7)) * 16;
+  // x, parity planes: warp w copies group w (pixels 8w .. 8w+7 of the
+  // chunk), lane: channel chunk lane % 8 of columns lane / 8 + 4k; windows:
+  // pixel tid / 4, channel chunks tid % 4 and tid % 4 + 4, the four taps.
+  constexpr int XU = PLANES ? 5 : 2;
+  const int xw = tid >> 5, xu = PLANES ? (lane & 7) : (tid & 3), xpx = tid >> 2;
+  uint32_t x_soff[XU];
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int col = o0 + ld_c + 8 * v;
-      if (col < co) rb[v] = *reinterpret_cast<const uint4*>(drow + col);
+  for (int k = 0; k < XU; ++k) {
+    if constexpr (PLANES) {
+      const int j = (lane >> 3) + 4 * k, row = (j & 1) * GROUPS * GROUP_PX + xw * GROUP_PX + (j >> 1);
+      x_soff[k] = (row * 8 + (xu ^ (row & 7))) * 16;
+    } else {
+      x_soff[k] = (xpx * 8 + ((xu + 4 * k) ^ (xpx & 7))) * 16;
+    }
+  }
+  int cur_q = 0, cur_k = 0, cur_t = 0;
+  auto stage = [&](bool go) {
+    const int4 tl = tab[min(cur_k, my_tiles - 1)];  // .x o0, .y ci0, .z kh, .w split
+    const int c = tl.w * steps_per_split + cur_t;
+    const uint32_t slot = sbase + (cur_q % STAGES) * STAGE;
+    ++cur_q;
+    ++cur_t;
+    const bool wrap = cur_t == nch;
+    cur_t = wrap ? 0 : cur_t;
+    cur_k += wrap;
+    const bf16* dy_src = dy + static_cast<long long>(c * CHUNK + dy_px) * co + tl.x + dy_o;
+#pragma unroll
+    for (int i = 0; i < CHUNK * BN / 8 / THREADS; ++i) {
+      const bool ok = (c * CHUNK + dy_px + 16 * i < m_total) & (tl.x + dy_o < co);
+      cp_async16(slot + dy_soff + i * 16 * 128, ok ? dy_src + 16LL * i * co : dy, ok, go);
+    }
+    const int m = c * CHUNK + (PLANES ? 8 * xw : xpx);
+    const int b = m / hw, r = m - b * hw, oy = r / wo, ox = r - oy * wo;
+    const int iy = 2 * oy - 1 + tl.z, ix0 = 2 * ox - 1;
+    const bool row_ok = (m < m_total) & (iy >= 0) & (iy < h);
+    const bf16* xrow = x + ((static_cast<long long>(b) * h + iy) * wd + ix0) * ci + tl.y;
+    if constexpr (PLANES) {
+      // input row 2oy - 1 + kh, columns 2ox - 1 .. 2ox + 16 of the group,
+      // as two column-parity planes of 9 pixels: [plane][group][9 pixels]
+#pragma unroll
+      for (int k2 = 0; k2 < XU; ++k2) {
+        const int j = (lane >> 3) + 4 * k2;
+        const bool ok = row_ok & (j < 2 * GROUP_PX) & (ix0 + j >= 0) & (ix0 + j < wd) &
+                        (tl.y + xu * 8 < ci);
+        cp_async16(slot + x_soff[k2], ok ? xrow + j * ci + xu * 8 : x, ok,
+                   go & (j < 2 * GROUP_PX));
+      }
+    } else {
+      // the four taps' windows, [kw][64 pixels]
+#pragma unroll
+      for (int kw = 0; kw < 4; ++kw)
+#pragma unroll
+        for (int k2 = 0; k2 < XU; ++k2) {
+          const int u = xu + 4 * k2;
+          const bool ok = row_ok & (ix0 + kw >= 0) & (ix0 + kw < wd) & (tl.y + u * 8 < ci);
+          cp_async16(slot + x_soff[k2] + kw * CHUNK * 128, ok ? xrow + kw * ci + u * 8 : x, ok,
+                     go);
+        }
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  float acc[2][64];  // set by each tile's first wgmmas (scale-d 0)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  if (s_begin < m_end) load(s_begin);
-  for (long long ms = s_begin; ms < m_end; ms += BM) {
-    __syncthreads();  // the previous step's fragments are read
-    *reinterpret_cast<uint4*>(&As[ld_m * LDA + ld_c]) = ra[0];
-    *reinterpret_cast<uint4*>(&As[ld_m * LDA + ld_c + 8]) = ra[1];
-    *reinterpret_cast<uint4*>(&Bs[ld_m * LDB + ld_c]) = rb[0];
-    *reinterpret_cast<uint4*>(&Bs[ld_m * LDB + ld_c + 8]) = rb[1];
-    __syncthreads();
-    if (ms + BM < m_end) load(ms + BM);  // in flight while this step multiplies
-#pragma unroll
-    for (int mm = 0; mm < BM; mm += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], As + mm * LDA + wm * 64 + i * 16, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + mm * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
+  for (int q = 0; q < STAGES - 2; ++q) {
+    stage(q < items);
+    cp_async_commit();
   }
-
-  // Store through a per-warp 16x16 scratch: lane -> row lane/2, 8 columns.
   const long long ko = 16LL * ci * co;
-  float* cs = Cs[warp];
-  const int r = lane / 2, c = (lane % 2) * 8;
+#pragma unroll 1
+  for (int k = 0; k < my_tiles; ++k) {
+    // Item q: its copies landed (this thread's, then everyone's at the
+    // barrier, which also sees every warpgroup past item q - 2's wgmmas);
+    // its wgmmas issued; item q + STAGES - 2 copied into item q - 2's slot;
+    // then wait until only item q's wgmmas are in flight.
+#pragma unroll 1
+    for (int t = 0; t < nch; ++t) {
+      const int q = k * nch + t;
+      cp_async_wait<STAGES - 3>();
+      __syncthreads();
+      const uint32_t slot = sbase + (q % STAGES) * STAGE;
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int s = 0; s < CHUNK / 16; ++s) {
+        // B: dy pixels 16s .. 16s+15, the halves 8192 bytes apart.
+        const uint64_t desc_b = sw128_desc(slot + XB + s * 16 * 128, CHUNK * 128, 1024);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long kr = k0 + wm * 64 + i * 16 + r;
-      const int col0 = o0 + wn * 32 + j * 16 + c;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int col = col0 + q;
-        if (col >= co) break;
-        const float v = cs[r * 16 + c + q];
-        if (partial != nullptr) {
-          partial[blockIdx.z * ko + kr * co + col] = v;
-        } else {
-          dw[kr * co + col] = __float2bfloat16(v);
+        for (int j = 0; j < 2; ++j) {
+          // A: tap kw = 2g + j at pixels 16s .. 16s+15. Parity planes:
+          // plane j, groups 2s and 2s+1 (9 pixels apart), shifted by g
+          // pixels.
+          const uint32_t a = PLANES ? slot + j * PLANE_BYTES + (2 * s * GROUP_PX + g) * 128
+                                    : slot + ((2 * g + j) * CHUNK + 16 * s) * 128;
+          wgmma_m64n128k16_tt(acc[j], sw128_desc(a, 8192, PLANES ? GROUP_PX * 128 : 1024),
+                              desc_b, (t | s) != 0);
         }
       }
-      __syncwarp();
+      wgmma_commit();
+      stage(q + STAGES - 2 < items);
+      cp_async_commit();
+      wgmma_wait<1>();
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) keep(acc[j][e]);
+
+    // The tile's epilogue. acc[j][4 nt + 2 hf + e]: channel 16 warp +
+    // lane/4 + 8 hf of tap kw = 2g + j, o 8 nt + 2 (lane % 4) + e. A split
+    // part stores f32 pairs from the registers (a quad writes one 32-byte
+    // sector); dw goes through shared memory as bf16 pairs and out in
+    // 16-byte stores of whole rows.
+    const int4 tl = tab[k];
+    if (partial != nullptr) {
+      float* part = partial + tl.w * ko;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int ch = tl.y + 16 * warp + (lane >> 2) + 8 * hf;
+          float* prow = part + (static_cast<long long>(tl.z * 4 + 2 * g + j) * ci + ch) * co;
+#pragma unroll
+          for (int nt = 0; nt < BN / 8; ++nt) {
+            const int o = tl.x + 8 * nt + 2 * (lane & 3);
+            if (ch < ci && o < co)
+              *reinterpret_cast<float2*>(prow + o) =
+                  make_float2(acc[j][4 * nt + 2 * hf], acc[j][4 * nt + 2 * hf + 1]);
+          }
+        }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = (2 * g + j) * CH + 16 * warp + (lane >> 2) + 8 * hf;
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt)
+          *reinterpret_cast<uint32_t*>(epi + (row * EPI_PITCH + 8 * nt + 2 * (lane & 3)) * 2) =
+              pack_bf16x2(acc[j][4 * nt + 2 * hf], acc[j][4 * nt + 2 * hf + 1]);
+      }
+    __syncthreads();
+    constexpr int UNITS = BN / 8;  // 16-byte units of a row
+    for (int e = tid; e < 4 * CH * UNITS; e += THREADS) {
+      const int row = e / UNITS, u = e - row * UNITS;
+      const int ch = tl.y + row % CH, o = tl.x + u * 8;
+      if (ch >= ci || o >= co) continue;
+      *reinterpret_cast<uint4*>(dw + (static_cast<long long>(tl.z * 4 + row / CH) * ci + ch) * co +
+                                o) =
+          *reinterpret_cast<const uint4*>(epi + (row * EPI_PITCH + u * 8) * 2);
+    }
+    // The next tile's epilogue writes this buffer after the barrier of its
+    // first chunk.
+  }
+  cp_async_wait();
 }
 
-bool applies(int dtype, int ci, int co) { return dtype == DT_BF16 && ci % 16 == 0 && co % 8 == 0; }
+template <bool PLANES>
+int launch(int blocks, int smem, cudaStream_t s, const void* x, const void* dy, void* dw,
+           float* partial, int n, int h, int wd, int ci, int co, int splits, int steps_per_split) {
+  if (smem < smem_bytes<PLANES>()) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_dw_wgmma_kernel<PLANES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_dw_wgmma_kernel<PLANES><<<blocks, THREADS, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<bf16*>(dw), partial,
+      n, h, wd, ci, co, splits, steps_per_split);
+  return launch_status();
+}
 
 }  // namespace tc
 
-// Sum of the split parts, in order, cast once.
-template <typename T>
-__global__ void conv_dw_reduce_kernel(const float* __restrict__ partial, int splits,
-                                      long long ko, T* __restrict__ dw) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < ko;
-       i += stride) {
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += partial[s * ko + i];
-    dw[i] = from_f32<T>(v);
+// ---- the stem (bf16, CI <= 4, CO % 8 == 0): wgmma over an im2col tile ---
+
+namespace stem {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+constexpr int THREADS = 128;       // one warpgroup
+constexpr int CHUNK = 64;          // output pixels a stage holds
+constexpr int BO = 64;             // output channels of a block
+constexpr int TILE = CHUNK * 128;  // a stage's A (im2col of x) or B (dy) tile
+constexpr int SMEM = 4 * TILE;     // two stages of A and B
+
+// One block: output channels o0 .. o0+63 (blockIdx.x), chunks [c0, c0 +
+// steps_per_split) of the contraction (blockIdx.y); f32 partials of the
+// 16*CI (<= 64) dw rows to `partial`, summed by the reduce pass. A is the
+// im2col of x, [pixel][tap * CI + channel] in 128-byte rows (rows past
+// 16*CI stay zero), built by the threads from coalesced loads of each
+// pixel's four window rows (4*CI contiguous values each); B is dy,
+// [pixel][64 o], by cp.async. Both MN-major, two stages: the next chunk's
+// loads are in flight while this chunk's wgmmas run. Several blocks share
+// an SM.
+template <int CI>
+__global__ void __launch_bounds__(THREADS)
+    conv_dw_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                        float* __restrict__ partial, int n, int h, int wd, int co,
+                        int steps_per_split) {
+  constexpr int V = 4 * CI;  // values of one window row
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int ho = h / 2, wo = wd / 2, hw = ho * wo, m_total = n * hw;
+  const int o0 = blockIdx.x * BO, c0 = blockIdx.y * steps_per_split;
+  const int nch = min(steps_per_split, (m_total + CHUNK - 1) / CHUNK - c0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < SMEM / 16; e += THREADS)
+    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0, 0, 0, 0);
+
+  // This thread's part of A: pixel p, window rows kh0 and kh0 + 2, as bf16
+  // pairs (V is even).
+  const int p = tid & (CHUNK - 1), kh0 = tid >> 6;
+  uint32_t xv[2][V / 2];
+  auto load_x = [&](int t) {
+    const int m = (c0 + t) * CHUNK + p;
+    const int b = m / hw, r = m - b * hw, oy = r / wo, ox = r - oy * wo;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int iy = 2 * oy - 1 + kh0 + 2 * rr;
+      const bool row_ok = (t < nch) & (m < m_total) & (iy >= 0) & (iy < h);
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(x) +
+                                  ((static_cast<long long>(b) * h + iy) * wd + 2 * ox - 1) * CI;
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        uint32_t pair = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ix = 2 * ox - 1 + (2 * i + e) / CI;
+          const bool ok = row_ok & (ix >= 0) & (ix < wd);
+          pair |= static_cast<uint32_t>(ok ? src[2 * i + e] : 0) << (16 * e);
+        }
+        xv[rr][i] = pair;
+      }
+    }
+  };
+  auto store_x = [&](int t) {  // into stage t's A: row p, k = 4*CI*kh + v
+    const uint32_t a = sbase + (t & 1) * 2 * TILE + p * 128;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        const int k = V * (kh0 + 2 * rr) + 2 * i;
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a + (((k >> 3) ^ (p & 7)) << 4) +
+                                                        (k & 7) * 2),
+                     "r"(xv[rr][i])
+                     : "memory");
+      }
+  };
+  auto stage_dy = [&](int t) {  // stage t's B: 64 pixels x 64 o
+    const uint32_t bt = sbase + (t & 1) * 2 * TILE + TILE;
+#pragma unroll
+    for (int i = 0; i < CHUNK * BO / 8 / THREADS; ++i) {
+      const int e = tid + i * THREADS, px = e >> 3, u = e & 7;
+      const int m = (c0 + t) * CHUNK + px, o = o0 + u * 8;
+      const bool ok = (t < nch) & (m < m_total) & (o < co);
+      cp_async16(bt + px * 128 + ((u ^ (px & 7)) << 4),
+                 ok ? dy + static_cast<long long>(m) * co + o : dy, ok);
+    }
+  };
+
+  float acc[32];  // set by the first chunk's wgmmas (scale-d 0)
+  __syncthreads();  // A's zeros
+  load_x(0);
+  store_x(0);
+  stage_dy(0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int t = 0; t < nch; ++t) {
+    load_x(t + 1);
+    stage_dy(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk t's dy; with the fence, A's stores of chunk t too
+    __syncthreads();
+    const uint32_t a = sbase + (t & 1) * 2 * TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < CHUNK / 16; ++s)
+      wgmma_m64n64k16<1>(acc, sw128_desc(a + s * 2048, 8192, 1024),
+                         sw128_desc(a + TILE + s * 2048, 8192, 1024), (t | s) != 0);
+    wgmma_commit();
+    store_x(t + 1);  // chunk t - 1's slot: its wgmmas are done
+    wgmma_wait<0>();
+  }
+  cp_async_wait();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) keep(acc[e]);
+  // acc[4 nt + 2 hf + e]: dw row 16 warp + lane/4 + 8 hf, o 8 nt + 2 (lane % 4) + e
+  float* part = partial + static_cast<long long>(blockIdx.y) * 16 * CI * co;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int k = 16 * warp + (lane >> 2) + 8 * hf;
+#pragma unroll
+    for (int nt = 0; nt < BO / 8; ++nt) {
+      const int o = o0 + 8 * nt + 2 * (lane & 3);
+      if (k < 16 * CI && o < co)
+        *reinterpret_cast<float2*>(part + static_cast<long long>(k) * co + o) =
+            make_float2(acc[4 * nt + 2 * hf], acc[4 * nt + 2 * hf + 1]);
+    }
   }
 }
 
-struct Plan {
-  bool tc;
-  int k_tiles, o_tiles, splits;
-  long long steps_per_split;
-};
-
-// Splits over M: doubled while the output tiles fill fewer than two waves
-// and each split keeps at least 8 steps.
-Plan plan(int n, int h, int wd, int ci, int co, int dtype) {
-  Plan p{};
-  p.tc = tc::applies(dtype, ci, co);
-  const int bk = p.tc ? tc::BK : BK, bn = p.tc ? tc::BN : BN, bm = p.tc ? tc::BM : BM;
-  const long long m_total = static_cast<long long>(n) * (h / 2) * (wd / 2);
-  p.k_tiles = (16 * ci + bk - 1) / bk;
-  p.o_tiles = (co + bn - 1) / bn;
-  const long long steps = (m_total + bm - 1) / bm;
-  const long long blocks = static_cast<long long>(p.k_tiles) * p.o_tiles;
-  long long s = 1;
-  while (blocks * s < TARGET_BLOCKS && steps / (2 * s) >= MIN_STEPS_PER_SPLIT) s *= 2;
-  p.steps_per_split = (steps + s - 1) / s;
-  p.splits = static_cast<int>((steps + p.steps_per_split - 1) / p.steps_per_split);
-  return p;
+template <int CI>
+int launch(int splits, cudaStream_t s, const void* x, const void* dy, float* partial, int n,
+           int h, int wd, int co, int steps_per_split) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_dw_stem_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((co + BO - 1) / BO), static_cast<unsigned>(splits));
+  conv_dw_stem_kernel<CI><<<grid, THREADS, SMEM, s>>>(static_cast<const bf16*>(x),
+                                                      static_cast<const bf16*>(dy), partial, n, h,
+                                                      wd, co, steps_per_split);
+  return launch_status();
 }
 
+}  // namespace stem
+
+// Sum of the split parts, in order, cast once: a block takes 256 / SLICES
+// consecutive elements; slice l of them sums the parts s = l, l + SLICES,
+// ..., then slice 0 adds the SLICES sums in order. Many parts over few
+// elements (the stem) take 8 slices; a few parts (enc2, enc3) one.
+template <typename T, int SLICES>
+__global__ void __launch_bounds__(256)
+    conv_dw_reduce_kernel(const float* __restrict__ partial, int splits, long long ko,
+                          T* __restrict__ dw) {
+  constexpr int E = 256 / SLICES;
+  __shared__ float sums[SLICES][E];
+  const int e = threadIdx.x % E, sl = threadIdx.x / E;
+  const long long i = static_cast<long long>(blockIdx.x) * E + e;
+  float v = 0.f;
+  if (i < ko)
+    for (int s = sl; s < splits; s += SLICES) v += partial[s * ko + i];
+  if (SLICES > 1) {
+    sums[sl][e] = v;
+    __syncthreads();
+    if (sl > 0) return;
+    v = 0.f;
+#pragma unroll
+    for (int w = 0; w < SLICES; ++w) v += sums[w][e];
+  }
+  if (i < ko) dw[i] = from_f32<T>(v);
+}
+
+template <typename T>
+int reduce(const float* partial, int splits, long long ko, void* dw, cudaStream_t s) {
+  if (splits >= 16) {
+    conv_dw_reduce_kernel<T, 8><<<static_cast<unsigned>((ko + 31) / 32), 256, 0, s>>>(
+        partial, splits, ko, static_cast<T*>(dw));
+  } else {
+    conv_dw_reduce_kernel<T, 1><<<static_cast<unsigned>((ko + 255) / 256), 256, 0, s>>>(
+        partial, splits, ko, static_cast<T*>(dw));
+  }
+  return launch_status();
+}
 }  // namespace
 
-// Floats of split workspace the call needs (0: none).
-extern "C" long long discogan_conv_k4s2p1_dw_workspace(int n, int h, int wd, int ci, int co,
-                                                       int dtype) {
-  if (n == 0 || h < 2 || wd < 2 || co == 0) return 0;
-  const Plan p = plan(n, h, wd, ci, co, dtype);
-  return p.splits > 1 ? static_cast<long long>(p.splits) * 16 * ci * co : 0;
-}
+// path (the wrapper's plan, ops/conv_k4s2p1.py::dw_plan): PATH_FMA, or the
+// wgmma kernel with parity planes (PATH_PLANES, WO % 8 == 0) or per-tap
+// windows (PATH_WINDOWS); splits > 1: `workspace` holds splits x 16*CI*CO
+// f32 partials; steps_per_split counts 16-pixel steps (FMA) or 64-pixel
+// chunks (wgmma); blocks, smem: the wgmma kernel's grid and dynamic shared
+// memory.
+enum Path { PATH_FMA = 0, PATH_PLANES = 1, PATH_WINDOWS = 2, PATH_STEM = 3 };
 
 extern "C" int discogan_conv_k4s2p1_dw(const void* x, const void* dy, void* dw, void* workspace,
-                                       int n, int h, int wd, int ci, int co, int dtype,
+                                       int n, int h, int wd, int ci, int co, int dtype, int path,
+                                       int splits, int steps_per_split, int blocks, int smem,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ko = 16LL * ci * co;
@@ -318,36 +603,50 @@ extern "C" int discogan_conv_k4s2p1_dw(const void* x, const void* dy, void* dw, 
     return static_cast<int>(
         cudaMemsetAsync(dw, 0, ko * (dtype == DT_F32 ? 4 : 2), s));
   }
-  const Plan p = plan(n, h, wd, ci, co, dtype);
-  float* partial = p.splits > 1 ? static_cast<float*>(workspace) : nullptr;
-  if (p.splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(p.k_tiles), static_cast<unsigned>(p.o_tiles),
-                  static_cast<unsigned>(p.splits));
-  const int sps = static_cast<int>(p.steps_per_split);
-  if (p.tc) {
-    tc::conv_dw_tc_kernel<<<grid, tc::THREADS, 0, s>>>(
-        static_cast<const tc::bf16*>(x), static_cast<const tc::bf16*>(dy),
-        static_cast<tc::bf16*>(dw), partial, n, h, wd, ci, co, sps);
-  } else if (dtype == DT_F32) {
-    conv_dw_kernel<float><<<grid, THREADS, 0, s>>>(static_cast<const float*>(x),
-                                              static_cast<const float*>(dy),
-                                              static_cast<float*>(dw), partial, n, h, wd, ci,
-                                              co, sps);
+  // The stem always writes partials (its reduce pass casts).
+  float* partial = splits > 1 || path == PATH_STEM ? static_cast<float*>(workspace) : nullptr;
+  if (splits < 1 || steps_per_split < 1 || ((splits > 1 || path == PATH_STEM) && !partial))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (path == PATH_FMA) {
+    const dim3 grid(static_cast<unsigned>((16 * ci + BK - 1) / BK),
+                    static_cast<unsigned>((co + BN - 1) / BN), static_cast<unsigned>(splits));
+    if (dtype == DT_F32) {
+      conv_dw_kernel<float><<<grid, THREADS, 0, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(dw),
+          partial, n, h, wd, ci, co, steps_per_split);
+    } else {
+      conv_dw_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+          static_cast<__nv_bfloat16*>(dw), partial, n, h, wd, ci, co, steps_per_split);
+    }
+    err = launch_status();
+  } else if (path == PATH_STEM) {
+    if (dtype != DT_BF16 || ci < 1 || ci > 4 || co % 8 ||
+        static_cast<long long>(n) * (h / 2) * (wd / 2) >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (ci) {
+      case 1: err = stem::launch<1>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split); break;
+      case 2: err = stem::launch<2>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split); break;
+      case 3: err = stem::launch<3>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split); break;
+      default: err = stem::launch<4>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split);
+    }
   } else {
-    conv_dw_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<__nv_bfloat16*>(dw), partial, n, h, wd, ci, co, sps);
+    if (dtype != DT_BF16 || ci % 8 || co % 8 || (path == PATH_PLANES && (wd / 2) % 8) ||
+        static_cast<long long>(n) * (h / 2) * (wd / 2) >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // One tile a block where M is split; else `blocks` persistent blocks.
+    const int tiles = (co + tc::BN - 1) / tc::BN * ((ci + tc::CH - 1) / tc::CH * 4) * splits;
+    if (blocks < 1 || blocks > tiles || (splits > 1 && blocks != tiles) ||
+        (tiles + blocks - 1) / blocks > tc::MAX_TILES)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = path == PATH_PLANES
+              ? tc::launch<true>(blocks, smem, s, x, dy, dw, partial, n, h, wd, ci, co, splits,
+                                 steps_per_split)
+              : tc::launch<false>(blocks, smem, s, x, dy, dw, partial, n, h, wd, ci, co, splits,
+                                  steps_per_split);
   }
-  int err = launch_status();
-  if (err != 0 || p.splits == 1) return err;
-  const long long want = (ko + 255) / 256;
-  const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
-  if (dtype == DT_F32) {
-    conv_dw_reduce_kernel<float><<<blocks, 256, 0, s>>>(partial, p.splits, ko,
-                                                   static_cast<float*>(dw));
-  } else {
-    conv_dw_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(partial, p.splits, ko,
-                                                           static_cast<__nv_bfloat16*>(dw));
-  }
-  return launch_status();
+  if (err != 0 || partial == nullptr) return err;
+  return dtype == DT_F32 ? reduce<float>(partial, splits, ko, dw, s)
+                         : reduce<__nv_bfloat16>(partial, splits, ko, dw, s);
 }

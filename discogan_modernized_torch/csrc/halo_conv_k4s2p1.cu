@@ -64,6 +64,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -230,87 +231,7 @@ __device__ __forceinline__ void bar_sync_if(bool p, int id, int count) {
                : "memory");
 }
 
-// Swizzled position of 16-byte unit u, counted from shared-memory address 0
-// (see the note at the top).
-__device__ __forceinline__ uint32_t swz(uint32_t u) { return u ^ ((u >> 3) & 7); }
-
-// A 16-byte copy, zero-filled unless `valid`, issued only if `go` (a
-// predicate, not a branch).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid,
-                                           bool go = true) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n@p cp.async.cg.shared.global [%0], [%1], 16, "
-      "%2;\n}\n" ::"r"(dst),
-      "l"(src), "r"(valid ? 16 : 0), "r"(static_cast<int>(go))
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// This thread's copies but its last N commit groups have landed; make them
-// visible to wgmma's reads (the async proxy) before the barrier that shares
-// them.
-template <int N = 0>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\nfence.proxy.async.shared::cta;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from reading an accumulator before the wait.
-__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
-// Descriptor of a 16 (ci) x 64 (channel) bf16 block of the resident weights:
-// channel-major rows of 128 bytes, 128-byte swizzle, 8-row groups 1024 bytes
-// apart.
-__device__ __forceinline__ uint64_t weight_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(8192 >> 4) << 16 | static_cast<uint64_t>(1024 >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// Descriptor of a 64 (pixel) x 16 (ci) block of a staged plane: pixel rows
-// of 128 bytes, 128-byte swizzle, 8-row groups 1024 bytes apart. The block
-// may start inside a row group (a window of tap kw >= 2 starts one pixel in)
-// with a base offset of 0: the swizzle is taken from the address bits.
-__device__ __forceinline__ uint64_t x_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(1) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
-}
-
-// d (64 pixels x 64 channels, f32; each warp holds 16 pixel rows in the mma
-// layout) += a (64 x 16, x descriptor) * b (16 x 64, weight descriptor).
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using namespace hopper;
 
 // Copy input row iy (columns ix0 .. ix0 + 129) into ring slot `slot` as its
 // two column-parity planes, 128 bytes a pixel (CI channels used); rows and
@@ -422,7 +343,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   float sc[8][2], of[8][2];
   load_affine(sc, of, scale, offset, co0, co, lane & 3);
-  const uint64_t w_desc0 = weight_desc(sbase);
+  const uint64_t w_desc0 = mn_desc(sbase);
 
   // Warpgroup g takes band rows t = g, g + 2, ...; row t reads ring rows
   // 2t .. 2t+3. While one warpgroup's wgmmas run, the other stores its last
@@ -466,7 +387,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int step = kh * 4 * KS + j, kw = j / KS, ks = j % KS;
         // pixel p of tap kw is pixel p + kw/2 of plane kw&1
         const uint32_t a = slot[kh] + ((kw & 1) * PLANE + (kw >> 1)) * 128 + ks * 32;
-        wgmma_m64n64k16(acc[step % CHAINS], x_desc(a),
+        wgmma_m64n64k16(acc[step % CHAINS], k_desc(a),
                         w_desc0 + ((kh * 4 + kw) * CI + 16 * ks) * 8, step >= CHAINS);
       }
     }

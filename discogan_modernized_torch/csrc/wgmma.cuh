@@ -1,0 +1,132 @@
+// Hopper building blocks shared by the wgmma kernels (K5f, K4): the
+// 128-byte swizzle, cp.async copies, the wgmma fence / commit / wait,
+// shared-memory matrix descriptors and the wgmma instructions they use.
+//
+// Swizzle: every 16-byte unit of a wgmma operand sits at unit index
+// u ^ ((u >> 3) & 7), u counting 16-byte units of the shared-memory
+// address. wgmma takes the swizzle from the address bits, so an operand
+// whose 128-byte rows start anywhere on a 128-byte boundary (one row into
+// an 8-row group, or 8-row groups 1152 bytes apart) needs no descriptor
+// base offset.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+namespace hopper {
+
+// Swizzled position of 16-byte unit u, counted from shared-memory address 0.
+__device__ __forceinline__ uint32_t swz(uint32_t u) { return u ^ ((u >> 3) & 7); }
+
+// A 16-byte copy, zero-filled unless `valid`, issued only if `go` (a
+// predicate, not a branch: it may sit between a wgmma and its wait).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid,
+                                           bool go = true) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n@p cp.async.cg.shared.global [%0], [%1], 16, "
+      "%2;\n}\n" ::"r"(dst),
+      "l"(src), "r"(valid ? 16 : 0), "r"(static_cast<int>(go))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// This thread's copies but its last N commit groups have landed; make them
+// visible to wgmma's reads (the async proxy) before the barrier that shares
+// them.
+template <int N = 0>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\nfence.proxy.async.shared::cta;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from reading an accumulator before the wait.
+__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Two f32 values as a bf16 pair (lo in the low half), for 4-byte stores.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Descriptor of an operand in 128-byte rows with the 128-byte swizzle:
+// `lbo` and `sbo` in bytes. K-major (the contraction along the 128-byte
+// row): sbo is the distance of 8-row groups along M or N. MN-major
+// (transposed, 64 M or N values along the row, the contraction down the
+// rows): sbo is the distance of 8-row groups along the contraction, lbo
+// that of 64-wide groups along M or N.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// Descriptor of a 16 (contraction) x 64 (channel) bf16 block stored
+// channel-major: MN-major rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr) {
+  return sw128_desc(addr, 8192, 1024);
+}
+
+// Descriptor of a 64 (row) x 16 (contraction) bf16 block stored K-major:
+// rows of 128 bytes, 8-row groups 1024 bytes apart. The block may start
+// inside a row group (see the note at the top).
+__device__ __forceinline__ uint64_t k_desc(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
+
+// d (64 x 64, f32; each warp holds 16 rows in the mma layout) += a (64 x 16,
+// K-major, or MN-major with TNSP_A = 1) * b (16 x 64, MN-major).
+template <int TNSP_A = 0>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_A));
+}
+
+// d (64 x 128, f32) += a (64 x 16, MN-major) * b (16 x 128, MN-major): both
+// operands transposed, the contraction down their 128-byte rows.
+__device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+}  // namespace hopper

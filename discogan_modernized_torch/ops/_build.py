@@ -49,9 +49,7 @@ _SIGNATURES = {
     "discogan_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P]),
     "discogan_conv_k4s2p1_workspace": (_LL, [_I] * 7),
-    "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _P]),
-    "discogan_conv_k4s2p1_dw_workspace": (_LL, [_I] * 6),
+    "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _P]),
     "discogan_halo_conv_k4s2p1_dw_workspace": (_LL, [_I] * 5),

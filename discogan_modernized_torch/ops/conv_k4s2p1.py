@@ -10,12 +10,18 @@ per-channel and optional (inference-form BN), act is None, "relu" or
 per-channel means of the raw f32 accumulator and of its square over the
 N*Ho*Wo rows, which train-mode BatchNorm reads instead of a second pass.
 ``conv2d_k4s2p1_dw`` returns dw[kh,kw,i,o] = sum x_pad[b,2r+kh,2c+kw,i] *
-dy[b,r,c,o], f32 accumulation, in x's dtype.
+dy[b,r,c,o], f32 accumulation, in x's dtype; ``dw_plan`` picks its path
+(wgmma kernels for bf16 with O a multiple of 8 and I a multiple of 8 or at
+most 4, else the f32 FMA kernel), its split over the M = N*Ho*Wo pixels
+and its shared memory.
 A CPU tensor takes the ``_plain`` version; a CUDA tensor launches the
 kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -125,27 +131,112 @@ def conv2d_k4s2p1_dw_plain(x, dy):
     return dw.to(x.dtype)
 
 
+# K4's two paths (csrc/conv_k4s2p1_dw.cu). wgmma: a tile is the four taps of
+# one kernel row, DW_CH input channels and DW_BN output channels; blocks
+# walk the pixels in chunks of DW_CHUNK through a ring of stages, x staged
+# as column-parity planes (DW_GROUP_PX pixels per 8-pixel group and parity;
+# a ring of DW_STAGES["planes"]) where Wo % 8 == 0, else as the four taps'
+# windows (DW_STAGES["windows"]), beside a bf16 epilogue buffer. The stem
+# (I <= 4): one warpgroup a block over STEM_BO output channels and a part of
+# the pixels, the 16*I dw rows as one im2col tile, f32 partials summed by a
+# second pass; STEM_BLOCKS_PER_SM blocks share an SM. FMA: 64 x 64 tiles of
+# the (16*I, O) matrix, FMA_STEP pixels a step.
+DW_CH, DW_BN, DW_CHUNK, DW_GROUP_PX = 64, 128, 64, 9
+DW_STAGES = {"planes": 4, "windows": 3}
+DW_MIN_CHUNKS_PER_SPLIT = 4
+DW_MAX_TILES_PER_BLOCK = 64
+FMA_TILE, FMA_STEP, FMA_TARGET_BLOCKS, FMA_MIN_STEPS_PER_SPLIT = 64, 16, 2 * 132, 8
+STEM_BO, STEM_BLOCKS_PER_SM, STEM_SMEM = 64, 4, 4 * DW_CHUNK * 128
+DW_PATH_CODES = {"fma": 0, "wgmma_planes": 1, "wgmma_windows": 2,
+                 "wgmma_stem": 3}
+H100_SMS = 132
+
+
+class DwPlan(NamedTuple):
+    path: str             # "wgmma_planes", "wgmma_windows", "wgmma_stem" or "fma"
+    tile: tuple           # (dw rows, o columns) of a tile, pixels per step
+    taps: int             # taps of dw a tile owns (0: FMA tiles cut across taps)
+    splits: int           # parts of the contraction over M
+    steps_per_split: int  # steps (of tile[2] pixels) of each part
+    tiles: int            # output tiles times splits
+    blocks: int           # blocks launched (wgmma: each walks tiles b, b + blocks, ...)
+    smem_bytes: int       # dynamic shared memory of a block
+
+
+def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
+            sms: int = H100_SMS) -> DwPlan:
+    """K4's plan for x (n,h,w,ci) and dy with CO channels. The wgmma path
+    splits M only while its tiles fill less than one wave of ``sms`` blocks
+    (one fits an SM), into as many parts as fit in that wave, each of at
+    least DW_MIN_CHUNKS_PER_SPLIT chunks; unsplit, it launches one block per
+    SM (more only where a block would walk over DW_MAX_TILES_PER_BLOCK
+    tiles), each walking its share of the tiles. The FMA path doubles
+    its split while its tiles fill fewer than two waves and each part keeps
+    8 steps. The stem splits M over STEM_BLOCKS_PER_SM blocks an SM, each
+    part of at least DW_MIN_CHUNKS_PER_SPLIT chunks, and always sums its
+    parts in the second pass."""
+    m = n * (h // 2) * (w // 2)
+    chunks = -(-m // DW_CHUNK)
+    if dtype == torch.bfloat16 and 1 <= ci <= 4 and co % 8 == 0:
+        out_tiles = -(-co // STEM_BO)
+        splits = max(1, min(chunks // DW_MIN_CHUNKS_PER_SPLIT,
+                            STEM_BLOCKS_PER_SM * sms // out_tiles))
+        sps = max(1, -(-chunks // splits))
+        splits = max(1, -(-chunks // sps))
+        return DwPlan("wgmma_stem", (16 * ci, STEM_BO, DW_CHUNK), 16, splits,
+                      sps, out_tiles * splits, out_tiles * splits, STEM_SMEM)
+    if dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0 and ci > 0:
+        planes = (w // 2) % 8 == 0
+        out_tiles = -(-co // DW_BN) * -(-ci // DW_CH) * 4
+        splits = max(1, min(sms // out_tiles, chunks // DW_MIN_CHUNKS_PER_SPLIT))
+        sps = max(1, -(-chunks // splits))
+        splits = max(1, -(-chunks // sps))
+        tiles = out_tiles * splits
+        x_bytes = (2 * (DW_CHUNK // 8) * DW_GROUP_PX * 128 if planes
+                   else 4 * DW_CHUNK * 128)
+        ring = (DW_STAGES["planes" if planes else "windows"]
+                * (x_bytes + DW_CHUNK * DW_BN * 2))
+        epilogue = 4 * DW_CH * (DW_BN + 8) * 2
+        blocks = (tiles if splits > 1 else
+                  max(min(tiles, sms), -(-tiles // DW_MAX_TILES_PER_BLOCK)))
+        return DwPlan("wgmma_planes" if planes else "wgmma_windows",
+                      (4 * DW_CH, DW_BN, DW_CHUNK), 4, splits, sps, tiles,
+                      blocks, ring + epilogue + 16 * DW_MAX_TILES_PER_BLOCK)
+    out_tiles = -(-16 * ci // FMA_TILE) * -(-co // FMA_TILE)
+    steps = -(-m // FMA_STEP)
+    s = 1
+    while (out_tiles * s < FMA_TARGET_BLOCKS
+           and steps // (2 * s) >= FMA_MIN_STEPS_PER_SPLIT):
+        s *= 2
+    sps = max(1, -(-steps // s))
+    splits = max(1, -(-steps // sps))
+    return DwPlan("fma", (FMA_TILE, FMA_TILE, FMA_STEP), 0, splits, sps,
+                  out_tiles * splits, out_tiles * splits, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def conv2d_k4s2p1_dw(x, dy):
     """Weight gradient of ``conv2d_k4s2p1``: (4,4,I,O) in x's dtype."""
     check_dw_args("conv2d_k4s2p1_dw", x, dy)
     dy = dy.to(x.dtype)
     if x.device.type == "cpu":
         return conv2d_k4s2p1_dw_plain(x, dy)
-    return launch_dw("conv_k4s2p1_dw", x, dy)
-
-
-def launch_dw(kernel: str, x, dy):
-    """Launch K4 or K5b (the same C signature) into a new (4,4,I,O)."""
     n, h, wd, ci = x.shape
     co = dy.shape[3]
-    _build.check_cuda_tensor(f"{kernel} x", x)
-    _build.check_cuda_tensor(f"{kernel} dy", dy, dtype=x.dtype)
+    _build.check_cuda_tensor("conv_k4s2p1_dw x", x)
+    _build.check_cuda_tensor("conv_k4s2p1_dw dy", dy, dtype=x.dtype)
+    plan = dw_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
     dw = torch.empty(4, 4, ci, co, dtype=x.dtype, device=x.device)
+    parts = plan.splits > 1 or plan.path == "wgmma_stem"
+    ws = _build.workspace(plan.splits * 16 * ci * co if parts else 0, x)
     lib = _build.library()
-    dt = _build.DTYPE_CODES[x.dtype]
-    fn = getattr(lib, f"discogan_{kernel}")
-    ws_args = (n, h, wd, ci, co) + ((dt,) if kernel == "conv_k4s2p1_dw" else ())
-    ws = _build.workspace(getattr(lib, f"discogan_{kernel}_workspace")(*ws_args), x)
-    _build.launch(kernel, fn, x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                  _build.ptr(ws), n, h, wd, ci, co, dt, _build.stream_of(x))
+    _build.launch("conv_k4s2p1_dw", lib.discogan_conv_k4s2p1_dw, x.data_ptr(),
+                  dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n, h, wd, ci,
+                  co, _build.DTYPE_CODES[x.dtype], DW_PATH_CODES[plan.path],
+                  plan.splits, plan.steps_per_split, plan.blocks,
+                  plan.smem_bytes, _build.stream_of(x))
     return dw

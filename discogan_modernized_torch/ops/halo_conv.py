@@ -20,15 +20,14 @@ raises.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .activations import act_code
-from .conv_k4s2p1 import (affine_pointers, check_conv_args, check_dw_args,
-                          launch_dw)
+from .conv_k4s2p1 import (H100_SMS, _sm_count, affine_pointers,
+                          check_conv_args, check_dw_args)
 from .conv_k4s2p1 import conv2d_k4s2p1_dw_plain as halo_conv2d_k4s2p1_dw_plain
 from .conv_k4s2p1 import conv2d_k4s2p1_plain as halo_conv2d_k4s2p1_plain
 
@@ -47,7 +46,6 @@ TC_SLOTS = 6
 TC_PIXEL_BYTES = 128
 TC_MAX_CI = 64
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may have (H100)
-H100_SMS = 132
 
 __all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain",
            "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo",
@@ -85,11 +83,6 @@ def tc_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     smem = (TC_SLOTS * 2 * (TC_STRIP + 1) * TC_PIXEL_BYTES
             + 16 * ci * TC_CO_TILE * 2)
     return TilePlan(rows, bands, strips, co_tiles, smem)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_preconditions(x, w):
@@ -142,4 +135,15 @@ def halo_conv2d_k4s2p1_dw(x, dy):
     dy = dy.to(x.dtype)
     if x.device.type == "cpu":
         return halo_conv2d_k4s2p1_dw_plain(x, dy)
-    return launch_dw("halo_conv_k4s2p1_dw", x, dy)
+    n, h, wd, ci = x.shape
+    co = dy.shape[3]
+    _build.check_cuda_tensor("halo_conv_k4s2p1_dw x", x)
+    _build.check_cuda_tensor("halo_conv_k4s2p1_dw dy", dy, dtype=x.dtype)
+    dw = torch.empty(4, 4, ci, co, dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    ws = _build.workspace(
+        lib.discogan_halo_conv_k4s2p1_dw_workspace(n, h, wd, ci, co), x)
+    _build.launch("halo_conv_k4s2p1_dw", lib.discogan_halo_conv_k4s2p1_dw,
+                  x.data_ptr(), dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n,
+                  h, wd, ci, co, _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+    return dw

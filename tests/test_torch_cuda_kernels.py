@@ -186,10 +186,17 @@ def test_conv_k4s2p1_with_stats(gen, dtype, n, h, w, ci, co):
 
 @pytest.mark.parametrize("n,h,w,ci,co", [
     (2, 64, 64, 3, 64), (4, 16, 16, 64, 128), (2, 16, 16, 1024, 2048),
-    (2, 32, 32, 128, 256), (3, 6, 10, 16, 72), (1, 8, 8, 24, 40)])
+    (2, 32, 32, 128, 256), (3, 6, 10, 16, 72), (1, 8, 8, 24, 40),
+    (2, 16, 16, 16, 64), (2, 32, 32, 32, 64), (3, 16, 16, 48, 72),
+    (1, 8, 8, 2048, 2048), (3, 14, 10, 16, 72), (2, 128, 128, 128, 256),
+    (2, 16, 16, 1, 8), (2, 32, 32, 4, 72)])
 def test_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
-    """The stem's split-M FMA path, the tensor-core path with and without
-    splits, and channel counts off its tile (the FMA path in bf16)."""
+    """In bf16 the wgmma kernel with parity planes (W/2 a multiple of 8) and
+    per-tap windows (W/2 of 5 and 4), with and without its split over M
+    (enc2 at batch 2), at CI 16/32/48 under one channel block, CO off the
+    128 tile (72, 40), M under one chunk (enc6 at batch 1: 16 pixels) and
+    ragged (105 pixels); the stem's kernel at CI 1, 3 and 4. In f32 the FMA
+    kernel, split over M for the stem."""
     x = _rand(gen, dtype, n, h, w, ci)
     dy = _rand(gen, dtype, n, h // 2, w // 2, co, scale=0.1)
     _close(conv2d_k4s2p1_dw(x, dy), conv2d_k4s2p1_dw_plain(x, dy), dtype)
@@ -206,7 +213,8 @@ def test_halo_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
 
 def test_two_launches_give_the_same_bits(gen, dtype):
     """Every reduction across blocks (K1, K3's statistics on both of its
-    paths, K4's and K5b's split sums) sums its partials in a fixed order."""
+    paths, K4's split sums on the stem's and the tensor-core path in bf16
+    and the FMA path in f32, K5b's) sums its partials in a fixed order."""
     x = _rand(gen, dtype, 2, 256, 256, 64)
     dy = _rand(gen, dtype, 2, 128, 128, 128, scale=0.1)
     xd = _rand(gen, dtype, 2, 16, 16, 1024)
@@ -215,10 +223,13 @@ def test_two_launches_give_the_same_bits(gen, dtype):
     wu = _rand(gen, dtype, 4, 4, 128, 256, scale=1 / 45)
     x0 = _rand(gen, dtype, 2, 64, 64, 3)
     dy0 = _rand(gen, dtype, 2, 32, 32, 64)
+    x2 = _rand(gen, dtype, 2, 128, 128, 128)
+    dy2 = _rand(gen, dtype, 2, 64, 64, 256, scale=0.1)
     calls = [lambda: batch_stats(x),
              lambda: conv2d_k4s2p1(xd, wd, with_stats=True)[1],  # split-K
              lambda: conv2d_k4s2p1(xu, wu, with_stats=True)[1],  # unsplit
-             lambda: conv2d_k4s2p1_dw(x0, dy0),
+             lambda: conv2d_k4s2p1_dw(x0, dy0),  # the stem: its parts summed
+             lambda: conv2d_k4s2p1_dw(x2, dy2),  # enc2 at batch 2, split over M
              lambda: halo_conv2d_k4s2p1_dw(x, dy)]
     for call in calls:
         a, b = call(), call()
