@@ -22,7 +22,11 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               batch 1 and at its edge shapes (CI 16/32/48 under one channel
               block, CO 72, M under one chunk, a ragged M, enc2 at batch 2
               with a split, stems of 1 and 4 channels), each K4 call
-              launched twice for the same bits. In
+              launched twice for the same bits; K5b (enc1's weight
+              gradient) at enc1 at batch 1 and at its edge shapes (CI
+              16/32/48 under one channel block, CO 24/72/136 off the 128
+              tile, W/2 off a multiple of 8, a ragged M, two images), each
+              K5b call launched twice for the same bits. In
               f32 (TF32 off; tolerance 1e-4 of max(1, max|ref|)) and bf16
               (2e-2: the kernel and the plain version round to bf16 at
               different places; statistics 1e-4 in both, from f32 sums of
@@ -48,9 +52,12 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               latency on the main thread and from fresh threads.
   6. equivalence  one D step and one G step at 512px batch 2 in f32 from
               the same seeded weights, through the kernels and through the
-              plain versions: losses within EQUIV_LOSS_REL relative, each
-              gradient tensor within EQUIV_GRAD_REL in norm; the readings are
-              printed, with the plain path's own spread between two runs.
+              plain versions, on three seeded batches, under
+              torch.use_deterministic_algorithms (cuDNN's and cuBLAS's
+              deterministic algorithms): losses within EQUIV_LOSS_REL
+              relative, each gradient tensor within EQUIV_GRAD_REL in norm;
+              the readings are printed, with the plain path run twice,
+              which must agree bit for bit.
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the 256-image synthetic task (32 iterations: 11 D,
               21 G), with the launch counts of every D and G step checked
@@ -59,7 +66,8 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               and peak memory; gen_B_final.pth through the inference CLI;
               a torch.profiler split of one G step, which shows K4's bf16
               time under its wgmma kernels (conv_dw_wgmma_kernel,
-              conv_dw_stem_kernel) and none under the FMA one.
+              conv_dw_stem_kernel) and K5b's under halo_dw_wgmma_kernel,
+              and none under their FMA kernels.
   8. report   one JSON line of kernels, the nvidia-smi line, and the last
               line {"ok": true, "device": {...}}.
 """
@@ -69,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -82,6 +91,10 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# cuBLAS reads this when it starts: the equivalence step's deterministic
+# mode (phase 6) needs it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 # The port must come from this checkout, never from an installed copy.
@@ -104,6 +117,7 @@ BATCH = 4
 SIZE = 512
 TRAIN_BATCH = 8
 EQUIV_BATCH = 2
+EQUIV_SEEDS = (7, 8, 9)  # the equivalence step's batches
 # f32 equivalence step, kernels vs plain versions: |loss difference| over
 # |loss|, and per gradient tensor ||difference|| / ||g||. At batch 2 the
 # deep layers' gradients hang on LeakyReLU/ReLU masks over 32 values per
@@ -224,6 +238,14 @@ K4_EDGE = [("ci16", (2, 16, 16, 16, 64)), ("ci32", (2, 32, 32, 32, 64)),
            ("enc5 b1", (1, 16, 16, 1024, 2048)), ("ragged M", (3, 14, 10, 16, 72)),
            ("enc2 b2", (2, 128, 128, 128, 256)), ("stem ci1", (2, 16, 16, 1, 8)),
            ("stem ci4", (2, 32, 32, 4, 72))]
+# K5b's edge shapes (label, (n, h, w, ci, co)): CI 16/32/48 under one
+# 64-channel block, CO off the 128 tile (24, 72, 136), W/2 not a multiple of
+# 8 (the windows, 20 wide; 11 in "odd 14x22"), a ragged M (a last part
+# shorter than the other and a last chunk of 8 pixels), two images.
+K5B_EDGE = [("ci16", (2, 64, 64, 16, 128)), ("ci32 co72", (1, 48, 256, 32, 72)),
+            ("ci48 co136", (2, 40, 128, 48, 136)), ("co24", (2, 128, 128, 64, 24)),
+            ("w/2 20", (3, 30, 40, 16, 72)), ("ragged M", (1, 10, 208, 64, 128)),
+            ("b2", (2, 256, 256, 64, 128))]
 
 
 def kernel_cases():
@@ -296,6 +318,8 @@ def kernel_cases():
         ("conv_k4s2p1_dw", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
         *[("conv_k4s2p1_dw", label, shape, None, 0) for label, shape in K4_EDGE],
         ("halo_conv_k4s2p1_dw", "odd 14x22", (3, 14, 22, 8, 24), None, 0),
+        ("halo_conv_k4s2p1_dw", "enc1 dw b1", (1, 256, 256, 64, 128), None, 0),
+        *[("halo_conv_k4s2p1_dw", label, shape, None, 0) for label, shape in K5B_EDGE],
     ]
     return cases
 
@@ -399,7 +423,7 @@ def run_case(kernel, args, dtype, timer, g):
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    if kernel == "conv_k4s2p1_dw" and not torch.equal(got, kern()):
+    if kernel.endswith("_dw") and not torch.equal(got, kern()):
         raise AssertionError(f"{kernel} {args} {DTYPE_NAMES[dtype]}: two launches "
                              "gave different bits")
     # (output, tolerance) pairs: y, and the statistics where there are some
@@ -638,7 +662,7 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "conv_dw_stem_kernel": "K4 conv_k4s2p1_dw", "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
     "halo_conv_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
-    "halo_dw_tc_kernel": "K5b halo_conv_k4s2p1_dw",
+    "halo_dw_wgmma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
     "bn_act_kernel": "K2 bn_act", "head_convt_kernel": "K6 head_convt"}
 # Library kernels (cuDNN convolutions and their gradients, cuBLAS products)
@@ -690,6 +714,23 @@ def check_k4_route(by_kernel: dict, what: str) -> None:
                              f"{fma:.1f} us under conv_dw_kernel")
     print(f"{what}: K4 " + ", ".join(f"{us / 1e3:.4f} ms under {k}" for k, us in tc.items())
           + ", none under conv_dw_kernel")
+
+
+K5B_TC_KERNEL = "halo_dw_wgmma_kernel"
+
+
+def check_k5b_route(by_kernel: dict, what: str) -> None:
+    """The profile shows K5b's time under its wgmma kernel (and its split
+    sums) and none under the FMA one: every bf16 K5b call of the training
+    step takes the tensor cores."""
+    tc = sum(us for name, us in by_kernel.items() if K5B_TC_KERNEL in name)
+    sums = sum(us for name, us in by_kernel.items() if "halo_dw_reduce_kernel" in name)
+    fma = sum(us for name, us in by_kernel.items() if "halo_dw_kernel" in name)
+    if not tc > 0 or fma > 0:
+        raise AssertionError(f"{what}: K5b {tc:.1f} us under {K5B_TC_KERNEL}, "
+                             f"{fma:.1f} us under halo_dw_kernel")
+    print(f"{what}: K5b {tc / 1e3:.4f} ms under {K5B_TC_KERNEL} and {sums / 1e3:.4f} ms "
+          "under its split sums, none under halo_dw_kernel")
 
 
 def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> dict:
@@ -850,7 +891,14 @@ def serve_latency(tr, images: np.ndarray, reps: int = 20) -> None:
 def check_equivalence() -> None:
     """One D step's and one G step's losses and gradients at 512px, batch 2,
     f32, from the same seeded weights, through the kernels and through the
-    plain versions."""
+    plain versions, on each of EQUIV_SEEDS' batches, under deterministic
+    algorithms (the kernels are deterministic on their own; this makes
+    cuDNN's and cuBLAS's calls so on both sides). The plain path runs twice
+    on the first batch and must give the same bits. It also runs on the
+    batch's images moved by one ulp: how far that moves its gradients is the
+    step's own sensitivity to rounding-level changes, and the kernels may
+    differ from the plain path by up to twice it, or EQUIV_GRAD_REL where
+    that is larger."""
     from discogan_modernized_torch.core.precision import F32, configure
     from discogan_modernized_torch.train.graph import trainable_subsets
     from discogan_modernized_torch.train.step import (TrainConfig,
@@ -860,9 +908,7 @@ def check_equivalence() -> None:
     configure(F32)
     cfg = TrainConfig(image_size=SIZE, precision="f32")
     ts = init_train_state(0, cfg, "cuda")
-    rng = torch.Generator(device="cuda").manual_seed(7)
-    A, B = (torch.rand(EQUIV_BATCH, SIZE, SIZE, 3, device="cuda", generator=rng)
-            for _ in range(2))
+
     def worst(names, grads, ref, metric):
         return max((metric(g - r) / max(metric(r), 1e-30), name)
                    for name, g, r in zip(names, grads, ref))
@@ -873,30 +919,50 @@ def check_equivalence() -> None:
     def amax(t):
         return t.abs().max().item()
 
-    for which in ("dis", "gen"):
-        losses, grads = loss_and_grads(ts, A, B, 0.01, cfg, F32, which)
-        plain_losses, plain_grads = loss_and_grads(ts, A, B, 0.01, cfg, F32,
-                                                   which, plain=True)
-        _, again = loss_and_grads(ts, A, B, 0.01, cfg, F32, which, plain=True)
-        loss_rel = max(abs(float(losses[k]) - float(v)) / max(abs(float(v)), 1e-30)
-                       for k, v in plain_losses.items())
-        keys = trainable_subsets(cfg.model_arch)[0 if which == "gen" else 1]
-        names = [f"{k}.{n}" for k in keys for n, _ in ts.models[k].named_parameters()]
-        grad_rel, grad_name = worst(names, grads, plain_grads, norm)
-        print(f"{which} step, f32 batch {EQUIV_BATCH}: losses "
-              + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items()))
-        print(f"  kernels vs plain: max relative loss difference {loss_rel:.3e} "
-              f"(limit {EQUIV_LOSS_REL:.0e}); worst gradient ||diff||/||g|| "
-              f"{grad_rel:.3e} ({grad_name}, limit {EQUIV_GRAD_REL:.0e}) over "
-              f"{len(grads)} tensors; worst max|diff|/max|g| "
-              "{:.3e} ({})".format(*worst(names, grads, plain_grads, amax)))
-        print("  plain vs plain, run twice: worst ||diff||/||g|| {:.3e} ({}), "
-              "worst max|diff|/max|g| {:.3e} ({})".format(
-                  *worst(names, again, plain_grads, norm),
-                  *worst(names, again, plain_grads, amax)))
-        if not (loss_rel <= EQUIV_LOSS_REL and grad_rel <= EQUIV_GRAD_REL):
-            raise AssertionError(f"{which} step: kernels and plain versions disagree")
-    del ts, grads, plain_grads, again
+    torch.use_deterministic_algorithms(True)
+    try:
+        for seed in EQUIV_SEEDS:
+            rng = torch.Generator(device="cuda").manual_seed(seed)
+            A, B = (torch.rand(EQUIV_BATCH, SIZE, SIZE, 3, device="cuda", generator=rng)
+                    for _ in range(2))
+            A1, B1 = (torch.nextafter(t, torch.full_like(t, 2.0)) for t in (A, B))
+            for which in ("dis", "gen"):
+                losses, grads = loss_and_grads(ts, A, B, 0.01, cfg, F32, which)
+                plain_losses, plain_grads = loss_and_grads(ts, A, B, 0.01, cfg, F32,
+                                                           which, plain=True)
+                _, nudged = loss_and_grads(ts, A1, B1, 0.01, cfg, F32, which, plain=True)
+                loss_rel = max(abs(float(losses[k]) - float(v)) / max(abs(float(v)), 1e-30)
+                               for k, v in plain_losses.items())
+                keys = trainable_subsets(cfg.model_arch)[0 if which == "gen" else 1]
+                names = [f"{k}.{n}" for k in keys
+                         for n, _ in ts.models[k].named_parameters()]
+                grad_rel, grad_name = worst(names, grads, plain_grads, norm)
+                floor, floor_name = worst(names, nudged, plain_grads, norm)
+                limit = max(EQUIV_GRAD_REL, 2 * floor)
+                print(f"{which} step, f32 batch {EQUIV_BATCH}, data seed {seed}: losses "
+                      + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items()))
+                print(f"  kernels vs plain: max relative loss difference {loss_rel:.3e} "
+                      f"(limit {EQUIV_LOSS_REL:.0e}); worst gradient ||diff||/||g|| "
+                      f"{grad_rel:.3e} ({grad_name}, limit {limit:.3e}) over "
+                      f"{len(grads)} tensors; worst max|diff|/max|g| "
+                      "{:.3e} ({})".format(*worst(names, grads, plain_grads, amax)))
+                print(f"  plain vs plain on the images moved by one ulp: worst "
+                      f"||diff||/||g|| {floor:.3e} ({floor_name})")
+                if seed == EQUIV_SEEDS[0]:
+                    _, again = loss_and_grads(ts, A, B, 0.01, cfg, F32, which, plain=True)
+                    differ = [n for n, g, r in zip(names, again, plain_grads)
+                              if not torch.equal(g, r)]
+                    print(f"  plain vs plain, run twice: {len(differ)} of {len(names)} "
+                          "tensors differ")
+                    if differ:
+                        raise AssertionError(f"{which} step: the deterministic plain path "
+                                             f"gave other bits when run twice: {differ[:4]}")
+                if not (loss_rel <= EQUIV_LOSS_REL and grad_rel <= limit):
+                    raise AssertionError(f"{which} step, data seed {seed}: kernels and plain "
+                                         "versions disagree")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del ts
     torch.cuda.empty_cache()
 
 
@@ -997,6 +1063,7 @@ def profile_g_step() -> None:
     by_kernel = profile_call(lambda: gen_step(ts, A, B, 0.01), what, top=16, ops=12)
     if by_kernel:
         check_k4_route(by_kernel, what)
+        check_k5b_route(by_kernel, what)
     del ts
     torch.cuda.empty_cache()
 

@@ -13,27 +13,28 @@
 // Bound on the H100: operations. At enc1, batch 8: 34.4 GFLOP against
 // 101 MB of x and dy in bf16, far above the ridge of 295 flop/byte.
 //
-// The Pallas grid walks (image, row tile) in order and carries one dw
-// block across it. Here a block owns one kernel row kh, a 64-channel tile
-// of CI and of CO, and a contiguous range of output rows (image, oy): for
-// each row it stages the one input row 2*oy + kh - 1 that feeds it, with
-// its halo columns (zero for the padding), in shared memory in segments
-// of 32 output pixels, together with those pixels' dy, and every one of
-// the four kw taps reads its strided window from the staged segment. The
-// row ranges are split over blocks until the card holds two waves; each
-// range writes an f32 partial of its dw tile and a second pass sums the
-// partials in order and casts. No float atomics: two launches give the
-// same bits.
-// Two paths, chosen by dtype:
-// - bf16: the tensor cores. Sixteen neighbouring output pixels of one tap
-//   are sixteen staged columns two apart, so a WMMA 16x16x16 A^T fragment
-//   (channels x pixels) loads col-major straight from the segment; each of
-//   the 8 warps owns one kw and 2x4 fragments of the 64x64 (ci, co) tile.
-// - f32: FMA on the CUDA cores, each thread 4 kw x 4 ci x 4 co
-//   accumulators.
-#include <mma.h>
+// The function is K4's; only the shape differs (few channels, a wide map,
+// so M is long and the output small). The wrapper plans each call
+// (ops/halo_conv.py::halo_dw_plan, from K4's dw_plan) and passes the path,
+// the split, the grid and the shared memory here. Two paths:
+// - bf16: halo_dw_wgmma_kernel, this file's entry around the wgmma body
+//   K4 uses (conv_dw_wgmma.cuh): a tile is one kernel row's four taps x 64
+//   input channels x 128 output channels, so enc1 is 4 tiles; M is split
+//   into as many parts as fill one wave of the card's SMs (33 parts of 63
+//   chunks of 64 pixels at batch 8), the four kh tiles of a part side by
+//   side so they read its dy chunks from L2 together. x is staged as
+//   column-parity planes (W/2 % 8 == 0) or per-tap windows.
+// - f32: halo_dw_kernel, FMA on the CUDA cores: a block owns one kernel row
+//   kh, a 64-channel tile of CI and of CO and a run of output rows; for
+//   each row it stages the input row 2*oy + kh - 1 with its halo columns in
+//   segments of 32 output pixels, with those pixels' dy, and each thread
+//   takes 4 kw x 4 ci x 4 co accumulators. The runs are split while the
+//   blocks fill fewer than two waves.
+// Split parts write f32 partials that halo_dw_reduce_kernel sums in a fixed
+// order and casts: no float atomics, two launches give the same bits.
+#include <cuda.h>
 
-#include "common.cuh"
+#include "conv_dw_wgmma.cuh"
 
 namespace {
 
@@ -41,8 +42,6 @@ constexpr int THREADS = 256;
 constexpr int CT = 64;  // ci and co tile
 constexpr int PX = 32;  // output pixels per staged segment
 constexpr int SEG_COLS = 2 * PX + 2;
-constexpr int TARGET_BLOCKS = 2 * 132;
-constexpr int MIN_ROWS_PER_SPLIT = 4;
 
 struct Geo {
   int n, h, wd, ci, co, ho, wo;
@@ -127,113 +126,90 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-// ---- tensor-core path (bf16) ------------------------------------------------
+// ---- tensor-core path (bf16): wgmma -----------------------------------------
 
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-// Row pitch of the staged segments in elements: a multiple of 16, so every
-// fragment pointer below is 32-byte aligned, padded against bank conflicts.
-constexpr int LD = CT + 16;
-
-__global__ void __launch_bounds__(THREADS)
-    halo_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                      bf16* __restrict__ dw, float* __restrict__ partial, Geo g) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 xs[SEG_COLS * LD];  // [staged column][ci]
-  __shared__ __align__(128) bf16 ds[PX * LD];        // [pixel][co]
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-  const int kh = blockIdx.x & 3;
-  const int co_t = blockIdx.x >> 2;
-  const int ci0 = blockIdx.y * CT, co0 = co_t * CT;
-  const long long row_begin = static_cast<long long>(blockIdx.z) * g.rows_per_split;
-  const long long row_end = min(static_cast<long long>(g.n) * g.ho, row_begin + g.rows_per_split);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kw = warp / 2, ci_f0 = (warp % 2) * 2;  // the warp's tap and its 2 ci fragments
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (long long row = row_begin; row < row_end; ++row) {
-    const int oy = static_cast<int>(row % g.ho);
-    const long long b = row / g.ho;
-    const int iy = 2 * oy - 1 + kh;
-    if (iy < 0 || iy >= g.h) continue;
-    const bf16* xrow = x + (b * g.h + iy) * g.wd * g.ci;
-    const bf16* dyrow = dy + row * g.wo * g.co;
-    for (int ox0 = 0; ox0 < g.wo; ox0 += PX) {
-      __syncthreads();
-      // 8 channels (16 bytes) per load; CI and CO are multiples of 8.
-      for (int e = tid; e < SEG_COLS * (CT / 8); e += THREADS) {
-        const int col = e / (CT / 8), c = (e % (CT / 8)) * 8;
-        const int ix = 2 * ox0 - 1 + col;
-        *reinterpret_cast<uint4*>(&xs[col * LD + c]) =
-            (ix >= 0 && ix < g.wd && ci0 + c < g.ci)
-                ? *reinterpret_cast<const uint4*>(xrow + static_cast<long long>(ix) * g.ci + ci0 + c)
-                : zero;
-      }
-      {
-        const int p = tid / (CT / 8), c = (tid % (CT / 8)) * 8;  // 256 threads = 32 x 8
-        *reinterpret_cast<uint4*>(&ds[p * LD + c]) =
-            (ox0 + p < g.wo && co0 + c < g.co)
-                ? *reinterpret_cast<const uint4*>(dyrow + static_cast<long long>(ox0 + p) * g.co +
-                                                  co0 + c)
-                : zero;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int pg = 0; pg < PX / 16; ++pg) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-        // A^T (ci x pixel): pixel m of the group reads staged column
-        // 2*(16*pg + m) + kw, i.e. a col-major tile with leading dimension 2*LD.
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], xs + (32 * pg + kw) * LD + (ci_f0 + i) * 16, 2 * LD);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(fb[j], ds + 16 * pg * LD + j * 16, LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
-  }
-
-  const long long ko = 16LL * g.ci * g.co;
-  float* cs = Cs[warp];
-  const int r = lane / 2, c = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int ch = ci0 + (ci_f0 + i) * 16 + r;
-      if (ch < g.ci) {
-        const long long base = (static_cast<long long>(kh * 4 + kw) * g.ci + ch) * g.co;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int o = co0 + j * 16 + c + q;
-          if (o >= g.co) break;
-          const float v = cs[r * 16 + c + q];
-          if (partial != nullptr) {
-            partial[blockIdx.z * ko + base + o] = v;
-          } else {
-            dw[base + o] = __float2bfloat16(v);
-          }
-        }
-      }
-      __syncwarp();
-    }
+// K5b's entry around the body it shares with K4 (conv_dw_wgmma.cuh).
+template <bool PLANES>
+__global__ void __launch_bounds__(dw_wgmma::THREADS, 1)
+    halo_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                         __nv_bfloat16* __restrict__ dw, float* __restrict__ partial, int n, int h,
+                         int wd, int ci, int co, int splits, int steps_per_split) {
+  dw_wgmma::body<PLANES>(x, dy, dw, partial, n, h, wd, ci, co, splits, steps_per_split);
 }
 
-}  // namespace tc
+template <bool PLANES>
+__global__ void __launch_bounds__(dw_wgmma::THREADS, 1)
+    halo_dw_mcast_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                         __nv_bfloat16* __restrict__ dw, float* __restrict__ partial, int n, int h,
+                         int wd, int ci, int co, int splits, int steps_per_split,
+                         const __grid_constant__ CUtensorMap dy_map) {
+  dw_wgmma::body<PLANES, true>(x, dy, dw, partial, n, h, wd, ci, co, splits, steps_per_split,
+                               &dy_map);
+}
 
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// The cluster path (K5b at enc1 with one o tile and one channel block): the
+// TMA map of dy, then clusters of four blocks, one part's kh tiles each.
+int launch_mcast(int blocks, int smem, cudaStream_t s, const void* x, const void* dy, void* dw,
+                 float* partial, int n, int h, int wd, int ci, int co, int splits,
+                 int steps_per_split) {
+  const long long m = static_cast<long long>(n) * (h / 2) * (wd / 2);
+  const int tiles = 4 * splits;
+  if (ci % 8 || co % 8 || ci > 64 || co > 128 || (wd / 2) % 8 || m >= (1LL << 31) ||
+      !covers_once((m + 63) / 64, splits, steps_per_split) || blocks != tiles ||
+      smem < dw_wgmma::smem_bytes<true>() + dw_wgmma::MCAST_BARRIER_BYTES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeFn enc = encode_fn();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(co), static_cast<cuuint64_t>(m)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(co) * 2};
+  const cuuint32_t box[2] = {64, 16}, estr[2] = {1, 1};
+  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(dy), dims, strides, box,
+          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(halo_dw_mcast_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(dw_wgmma::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = dw_wgmma::CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, halo_dw_mcast_kernel<true>,
+                           static_cast<const __nv_bfloat16*>(x),
+                           static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dw),
+                           partial, n, h, wd, ci, co, splits, steps_per_split, map);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_status();
+}
+
+// Sum of the split parts, in order, cast once.
 template <typename T>
 __global__ void halo_dw_reduce_kernel(const float* __restrict__ partial, int splits,
                                       long long ko, T* __restrict__ dw) {
@@ -246,69 +222,85 @@ __global__ void halo_dw_reduce_kernel(const float* __restrict__ partial, int spl
   }
 }
 
-struct Plan {
-  dim3 grid;
-  int splits;
-  long long rows_per_split;
-};
-
-// Row ranges: halved while the (kh, co tile, ci tile) blocks fill fewer
-// than two waves and each range keeps at least 4 rows.
-Plan plan(int n, int h, int ci, int co) {
-  const int co_tiles = (co + CT - 1) / CT, ci_tiles = (ci + CT - 1) / CT;
-  const long long rows = static_cast<long long>(n) * (h / 2);
-  const long long blocks = 4LL * co_tiles * ci_tiles;
-  long long s = 1;
-  while (blocks * s < TARGET_BLOCKS && rows / (2 * s) >= MIN_ROWS_PER_SPLIT) s *= 2;
-  Plan p;
-  p.rows_per_split = (rows + s - 1) / s;
-  p.splits = static_cast<int>((rows + p.rows_per_split - 1) / p.rows_per_split);
-  p.grid = dim3(static_cast<unsigned>(4 * co_tiles), static_cast<unsigned>(ci_tiles),
-                static_cast<unsigned>(p.splits));
-  return p;
-}
-
 }  // namespace
 
-extern "C" long long discogan_halo_conv_k4s2p1_dw_workspace(int n, int h, int wd, int ci,
-                                                            int co) {
-  if (n == 0 || h < 2 || wd < 2 || ci == 0 || co == 0) return 0;
-  const Plan p = plan(n, h, ci, co);
-  return p.splits > 1 ? static_cast<long long>(p.splits) * 16 * ci * co : 0;
-}
-
+// path (the wrapper's plan, ops/halo_conv.py::halo_dw_plan): PATH_FMA (f32;
+// steps_per_split counts output rows, blocks = 4 * CO tiles * CI tiles *
+// splits), or the wgmma kernel with parity planes (PATH_PLANES) or per-tap
+// windows (PATH_WINDOWS) (bf16; steps_per_split counts 64-pixel chunks;
+// blocks and smem its grid and dynamic shared memory). splits > 1:
+// `workspace` holds splits x 16*CI*CO f32 partials. A plan whose parts do
+// not cover M exactly once is refused.
 extern "C" int discogan_halo_conv_k4s2p1_dw(const void* x, const void* dy, void* dw,
                                             void* workspace, int n, int h, int wd, int ci,
-                                            int co, int dtype, void* stream) {
+                                            int co, int dtype, int path, int splits,
+                                            int steps_per_split, int blocks, int smem,
+                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ko = 16LL * ci * co;
   if (ko == 0) return 0;
   if (n == 0 || h < 2 || wd < 2) {
     return static_cast<int>(cudaMemsetAsync(dw, 0, ko * (dtype == DT_F32 ? 4 : 2), s));
   }
-  const Plan p = plan(n, h, ci, co);
-  float* partial = p.splits > 1 ? static_cast<float*>(workspace) : nullptr;
-  if (p.splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Geo g{n, h, wd, ci, co, h / 2, wd / 2, p.rows_per_split};
-  if (dtype == DT_F32) {
-    halo_dw_kernel<<<p.grid, THREADS, 0, s>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(dy),
-                                               static_cast<float*>(dw), partial, g);
+  float* partial = splits > 1 ? static_cast<float*>(workspace) : nullptr;
+  if (splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (path == PATH_FMA) {
+    const long long rows = static_cast<long long>(n) * (h / 2);
+    const int co_tiles = (co + CT - 1) / CT, ci_tiles = (ci + CT - 1) / CT;
+    if (dtype != DT_F32 || !covers_once(rows, splits, steps_per_split) ||
+        blocks != 4 * co_tiles * ci_tiles * splits)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Geo g{n, h, wd, ci, co, h / 2, wd / 2, steps_per_split};
+    halo_dw_kernel<<<dim3(static_cast<unsigned>(4 * co_tiles), static_cast<unsigned>(ci_tiles),
+                          static_cast<unsigned>(splits)),
+                     THREADS, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(dy),
+                                      static_cast<float*>(dw), partial, g);
+    err = launch_status();
+  } else if (dtype == DT_BF16 && path == PATH_CLUSTER) {
+    err = launch_mcast(blocks, smem, s, x, dy, dw, partial, n, h, wd, ci, co, splits,
+                       steps_per_split);
+  } else if (dtype == DT_BF16 && (path == PATH_PLANES || path == PATH_WINDOWS)) {
+    err = path == PATH_PLANES
+              ? dw_wgmma::launch<true>(halo_dw_wgmma_kernel<true>, blocks, smem, s, x, dy, dw,
+                                       partial, n, h, wd, ci, co, splits, steps_per_split)
+              : dw_wgmma::launch<false>(halo_dw_wgmma_kernel<false>, blocks, smem, s, x, dy, dw,
+                                        partial, n, h, wd, ci, co, splits, steps_per_split);
   } else {
-    tc::halo_dw_tc_kernel<<<p.grid, THREADS, 0, s>>>(
-        static_cast<const tc::bf16*>(x), static_cast<const tc::bf16*>(dy),
-        static_cast<tc::bf16*>(dw), partial, g);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  int err = launch_status();
-  if (err != 0 || p.splits == 1) return err;
+  if (err != 0 || partial == nullptr) return err;
   const long long want = (ko + 255) / 256;
-  const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
+  const int rblocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
   if (dtype == DT_F32) {
-    halo_dw_reduce_kernel<float><<<blocks, 256, 0, s>>>(partial, p.splits, ko,
-                                                   static_cast<float*>(dw));
+    halo_dw_reduce_kernel<float><<<rblocks, 256, 0, s>>>(partial, splits, ko,
+                                                    static_cast<float*>(dw));
   } else {
-    halo_dw_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(partial, p.splits, ko,
-                                                           static_cast<__nv_bfloat16*>(dw));
+    halo_dw_reduce_kernel<__nv_bfloat16><<<rblocks, 256, 0, s>>>(
+        partial, splits, ko, static_cast<__nv_bfloat16*>(dw));
   }
   return launch_status();
+}
+
+// Clusters of the cluster path's four blocks that the card holds at once,
+// each block with `smem` bytes of dynamic shared memory (negative on error).
+extern "C" int discogan_halo_dw_cluster_max(int smem) {
+  if (cudaFuncSetAttribute(halo_dw_mcast_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(132);
+  cfg.blockDim = dim3(dw_wgmma::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = dw_wgmma::CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = -1;
+  if (cudaOccupancyMaxActiveClusters(&count, halo_dw_mcast_kernel<true>, &cfg) != cudaSuccess)
+    return -2;
+  return count;
 }

@@ -13,7 +13,10 @@ with at most 64 channels (at 512px that is enc1 alone; enc2's 128px input
 has 128 channels, where K3's contraction per tap is already deep).
 On the card K5f has two paths, picked here by dtype and shape: bf16 with
 CI % 16 == 0 and CI <= 64 (enc1) takes the tensor-core kernel with the tile
-plan of ``tc_plan``; f32 and the other shapes take the f32-FMA kernel.
+plan of ``tc_plan``; f32 and the other shapes take the f32-FMA kernel. K5b
+computes K4's function: in bf16 it runs K4's wgmma design under its own
+kernel name, with the plan of ``halo_dw_plan`` (K4's ``dw_plan``); in f32
+its FMA kernel over runs of output rows.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -26,8 +29,9 @@ import torch
 
 from . import _build
 from .activations import act_code
-from .conv_k4s2p1 import (H100_SMS, _sm_count, affine_pointers,
-                          check_conv_args, check_dw_args)
+from .conv_k4s2p1 import (DW_PATH_CODES, H100_SMS, DwPlan, _sm_count,
+                          affine_pointers, check_conv_args, check_dw_args,
+                          dw_plan)
 from .conv_k4s2p1 import conv2d_k4s2p1_dw_plain as halo_conv2d_k4s2p1_dw_plain
 from .conv_k4s2p1 import conv2d_k4s2p1_plain as halo_conv2d_k4s2p1_plain
 
@@ -46,10 +50,16 @@ TC_SLOTS = 6
 TC_PIXEL_BYTES = 128
 TC_MAX_CI = 64
 SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may have (H100)
+# K5b's f32 FMA kernel (csrc/halo_conv_k4s2p1_dw.cu, halo_dw_kernel): a block
+# owns one kernel row, a FMA_TILE tile of CI and of CO and a run of output
+# rows; runs are halved while the blocks fill fewer than two waves and each
+# keeps FMA_MIN_ROWS rows.
+FMA_TILE = 64
+FMA_MIN_ROWS = 4
 
 __all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain",
            "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo",
-           "tc_plan", "TilePlan"]
+           "tc_plan", "TilePlan", "halo_dw_plan"]
 
 
 class TilePlan(NamedTuple):
@@ -128,6 +138,27 @@ def halo_conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None):
     return y
 
 
+def halo_dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
+                 sms: int = H100_SMS) -> DwPlan:
+    """K5b's plan for x (n,h,w,ci) and dy with CO channels (both multiples
+    of 8). bf16: K4's ``dw_plan``, whose wgmma path takes every such shape
+    (parity planes where W/2 % 8 == 0, else per-tap windows). f32: the FMA
+    kernel's tiles of one kernel row x FMA_TILE channels of CI and CO, its
+    steps whole output rows (``tile[2]`` = W/2 pixels), split while the
+    blocks fill fewer than two waves of ``sms``."""
+    if dtype == torch.bfloat16:
+        return dw_plan(n, h, w, ci, co, dtype, sms)
+    rows = n * (h // 2)
+    out_tiles = 4 * -(-ci // FMA_TILE) * -(-co // FMA_TILE)
+    s = 1
+    while out_tiles * s < 2 * sms and rows // (2 * s) >= FMA_MIN_ROWS:
+        s *= 2
+    rows_per_split = max(1, -(-rows // s))
+    splits = max(1, -(-rows // rows_per_split))
+    return DwPlan("fma", (4 * FMA_TILE, FMA_TILE, w // 2), 4, splits,
+                  rows_per_split, out_tiles * splits, out_tiles * splits, 0)
+
+
 def halo_conv2d_k4s2p1_dw(x, dy):
     """Weight gradient of ``halo_conv2d_k4s2p1``: (4,4,CI,CO) in x's dtype."""
     check_dw_args("halo_conv2d_k4s2p1_dw", x, dy)
@@ -139,11 +170,13 @@ def halo_conv2d_k4s2p1_dw(x, dy):
     co = dy.shape[3]
     _build.check_cuda_tensor("halo_conv_k4s2p1_dw x", x)
     _build.check_cuda_tensor("halo_conv_k4s2p1_dw dy", dy, dtype=x.dtype)
+    plan = halo_dw_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
     dw = torch.empty(4, 4, ci, co, dtype=x.dtype, device=x.device)
+    ws = _build.workspace(plan.splits * 16 * ci * co if plan.splits > 1 else 0, x)
     lib = _build.library()
-    ws = _build.workspace(
-        lib.discogan_halo_conv_k4s2p1_dw_workspace(n, h, wd, ci, co), x)
     _build.launch("halo_conv_k4s2p1_dw", lib.discogan_halo_conv_k4s2p1_dw,
                   x.data_ptr(), dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n,
-                  h, wd, ci, co, _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+                  h, wd, ci, co, _build.DTYPE_CODES[x.dtype],
+                  DW_PATH_CODES[plan.path], plan.splits, plan.steps_per_split,
+                  plan.blocks, plan.smem_bytes, _build.stream_of(x))
     return dw

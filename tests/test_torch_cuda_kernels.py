@@ -204,17 +204,30 @@ def test_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
 
 @pytest.mark.parametrize("n,h,w,ci,co", [
     (2, 16, 16, 8, 16), (3, 14, 22, 8, 24), (1, 64, 40, 16, 8),
-    (2, 256, 256, 64, 128)])
+    (2, 256, 256, 64, 128), (8, 256, 256, 64, 128), (1, 256, 256, 64, 128),
+    (2, 64, 64, 16, 128), (1, 48, 256, 32, 72), (2, 40, 128, 48, 136),
+    (2, 128, 128, 64, 24), (3, 30, 40, 16, 72), (1, 10, 208, 64, 128)])
 def test_halo_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
+    """In bf16 the wgmma kernel (halo_dw_wgmma_kernel) at enc1 at batch 1,
+    2 and 8 (split over M), with parity planes and per-tap windows (W/2 of
+    11, 20), at CI 8/16/32/48 under one channel block, CO off the 128 tile
+    (8, 16, 24, 72, 136) and a ragged M; in f32 the FMA kernel. One launch
+    each."""
+    from discogan_modernized_torch.ops import _build
+
     x = _rand(gen, dtype, n, h, w, ci)
     dy = _rand(gen, dtype, n, h // 2, w // 2, co, scale=0.1)
-    _close(halo_conv2d_k4s2p1_dw(x, dy), halo_conv2d_k4s2p1_dw_plain(x, dy), dtype)
+    before = _build.launches["halo_conv_k4s2p1_dw"]
+    got = halo_conv2d_k4s2p1_dw(x, dy)
+    assert _build.launches["halo_conv_k4s2p1_dw"] == before + 1
+    _close(got, halo_conv2d_k4s2p1_dw_plain(x, dy), dtype)
 
 
 def test_two_launches_give_the_same_bits(gen, dtype):
     """Every reduction across blocks (K1, K3's statistics on both of its
     paths, K4's split sums on the stem's and the tensor-core path in bf16
-    and the FMA path in f32, K5b's) sums its partials in a fixed order."""
+    and the FMA path in f32, K5b's on its wgmma path in bf16 and its FMA
+    path in f32) sums its partials in a fixed order."""
     x = _rand(gen, dtype, 2, 256, 256, 64)
     dy = _rand(gen, dtype, 2, 128, 128, 128, scale=0.1)
     xd = _rand(gen, dtype, 2, 16, 16, 1024)
