@@ -55,9 +55,10 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               plain versions, on three seeded batches, under
               torch.use_deterministic_algorithms (cuDNN's and cuBLAS's
               deterministic algorithms): losses within EQUIV_LOSS_REL
-              relative, each gradient tensor within EQUIV_GRAD_REL in norm;
-              the readings are printed, with the plain path run twice,
-              which must agree bit for bit.
+              relative, each gradient tensor within EQUIV_GRAD_REL in norm
+              or EQUIV_FLOOR_FACTOR times the plain path's own change when
+              its images move by one ulp; the readings are printed, with
+              the plain path run twice, which must agree bit for bit.
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the 256-image synthetic task (32 iterations: 11 D,
               21 G), with the launch counts of every D and G step checked
@@ -118,16 +119,22 @@ SIZE = 512
 TRAIN_BATCH = 8
 EQUIV_BATCH = 2
 EQUIV_SEEDS = (7, 8, 9)  # the equivalence step's batches
-# f32 equivalence step, kernels vs plain versions: |loss difference| over
-# |loss|, and per gradient tensor ||difference|| / ||g||. At batch 2 the
-# deep layers' gradients hang on LeakyReLU/ReLU masks over 32 values per
-# channel, and rounding-level changes flip some: on an H100 the plain path
-# run twice differs by up to 1.2e-3 (D) and 8.0e-3 (G) in norm (cuDNN's
-# own run-to-run differences) and by up to 1.4e-2 in max |diff| / max |g|;
-# kernels vs plain read 6.2e-3 (D) and 1.3e-2 (G) in norm, up to 0.58 in
-# max-based terms. The limits are about twice the readings.
+# f32 equivalence step, kernels vs plain versions, both under deterministic
+# algorithms (the plain path run twice gives the same bits): |loss
+# difference| over |loss|, and per gradient tensor ||difference|| / ||g||.
+# At batch 2 the gradients hang on LeakyReLU/ReLU masks and on BatchNorm
+# over few values per channel, so rounding-level changes move them. On an
+# H100 the plain path fed its images moved by one ulp moves them by up to
+# 5.5e-3 / 9.1e-3 (D / G step) on the first batch, 1.4e-2 / 2.8e-2 on the
+# second and 7.7e-3 / 0.87 on the third; kernels vs plain read 6.2e-3 /
+# 1.3e-2, 2.0e-2 / 5.3e-2 and 7.6e-3 / 0.65, at most 1.9 times that
+# sensitivity, and up to 1.1 in max |diff| / max |g|. A gradient may differ
+# by EQUIV_GRAD_REL (about twice the first batch's worst reading) or by
+# EQUIV_FLOOR_FACTOR times its batch's sensitivity, whichever is larger:
+# the first batch's limit stays EQUIV_GRAD_REL. Losses agree to 4.4e-5.
 EQUIV_LOSS_REL = 1e-4
 EQUIV_GRAD_REL = 3e-2
+EQUIV_FLOOR_FACTOR = 3
 PER_FORWARD = {"conv_k4s2p1": 6, "halo_conv_k4s2p1": 1, "bn_act": 8,
                "head_convt": 1}
 # Launches of one 512px training step: 4 generator and 4 discriminator
@@ -897,8 +904,8 @@ def check_equivalence() -> None:
     on the first batch and must give the same bits. It also runs on the
     batch's images moved by one ulp: how far that moves its gradients is the
     step's own sensitivity to rounding-level changes, and the kernels may
-    differ from the plain path by up to twice it, or EQUIV_GRAD_REL where
-    that is larger."""
+    differ from the plain path by EQUIV_FLOOR_FACTOR times it, or by
+    EQUIV_GRAD_REL where that is larger."""
     from discogan_modernized_torch.core.precision import F32, configure
     from discogan_modernized_torch.train.graph import trainable_subsets
     from discogan_modernized_torch.train.step import (TrainConfig,
@@ -938,7 +945,7 @@ def check_equivalence() -> None:
                          for n, _ in ts.models[k].named_parameters()]
                 grad_rel, grad_name = worst(names, grads, plain_grads, norm)
                 floor, floor_name = worst(names, nudged, plain_grads, norm)
-                limit = max(EQUIV_GRAD_REL, 2 * floor)
+                limit = max(EQUIV_GRAD_REL, EQUIV_FLOOR_FACTOR * floor)
                 print(f"{which} step, f32 batch {EQUIV_BATCH}, data seed {seed}: losses "
                       + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items()))
                 print(f"  kernels vs plain: max relative loss difference {loss_rel:.3e} "

@@ -35,9 +35,8 @@
 #include "wgmma.cuh"
 
 // The plan's paths (ops/conv_k4s2p1.py::DW_PATH_CODES): the f32 FMA kernel,
-// this kernel with parity planes (WO % 8 == 0) or per-tap windows, K4's stem,
-// and the planes with dy multicast across a cluster (K5b, MCAST below).
-enum DwPath { PATH_FMA = 0, PATH_PLANES = 1, PATH_WINDOWS = 2, PATH_STEM = 3, PATH_CLUSTER = 4 };
+// this kernel with parity planes (WO % 8 == 0) or per-tap windows, K4's stem.
+enum DwPath { PATH_FMA = 0, PATH_PLANES = 1, PATH_WINDOWS = 2, PATH_STEM = 3 };
 
 // Whether `parts` parts of `per_part` units each cover `units` exactly once
 // (every part holds at least one unit).
@@ -75,59 +74,6 @@ template <bool PLANES>
 __host__ __device__ constexpr int smem_bytes() {
   return stages<PLANES>() * stage_bytes<PLANES>() + EPI_BYTES + MAX_TILES * 16;
 }
-// MCAST: where a part of the split has exactly four tiles (one o tile, one
-// channel block: K5b's enc1), its four kh tiles run as a cluster of CLUSTER
-// blocks that read the same dy chunks. Each block copies a quarter of a
-// chunk's dy (16 pixels of both 64-channel halves) by TMA, multicast into
-// the same slot of all four blocks; a slot's full barrier expects the whole
-// 16 KB, its empty barrier the four blocks' release of the chunk it held.
-// The L2 reads of dy fall to a quarter; x is still staged by cp.async.
-constexpr int CLUSTER = 4;
-constexpr int MCAST_BARRIER_BYTES = 64;  // full[4] and empty[4] after the tile table
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
-// expect `bytes` on this CTA's barrier, if go
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes, bool go) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
-      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(bar),
-      "r"(bytes), "r"(static_cast<int>(go))
-      : "memory");
-}
-// arrive on the barrier at the same offset in CTA `cta` of the cluster, if go
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int cta, bool go) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b32 r;\nsetp.ne.b32 p, %2, 0;\n"
-      "mapa.shared::cluster.u32 r, %0, %1;\n"
-      "@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [r];\n}\n" ::"r"(bar),
-      "r"(cta), "r"(static_cast<int>(go))
-      : "memory");
-}
-// box {c0, c1} of `map` into `dst` of every CTA of the cluster, completing
-// on the barrier at `bar`'s offset in each, if go
-__device__ __forceinline__ void tma_mcast(uint32_t dst, const void* map, int c0, int c1,
-                                          uint32_t bar, bool go) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
-      "@p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %6;\n}\n" ::"r"(dst),
-      "l"(map), "r"(c0), "r"(c1), "r"(bar), "r"(static_cast<int>(go)),
-      "h"(static_cast<unsigned short>((1 << CLUSTER) - 1))
-      : "memory");
-}
-
 // A tile is kernel row kh, input channels ci0 .. ci0+63, output channels
 // o0 .. o0+127 and one part of the split contraction: tile index
 // ((split * Y + y) * X + x), x the o tile, y = 4 * (channel block) + kh.
@@ -137,13 +83,12 @@ __device__ __forceinline__ void tma_mcast(uint32_t dst, const void* map, int c0,
 // while the next tile's first chunks land. Warpgroup g accumulates taps
 // kw = 2g, 2g + 1, each a 64 (channel) x 128 (o) f32 tile in registers.
 // Run by THREADS threads, one block an SM, with smem_bytes<PLANES>() of
-// dynamic shared memory (and MCAST_BARRIER_BYTES more with MCAST, launched
-// as clusters of CLUSTER blocks, dy_map the TMA map of dy as (M, CO)).
-template <bool PLANES, bool MCAST = false>
+// dynamic shared memory.
+template <bool PLANES>
 __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                                      bf16* __restrict__ dw, float* __restrict__ partial, int n,
                                      int h, int wd, int ci, int co, int splits,
-                                     int steps_per_split, const void* dy_map = nullptr) {
+                                     int steps_per_split) {
   constexpr int STAGE = stage_bytes<PLANES>(), XB = x_bytes<PLANES>(), STAGES = stages<PLANES>();
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -168,23 +113,7 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __r
     const int xt = tile % x_tiles, rest = tile / x_tiles, yt = rest % y_tiles;
     tab[tid] = make_int4(xt * BN, (yt >> 2) * CH, yt & 3, rest / y_tiles);
   }
-  // multicast: full[s] (dy of slot s landed: 16 KB), empty[s] (the four
-  // CTAs are done with slot s's chunk)
-  const uint32_t bars = sbase + STAGES * STAGE + EPI_BYTES + MAX_TILES * 16;
-  uint32_t rank = 0;
-  if constexpr (MCAST) {
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-    if (tid == 0) {
-      for (int i = 0; i < STAGES; ++i) {
-        mbar_init(bars + 8 * i, 1);
-        mbar_init(bars + 8 * (STAGES + i), CLUSTER);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    cluster_sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   // Copy the next item (chunk cur_t of tile cur_k, the cur_q-th item) into
   // its ring slot, if `go`; zero-filled past M, past the map's edges (the
@@ -218,31 +147,16 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __r
     const int4 tl = tab[min(cur_k, my_tiles - 1)];  // .x o0, .y ci0, .z kh, .w split
     const int c = tl.w * steps_per_split + cur_t;
     const uint32_t slot = sbase + (cur_q % STAGES) * STAGE;
-    const int qq = cur_q;
     ++cur_q;
     ++cur_t;
     const bool wrap = cur_t == nch;
     cur_t = wrap ? 0 : cur_t;
     cur_k += wrap;
     const bf16* dy_src = dy + static_cast<long long>(c * CHUNK + dy_px) * co + tl.x + dy_o;
-    if constexpr (MCAST) {
-      // thread 0: once every CTA of the cluster is done with the chunk
-      // this slot held, expect the chunk's 16 KB of dy and multicast this
-      // CTA's quarter (16 pixels of both 64-channel halves) to all four
-      const bool lead = go & (tid == 0);
-      const uint32_t full = bars + 8 * (qq % STAGES);
-      if (lead && qq >= STAGES) mbar_wait(bars + 8 * (STAGES + qq % STAGES), (qq / STAGES - 1) & 1);
-      mbar_expect(full, DY_BYTES, lead);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        tma_mcast(slot + XB + (hf * CHUNK + 16 * rank) * 128, dy_map, tl.x + 64 * hf,
-                  c * CHUNK + 16 * rank, full, lead);
-    } else {
-#pragma unroll
-      for (int i = 0; i < CHUNK * BN / 8 / THREADS; ++i) {
-        const bool ok = (c * CHUNK + dy_px + 16 * i < m_total) & (tl.x + dy_o < co);
-        cp_async16(slot + dy_soff + i * 16 * 128, ok ? dy_src + 16LL * i * co : dy, ok, go);
-      }
+    for (int i = 0; i < CHUNK * BN / 8 / THREADS; ++i) {
+      const bool ok = (c * CHUNK + dy_px + 16 * i < m_total) & (tl.x + dy_o < co);
+      cp_async16(slot + dy_soff + i * 16 * 128, ok ? dy_src + 16LL * i * co : dy, ok, go);
     }
     const int m = c * CHUNK + (PLANES ? 8 * xw : xpx);
     const int b = m / hw, r = m - b * hw, oy = r / wo, ox = r - oy * wo;
@@ -291,16 +205,7 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __r
     for (int t = 0; t < nch; ++t) {
       const int q = k * nch + t;
       cp_async_wait<STAGES - 3>();
-      if constexpr (MCAST) mbar_wait(bars + 8 * (q % STAGES), (q / STAGES) & 1);
       __syncthreads();
-      if constexpr (MCAST) {
-        // every warpgroup here is past item q - 2's wgmmas: its slot is free
-        // here; tell the cluster, where the slot will be filled again
-        const bool rel = (tid == 0) & (q >= 2) & (q - 2 + STAGES < items);
-#pragma unroll
-        for (int r = 0; r < CLUSTER; ++r)
-          mbar_arrive_remote(bars + 8 * (STAGES + (q + STAGES - 2) % STAGES), r, rel);
-      }
       const uint32_t slot = sbase + (q % STAGES) * STAGE;
       wgmma_fence();
 #pragma unroll
@@ -377,7 +282,6 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __r
     // first chunk.
   }
   cp_async_wait();
-  if constexpr (MCAST) cluster_sync();
 }
 
 // A __global__ entry around body<PLANES>.

@@ -32,8 +32,6 @@
 //   blocks fill fewer than two waves.
 // Split parts write f32 partials that halo_dw_reduce_kernel sums in a fixed
 // order and casts: no float atomics, two launches give the same bits.
-#include <cuda.h>
-
 #include "conv_dw_wgmma.cuh"
 
 namespace {
@@ -137,78 +135,6 @@ __global__ void __launch_bounds__(dw_wgmma::THREADS, 1)
   dw_wgmma::body<PLANES>(x, dy, dw, partial, n, h, wd, ci, co, splits, steps_per_split);
 }
 
-template <bool PLANES>
-__global__ void __launch_bounds__(dw_wgmma::THREADS, 1)
-    halo_dw_mcast_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-                         __nv_bfloat16* __restrict__ dw, float* __restrict__ partial, int n, int h,
-                         int wd, int ci, int co, int splits, int steps_per_split,
-                         const __grid_constant__ CUtensorMap dy_map) {
-  dw_wgmma::body<PLANES, true>(x, dy, dw, partial, n, h, wd, ci, co, splits, steps_per_split,
-                               &dy_map);
-}
-
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeFn>(p);
-  }
-  return fn;
-}
-
-// The cluster path (K5b at enc1 with one o tile and one channel block): the
-// TMA map of dy, then clusters of four blocks, one part's kh tiles each.
-int launch_mcast(int blocks, int smem, cudaStream_t s, const void* x, const void* dy, void* dw,
-                 float* partial, int n, int h, int wd, int ci, int co, int splits,
-                 int steps_per_split) {
-  const long long m = static_cast<long long>(n) * (h / 2) * (wd / 2);
-  const int tiles = 4 * splits;
-  if (ci % 8 || co % 8 || ci > 64 || co > 128 || (wd / 2) % 8 || m >= (1LL << 31) ||
-      !covers_once((m + 63) / 64, splits, steps_per_split) || blocks != tiles ||
-      smem < dw_wgmma::smem_bytes<true>() + dw_wgmma::MCAST_BARRIER_BYTES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  EncodeFn enc = encode_fn();
-  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(co), static_cast<cuuint64_t>(m)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(co) * 2};
-  const cuuint32_t box[2] = {64, 16}, estr[2] = {1, 1};
-  if (enc(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(dy), dims, strides, box,
-          estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(halo_dw_mcast_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(dw_wgmma::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = dw_wgmma::CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, halo_dw_mcast_kernel<true>,
-                           static_cast<const __nv_bfloat16*>(x),
-                           static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dw),
-                           partial, n, h, wd, ci, co, splits, steps_per_split, map);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_status();
-}
-
 // Sum of the split parts, in order, cast once.
 template <typename T>
 __global__ void halo_dw_reduce_kernel(const float* __restrict__ partial, int splits,
@@ -257,9 +183,6 @@ extern "C" int discogan_halo_conv_k4s2p1_dw(const void* x, const void* dy, void*
                      THREADS, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(dy),
                                       static_cast<float*>(dw), partial, g);
     err = launch_status();
-  } else if (dtype == DT_BF16 && path == PATH_CLUSTER) {
-    err = launch_mcast(blocks, smem, s, x, dy, dw, partial, n, h, wd, ci, co, splits,
-                       steps_per_split);
   } else if (dtype == DT_BF16 && (path == PATH_PLANES || path == PATH_WINDOWS)) {
     err = path == PATH_PLANES
               ? dw_wgmma::launch<true>(halo_dw_wgmma_kernel<true>, blocks, smem, s, x, dy, dw,
@@ -282,25 +205,3 @@ extern "C" int discogan_halo_conv_k4s2p1_dw(const void* x, const void* dy, void*
   return launch_status();
 }
 
-// Clusters of the cluster path's four blocks that the card holds at once,
-// each block with `smem` bytes of dynamic shared memory (negative on error).
-extern "C" int discogan_halo_dw_cluster_max(int smem) {
-  if (cudaFuncSetAttribute(halo_dw_mcast_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return -1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(132);
-  cfg.blockDim = dim3(dw_wgmma::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = dw_wgmma::CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int count = -1;
-  if (cudaOccupancyMaxActiveClusters(&count, halo_dw_mcast_kernel<true>, &cfg) != cudaSuccess)
-    return -2;
-  return count;
-}

@@ -51,7 +51,6 @@ _SIGNATURES = {
     "discogan_conv_k4s2p1_workspace": (_LL, [_I] * 7),
     "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
-    "discogan_halo_dw_cluster_max": (_I, [_I]),
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _P]),
     "discogan_head_convt": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

@@ -148,7 +148,7 @@ DW_MAX_TILES_PER_BLOCK = 64
 FMA_TILE, FMA_STEP, FMA_TARGET_BLOCKS, FMA_MIN_STEPS_PER_SPLIT = 64, 16, 2 * 132, 8
 STEM_BO, STEM_BLOCKS_PER_SM, STEM_SMEM = 64, 4, 4 * DW_CHUNK * 128
 DW_PATH_CODES = {"fma": 0, "wgmma_planes": 1, "wgmma_windows": 2,
-                 "wgmma_stem": 3, "wgmma_cluster": 4}
+                 "wgmma_stem": 3}
 H100_SMS = 132
 
 
