@@ -26,7 +26,13 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               gradient) at enc1 at batch 1 and at its edge shapes (CI
               16/32/48 under one channel block, CO 24/72/136 off the 128
               tile, W/2 off a multiple of 8, a ragged M, two images), each
-              K5b call launched twice for the same bits. In
+              K5b call launched twice for the same bits; K6 (the head and
+              the stems' input gradient) at dec7 at batch 1, 4 and 8 and
+              the stem dx at batch 8 on its tensor-core path, and at its
+              edge shapes (K6_EDGE: W off a multiple of 16, three strips,
+              bands that do not divide H, H 1 and 2, CO 1/3/8, CI
+              16/32/48/64/128, a ring of 4 rows), each bf16 call on the
+              tensor-core path (head_plan) and counted once. In
               f32 (TF32 off; tolerance 1e-4 of max(1, max|ref|)) and bf16
               (2e-2: the kernel and the plain version round to bf16 at
               different places; statistics 1e-4 in both, from f32 sums of
@@ -42,9 +48,9 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               forward (6 K3, 1 K5f, 8 K2, 1 K6); outputs finite, in [0,1],
               and equal to the plain versions' forward in f32 (1e-4), close
               in bf16 (PATH_TOL); the forward timed and profiled at batch 4
-              and at batch 1, each profile showing K5f's time under the
-              tensor-core kernel (halo_wgmma_kernel) and none under the
-              FMA one.
+              and at batch 1, each profile showing K5f's and K6's time
+              under their tensor-core kernels (halo_wgmma_kernel,
+              head_convt_mma_kernel) and none under their FMA ones.
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -67,9 +73,12 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               and peak memory; gen_B_final.pth through the inference CLI;
               a torch.profiler split of one G step, which shows K4's bf16
               time under its wgmma kernels (conv_dw_wgmma_kernel,
-              conv_dw_stem_kernel) and K5b's under halo_dw_wgmma_kernel,
-              and none under their FMA kernels.
-  8. report   one JSON line of kernels, the nvidia-smi line, and the last
+              conv_dw_stem_kernel), K5b's under halo_dw_wgmma_kernel and
+              K6's under head_convt_mma_kernel, and none under their FMA
+              kernels.
+  8. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
+              main-path shapes against the library call and the bound;
+              one JSON line of kernels, the nvidia-smi line, and the last
               line {"ok": true, "device": {...}}.
 """
 
@@ -254,6 +263,18 @@ K5B_EDGE = [("ci16", (2, 64, 64, 16, 128)), ("ci32 co72", (1, 48, 256, 32, 72)),
             ("w/2 20", (3, 30, 40, 16, 72)), ("ragged M", (1, 10, 208, 64, 128)),
             ("b2", (2, 256, 256, 64, 128))]
 
+# K6's tensor-core edge shapes (label, (n, h, w, ci, co)): W off a multiple
+# of 16 (24, 40), three strips of 128 columns (300: the last 44 wide), bands
+# that do not divide H (10 rows in bands of 3, 58 in bands of 10), H 1, 2
+# and 6, CO 1, 3 and 8, CI 16/32/48/64/128 (CI 128 with CO 8 on a ring of 4
+# rows), batch 1 and 2 (tests/test_torch_head_plan.py holds the plans).
+K6_EDGE = [("w24", (2, 10, 24, 64, 3)), ("w40 co1", (1, 6, 40, 16, 1)),
+           ("w300", (1, 8, 300, 32, 3)), ("h10 bands", (60, 10, 24, 64, 3)),
+           ("h58 bands", (40, 58, 40, 16, 3)), ("h6 ci48", (2, 6, 40, 48, 3)),
+           ("h1", (2, 1, 256, 64, 3)), ("h2 co8", (2, 2, 128, 64, 8)),
+           ("ci32 co8", (24, 16, 40, 32, 8)), ("ci128", (1, 16, 256, 128, 3)),
+           ("ci128 co8", (30, 20, 40, 128, 8))]
+
 
 def kernel_cases():
     """(kind, label, shape args, path, calls per G step) for every call:
@@ -298,9 +319,10 @@ def kernel_cases():
         h *= 2
     for label, shape, calls in stats_shapes:
         cases.append(("batch_stats", f"{label} t", shape, tr, calls))
-    # the head's forward, and the stem's input gradient (a convT of the
-    # same shape), per generator forward
-    cases.append(("head_convt", "dec7 t", (b, 256, 256, 64, 3), tr, 8))
+    # the head's forward per generator forward, and the discriminators'
+    # stems' input gradient (a convT of the same shape)
+    cases.append(("head_convt", "dec7 t", (b, 256, 256, 64, 3), tr, 4))
+    cases.append(("head_convt", "stem dx t", (b, 256, 256, 64, 3), tr, 4))
     h, ci = SIZE, 3
     for i, co in enumerate(CHANS):
         if i == 1:
@@ -320,6 +342,7 @@ def kernel_cases():
            (n, h, w, ci, co, affine, "leaky" if affine else None), None, 0)
           for n, h, w, ci, co in K5F_EDGE for affine in (True, False)],
         ("head_convt", "odd 40x24", (1, 40, 24, 8, 3), None, 0),
+        *[("head_convt", label, shape, None, 0) for label, shape in K6_EDGE],
         ("batch_stats", "odd 75 rows", (3, 5, 5, 100), None, 0),
         ("conv_stats", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
         ("conv_k4s2p1_dw", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
@@ -342,7 +365,9 @@ def run_case(kernel, args, dtype, timer, g):
     from discogan_modernized_torch.ops.halo_conv import (
         halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain,
         halo_conv2d_k4s2p1_plain)
-    from discogan_modernized_torch.ops.head import head_convt, head_convt_plain
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.head import (head_convt, head_convt_plain,
+                                                    head_plan)
 
     dev = "cuda"
     size = torch.finfo(dtype).bits // 8
@@ -421,6 +446,8 @@ def run_case(kernel, args, dtype, timer, g):
         n, h, w, ci, co = args
         x = rand(n, h, w, ci)
         wt = rand(4, 4, ci, co, scale=(16 * co) ** -0.5)
+        if dtype == torch.bfloat16 and ci % 16 == 0:  # the tensor-core path
+            assert head_plan(n, h, w, ci, co, dtype) is not None
         x_nchw, w_iohw = x.permute(0, 3, 1, 2), wt.permute(2, 3, 0, 1).contiguous()
         kern = lambda: head_convt(x, wt)  # noqa: E731
         plain = lambda: head_convt_plain(x, wt)  # noqa: E731
@@ -428,8 +455,12 @@ def run_case(kernel, args, dtype, timer, g):
         flops = 2 * n * h * w * 16 * ci * co
         nbytes = (x.numel() + wt.numel() + 4 * n * h * w * co) * size
 
+    before = _build.launches[KIND_KERNEL.get(kernel, kernel)]
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    if kernel == "head_convt" and _build.launches[kernel] != before + 1:
+        raise AssertionError(f"head_convt {args}: {_build.launches[kernel] - before} "
+                             "launches for one call")
     if kernel.endswith("_dw") and not torch.equal(got, kern()):
         raise AssertionError(f"{kernel} {args} {DTYPE_NAMES[dtype]}: two launches "
                              "gave different bits")
@@ -484,6 +515,21 @@ def _sums(rows, weight):
     return ({key: sum(weight(v) * v[key] for v in rows)
              for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def per_layer_lines(results) -> None:
+    """bf16 ms per call, kernel vs library vs bound: K3 at every layer of
+    the batch-8 training forward (enc1 on K5f), and K6 at its main-path
+    shapes."""
+    rows = [("K3 batch 8", [(k[1].split()[0], v) for k, v in results.items()
+                            if k[2] == torch.bfloat16 and v["path"] == "train"
+                            and k[0] in ("conv_k4s2p1", "halo_conv_k4s2p1")]),
+            ("K6", [(k[1], v) for k, v in results.items()
+                    if k[2] == torch.bfloat16 and k[0] == "head_convt" and v["path"]])]
+    for what, cases in rows:
+        print(f"{what} (ms: kernel / library / bound): " + "; ".join(
+            f"{label} {v['ms']:.4f} / {v['library_ms']:.4f} / {v['bound_ms']:.4f}"
+            for label, v in cases))
 
 
 def kernel_summary(results, launches):
@@ -671,7 +717,8 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_wgmma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
-    "bn_act_kernel": "K2 bn_act", "head_convt_kernel": "K6 head_convt"}
+    "bn_act_kernel": "K2 bn_act", "head_convt_kernel": "K6 head_convt",
+    "head_convt_mma_kernel": "K6 head_convt"}
 # Library kernels (cuDNN convolutions and their gradients, cuBLAS products)
 LIBRARY_MARKERS = ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_",
                    "convolve", "dgrad", "wgrad", "implicit_convolve")
@@ -708,6 +755,22 @@ def check_k5f_route(by_kernel: dict, what: str) -> None:
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
+
+
+K6_TC_KERNEL = "head_convt_mma_kernel"
+
+
+def check_k6_route(by_kernel: dict, what: str) -> None:
+    """The profile shows K6's time under its tensor-core kernel and none
+    under the FMA one: every bf16 K6 call of the path (the head, and in a G
+    step the stems' input gradient) takes the tensor cores."""
+    tc = sum(us for name, us in by_kernel.items() if K6_TC_KERNEL in name)
+    fma = sum(us for name, us in by_kernel.items() if "head_convt_kernel" in name)
+    if not tc > 0 or fma > 0:
+        raise AssertionError(f"{what}: K6 {tc:.1f} us under {K6_TC_KERNEL}, "
+                             f"{fma:.1f} us under head_convt_kernel")
+    print(f"{what}: K6 {tc / 1e3:.4f} ms under {K6_TC_KERNEL}, none under "
+          "head_convt_kernel")
 
 
 def check_k4_route(by_kernel: dict, what: str) -> None:
@@ -804,13 +867,14 @@ def time_forward(model_dir: Path, images: np.ndarray, timer, batch: int) -> floa
           f"{plain_ms:.3f} ms through the plain versions")
     # The profiler now and then keeps only the tail of a short window (a
     # batch-1 forward's trace once held 18 of its 39 kernels): profile
-    # again, up to three times, until the trace holds a K5f kernel.
+    # again, up to three times, until the trace holds a K5f and a K6 kernel.
     for _ in range(3):
         by_kernel = profile_forward(fwd, x, BF16)
-        if any("halo_" in name for name in by_kernel):
+        if all(any(k in name for name in by_kernel) for k in ("halo_", "head_convt")):
             break
-        print("the profile holds no K5f kernel; profiling again")
+        print("the profile holds no K5f or no K6 kernel; profiling again")
     check_k5f_route(by_kernel, f"forward batch {batch}")
+    check_k6_route(by_kernel, f"forward batch {batch}")
     return ms
 
 
@@ -1071,6 +1135,7 @@ def profile_g_step() -> None:
     if by_kernel:
         check_k4_route(by_kernel, what)
         check_k5b_route(by_kernel, what)
+        check_k6_route(by_kernel, what)
     del ts
     torch.cuda.empty_cache()
 
@@ -1146,6 +1211,7 @@ def main() -> int:
     phase("report")
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
                     "train": train_counts[k]} for k in train_counts}
+    per_layer_lines(results)
     summary = kernel_summary(results, launches)
     serving = [k for k in summary if k["name"] in SERVING_KERNELS]
     print(f"forward {forward_ms:.3f} ms; the four serving kernels' phase-3 medians "

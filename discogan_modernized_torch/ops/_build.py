@@ -53,7 +53,7 @@ _SIGNATURES = {
     "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _P]),
-    "discogan_head_convt": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 10 + [_LL, _P]),
 }
 
 _lock = threading.Lock()

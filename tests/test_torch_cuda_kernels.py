@@ -137,6 +137,31 @@ def test_head_convt(gen, dtype, n, h, w, ci, co):
     _close(head_convt(x, wt), head_convt_plain(x, wt), dtype)
 
 
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (1, 256, 256, 64, 3), (4, 256, 256, 64, 3), (8, 256, 256, 64, 3),
+    (2, 10, 24, 64, 3), (1, 6, 40, 16, 1), (1, 8, 300, 32, 3), (60, 10, 24, 64, 3),
+    (40, 58, 40, 16, 3), (2, 6, 40, 48, 3), (2, 1, 256, 64, 3), (2, 2, 128, 64, 8),
+    (24, 16, 40, 32, 8), (1, 16, 256, 128, 3), (30, 20, 40, 128, 8)])
+def test_head_convt_tensor_cores(gen, n, h, w, ci, co):
+    """The bf16 tensor-core path (head_convt_mma_kernel) at the 512px head
+    and stems' dx (batch 1, 4, 8) and its edge shapes: W off a multiple of
+    16 (24, 40), three strips (300), bands that do not divide H (10 in bands
+    of 3, 58 in bands of 10), H 1, 2 and 6, CO 1, 3 and 8, CI 16, 32, 48,
+    64 and 128 (CI 128 with CO 8 on a ring of 4 rows), batch 1 and 2. One
+    launch each, on the tensor-core route."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.head import head_plan
+
+    configure(BF16)
+    assert head_plan(n, h, w, ci, co, torch.bfloat16) is not None
+    x = _rand(gen, torch.bfloat16, n, h, w, ci)
+    wt = _rand(gen, torch.bfloat16, 4, 4, ci, co, scale=(16 * co) ** -0.5)
+    before = _build.launches["head_convt"]
+    got = head_convt(x, wt)
+    assert _build.launches["head_convt"] == before + 1
+    _close(got, head_convt_plain(x, wt), torch.bfloat16)
+
+
 def test_cuda_tensor_never_takes_the_plain_version(gen):
     """A CUDA input launches the kernel (its count rises) or raises."""
     from discogan_modernized_torch.ops import _build
