@@ -41,27 +41,30 @@
 //   not read the window. wgmma m64nNPk16, both operands K-major in shared
 //   memory, 9 * CI/16 of them per row of 64 positions. The four-phase form
 //   reads each staged x value 9 times from shared memory (per-phase GEMMs,
-//   K = 4 CI each, would read it 16 times), about 1.2 KB a position at CI
-//   64: at the card's shared-memory rate, under the time x takes to come
-//   from device memory.
+//   K = 4 CI each, would read it 16 times) and does 3x the useful products
+//   (a phase reads 4 of the 9 windows; 12 of 16 columns at CO 3).
 // - A block owns one image, a strip of 128 input columns (two warpgroups of
 //   64) and a band of `rows` consecutive input rows, which the plan picks so
-//   that the grid is about one wave of two blocks per SM. It builds B once
-//   in shared memory from w (9 x CI x NP bf16, 18 KB at CI 64), then walks
-//   down its band: input row i makes output rows 2i and 2i+1 from ring rows
-//   i-1, i, i+1, so each x row comes from device memory once and the band's
-//   two halo rows from L2.
-// - The ring: SLOTS (5, or 4 where shared memory is short) input rows of 130
-//   pixels (the strip and its padding columns), 128 bytes a pixel for each
-//   64 channels, zero-filled outside the image by 16-byte cp.async.cg
-//   copies that run SLOTS - 3 rows ahead of the wgmmas, in the 128-byte
-//   swizzle wgmma reads (wgmma.cuh): window (dy, dx) of a warpgroup's 64
-//   positions is 64 consecutive pixels of ring row i+dy starting at pixel
-//   64g + 1 + dx, and a descriptor points straight at them.
-// - Epilogue: each thread's accumulator pairs (the two b phases share a
-//   4-byte bf16 pair) go to a shared-memory line of the warpgroup's part of
-//   output rows 2i and 2i+1, laid out as in y (64 x 2CO values, 768 bytes
-//   at CO 3), which then goes out in aligned 16-byte stores.
+//   that the grid is about one wave of two blocks per SM. It copies w into
+//   shared memory and builds B from it once (9 x CI x NP bf16, 18 KB at CI
+//   64). Then each warpgroup walks down the band on its own, so that one's
+//   copies and epilogue overlap the other's wgmmas: input row i makes output
+//   rows 2i and 2i+1 from ring rows i-1, i, i+1, so each x row comes from
+//   device memory once and the band's two halo rows from L2.
+// - The ring: SLOTS (5, or 4 where shared memory is short) input rows, in
+//   which each warpgroup stages its own 66 pixels (its 64 columns and their
+//   padding columns), 128 bytes a pixel for each 64 channels, zero-filled
+//   outside the image, by 16-byte cp.async.cg copies that run SLOTS - 2 rows
+//   ahead of its wgmmas, in the 128-byte swizzle wgmma reads (wgmma.cuh):
+//   window (dy, dx) of its 64 positions is 64 consecutive pixels of ring row
+//   i+dy starting at pixel 1 + dx, and a descriptor points straight at them.
+// - Epilogue: each thread's accumulator pairs (two neighbouring values of
+//   an output row, one 4-byte bf16 pair) go to a shared-memory line of the
+//   warpgroup's part of output rows 2i and 2i+1, laid out as in y (64 x 2CO
+//   values, 768 bytes at CO 3), which then goes out in aligned 16-byte
+//   stores.
+// - What holds it (tools/head_ab.py splits it): the row copies alone and
+//   the wgmmas with the epilogue alone each take most of the kernel's time.
 // - No branch and no accumulator read sits between a row's first wgmma and
 //   its wait (ptxas would serialize the wgmmas); the first wgmma of a row
 //   takes scale-d 0 instead of zeroed accumulators.
@@ -340,7 +343,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 
     uint32_t row_base[3];
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy) row_base[dy] = ring + ((t + dy) % SLOTS) * SLOT_BYTES + g * WG_BYTES;
+    for (int dy = 0; dy < 3; ++dy)
+      row_base[dy] = ring + ((t + dy) % SLOTS) * SLOT_BYTES + g * WG_BYTES;
     // No branch from here to the wait: ptxas would serialize the wgmmas.
     wgmma_fence();
 #pragma unroll

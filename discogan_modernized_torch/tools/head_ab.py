@@ -40,11 +40,10 @@ HEAD = (256, 256, 64, 3)  # h, w, ci, co of the head at 512px
 
 _NO_MMA = ("wgmma_m64nNk16_kk(acc[step & 1], k_desc(a_addr), k_desc(b_addr), step >= 2);",
            "(void)a_addr; (void)b_addr;")
-_NO_LINES = ("*reinterpret_cast<uint32_t*>(lines + (2 * g + a) * line_elems(co) + off) =",
-             "if (off < 0) *reinterpret_cast<uint32_t*>(lines + (2 * g + a) * line_elems(co) + off) =")
-_NO_STORES = ("*reinterpret_cast<uint4*>(dst + k * 8) = *reinterpret_cast<const uint4*>(line + k * 8);",
-              "if (lead < 0) *reinterpret_cast<uint4*>(dst + k * 8) = "
-              "*reinterpret_cast<const uint4*>(line + k * 8);")
+_LINE = "*reinterpret_cast<uint32_t*>(lines + (2 * g + a) * line_elems(co) + off) ="
+_NO_LINES = (_LINE, "if (off < 0) " + _LINE)
+_STORE = "*reinterpret_cast<uint4*>(dst + k * 8) = *reinterpret_cast<const uint4*>(line + k * 8);"
+_NO_STORES = (_STORE, "if (lead < 0) " + _STORE)
 _NO_COPIES = ("stage(t + SLOTS, t + SLOTS <= nrows + 1);", "stage(t + SLOTS, false);")
 VARIANTS = {
     "kernel": [],
