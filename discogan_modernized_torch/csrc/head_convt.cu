@@ -210,8 +210,11 @@ long long smem_bytes(int ci, int co, int slots) {
   return 9 * planes * np_of(co) * 128 + slots * planes * PLANE_BYTES + 4LL * line_elems(co) * 2;
 }
 
+// Two blocks share an SM up to CI 64; from CI 80 a block's ring alone
+// takes more than half of the SM's shared memory, so one block may have
+// all 255 registers a thread.
 template <int KS, int NP, int AHEAD>  // CI = 16 KS; copies AHEAD rows ahead
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, KS <= 4 ? 2 : 1)
     head_convt_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                           bf16* __restrict__ y, int h, int wd, int co, int rows) {
   constexpr int CI = 16 * KS;
