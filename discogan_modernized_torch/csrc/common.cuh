@@ -35,3 +35,10 @@ __device__ __forceinline__ float apply_act(float v, int act) {
 // Error of the launch just made: a refused launch (too many threads, too
 // much shared memory) never runs and a later synchronize does not say so.
 static inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// Whether `parts` parts of `per_part` units each cover `units` exactly once
+// (every part holds at least one unit).
+inline bool covers_once(long long units, int parts, int per_part) {
+  return parts >= 1 && per_part >= 1 && static_cast<long long>(parts) * per_part >= units &&
+         static_cast<long long>(parts - 1) * per_part < units;
+}

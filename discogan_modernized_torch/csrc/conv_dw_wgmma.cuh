@@ -38,13 +38,6 @@
 // this kernel with parity planes (WO % 8 == 0) or per-tap windows, K4's stem.
 enum DwPath { PATH_FMA = 0, PATH_PLANES = 1, PATH_WINDOWS = 2, PATH_STEM = 3 };
 
-// Whether `parts` parts of `per_part` units each cover `units` exactly once
-// (every part holds at least one unit).
-inline bool covers_once(long long units, int parts, int per_part) {
-  return parts >= 1 && per_part >= 1 && static_cast<long long>(parts) * per_part >= units &&
-         static_cast<long long>(parts - 1) * per_part < units;
-}
-
 namespace dw_wgmma {
 
 using bf16 = __nv_bfloat16;
@@ -219,7 +212,7 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __r
           // pixels.
           const uint32_t a = PLANES ? slot + j * PLANE_BYTES + (2 * s * GROUP_PX + g) * 128
                                     : slot + ((2 * g + j) * CHUNK + 16 * s) * 128;
-          wgmma_m64n128k16_tt(acc[j], sw128_desc(a, 8192, PLANES ? GROUP_PX * 128 : 1024),
+          wgmma_m64n128k16<1>(acc[j], sw128_desc(a, 8192, PLANES ? GROUP_PX * 128 : 1024),
                               desc_b, (t | s) != 0);
         }
       }

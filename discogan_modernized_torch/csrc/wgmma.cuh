@@ -1,4 +1,4 @@
-// Hopper building blocks shared by the wgmma kernels (K5f, K4, K5b, K6): the
+// Hopper building blocks shared by the wgmma kernels (K3, K5f, K4, K5b, K6): the
 // 128-byte swizzle, cp.async copies, the wgmma fence / commit / wait,
 // shared-memory matrix descriptors and the wgmma instructions they use.
 //
@@ -128,10 +128,11 @@ __device__ __forceinline__ void wgmma_m64nNk16_kk(float (&d)[16], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (64 x 128, f32) += a (64 x 16, MN-major) * b (16 x 128, MN-major): both
-// operands transposed, the contraction down their 128-byte rows.
-__device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64], uint64_t desc_a,
-                                                    uint64_t desc_b, int scale_d) {
+// d (64 x 128, f32) += a (64 x 16, K-major, or MN-major with TNSP_A = 1) *
+// b (16 x 128, MN-major: the contraction down its 128-byte rows).
+template <int TNSP_A = 0>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -139,7 +140,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64], uint64_t des
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
@@ -151,7 +152,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64], uint64_t des
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_A));
 }
 
 }  // namespace hopper

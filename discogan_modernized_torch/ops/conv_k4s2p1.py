@@ -9,6 +9,9 @@ per-channel and optional (inference-form BN), act is None, "relu" or
 "leaky" (0.2). With ``with_stats`` it returns (y, (mean, mean_sq)): the
 per-channel means of the raw f32 accumulator and of its square over the
 N*Ho*Wo rows, which train-mode BatchNorm reads instead of a second pass.
+``conv_plan`` picks K3's path (wgmma kernels for bf16 with I a multiple of
+64, or I at most 4 and O a multiple of 64 for the stem, else the f32 FMA
+kernel), its tile, ring, split over K and grid.
 ``conv2d_k4s2p1_dw`` returns dw[kh,kw,i,o] = sum x_pad[b,2r+kh,2c+kw,i] *
 dy[b,r,c,o], f32 accumulation, in x's dtype; ``dw_plan`` picks its path
 (wgmma kernels for bf16 with O a multiple of 8 and I a multiple of 8 or at
@@ -53,6 +56,14 @@ def affine_pointers(fn: str, scale, offset, co: int):
     return scale.data_ptr(), offset.data_ptr()
 
 
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
                         with_stats: bool = False):
     """The 16 per-tap products sum_{kh,kw} x_pad[:, kh::2, kw::2, :] @ w[kh, kw]
@@ -77,6 +88,83 @@ def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
     return (y, stats) if with_stats else y
 
 
+# K3's three paths (csrc/conv_k4s2p1.cu). wgmma (bf16, I % 64 == 0, O % 8
+# == 0): output tiles of CONV_BM rows (64 where M fits one) by CONV_BN
+# columns, K in steps of CONV_BK (one tap, 64 channels) through a ring of
+# CONV_STAGES[rows] stages of A (rows x 128 bytes) and B (CONV_BK x CONV_BN
+# bf16); K is split while the tiles fill less than one wave of the card,
+# each part of at least CONV_MIN_STEPS_PER_SPLIT steps, its f32 partials
+# summed by a second pass whose statistics take one partial row per
+# CONV_SPLIT_STAT_ROWS rows. The stem (bf16, I <= 4, O % 64 == 0): one
+# warpgroup a block over CONV_STEM_BO channels and a run of CONV_STEM_CHUNK-
+# pixel chunks, CONV_STEM_BLOCKS_PER_SM blocks an SM, each of at least
+# CONV_STEM_MIN_CHUNKS chunks. FMA: CONV_FMA_TILE x CONV_FMA_TILE tiles, K
+# in steps of 16.
+CONV_BM, CONV_BN, CONV_BK = 128, 128, 64
+CONV_STAGES = {128: 5, 64: 6}
+CONV_MIN_STEPS_PER_SPLIT = 4
+CONV_SPLIT_STAT_ROWS = 64
+CONV_STEM_CHUNK, CONV_STEM_BO = 64, 64
+CONV_STEM_BLOCKS_PER_SM, CONV_STEM_MIN_CHUNKS = 4, 4
+CONV_STEM_SMEM = (3 * CONV_STEM_CHUNK * 128 + CONV_STEM_CHUNK * (CONV_STEM_BO + 8) * 2
+                  + 2 * 4 * CONV_STEM_BO * 4 + 2 * CONV_STEM_BO * 4)
+CONV_FMA_TILE = 64
+CONV_PATH_CODES = {"fma": 0, "wgmma": 1, "wgmma_stem": 2}
+MAX_SMEM_BYTES = 232_448  # a block's shared memory on the H100
+
+
+class ConvPlan(NamedTuple):
+    path: str             # "wgmma", "wgmma_stem" or "fma"
+    tile: tuple           # (rows, columns, K of a step) of an output tile
+    stages: int           # ring stages (wgmma), A's double buffer (stem), 0 (FMA)
+    splits: int           # parts of K (wgmma) or blocks along M (stem); 1 (FMA)
+    steps_per_split: int  # K steps (wgmma) or 64-pixel chunks (stem) of a part
+    grid: tuple           # (x, y, z)
+    smem_bytes: int       # dynamic shared memory of a block
+    partial_floats: int   # f32 split partials in the workspace
+    stat_rows: int        # partial rows of the statistics (2 x O floats each)
+
+    def workspace_floats(self, co: int, with_stats: bool) -> int:
+        return self.partial_floats + (2 * self.stat_rows * co if with_stats else 0)
+
+
+def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
+              sms: int = H100_SMS) -> ConvPlan:
+    """K3's plan for x (n,h,w,ci) and CO output channels. The wgmma path
+    takes 64-row tiles where M fits in one, and splits K only while its
+    tiles fill less than one wave of ``sms`` blocks (one fits an SM), into
+    as many parts as fit in that wave; the grid walks M fastest. The stem
+    spreads M over CONV_STEM_BLOCKS_PER_SM blocks an SM."""
+    m = n * (h // 2) * (w // 2)
+    if dtype == torch.bfloat16 and 1 <= ci <= 4 and co % CONV_STEM_BO == 0 and co > 0:
+        chunks = -(-m // CONV_STEM_CHUNK)
+        out_tiles = co // CONV_STEM_BO
+        blocks = max(1, min(chunks // CONV_STEM_MIN_CHUNKS,
+                            CONV_STEM_BLOCKS_PER_SM * sms // out_tiles))
+        per_block = max(1, -(-chunks // blocks))
+        blocks = max(1, -(-chunks // per_block))
+        return ConvPlan("wgmma_stem", (CONV_STEM_CHUNK, CONV_STEM_BO, 16 * ci), 2,
+                        blocks, per_block, (out_tiles, blocks, 1), CONV_STEM_SMEM, 0,
+                        blocks)
+    if dtype == torch.bfloat16 and ci % CONV_BK == 0 and ci > 0 and co % 8 == 0:
+        bm = 64 if m <= 64 else CONV_BM
+        steps = 16 * ci // CONV_BK
+        m_tiles, n_tiles = -(-m // bm), -(-co // CONV_BN)
+        splits = max(1, min(sms // (m_tiles * n_tiles),
+                            steps // CONV_MIN_STEPS_PER_SPLIT))
+        sps = -(-steps // splits)
+        splits = -(-steps // sps)
+        stages = CONV_STAGES[bm]
+        return ConvPlan("wgmma", (bm, CONV_BN, CONV_BK), stages, splits, sps,
+                        (m_tiles, n_tiles, splits),
+                        stages * (bm * 128 + CONV_BK * CONV_BN * 2),
+                        splits * m * co if splits > 1 else 0,
+                        -(-m // CONV_SPLIT_STAT_ROWS) if splits > 1 else m_tiles)
+    m_tiles = -(-m // CONV_FMA_TILE)
+    return ConvPlan("fma", (CONV_FMA_TILE, CONV_FMA_TILE, 16), 0, 1, ci,
+                    (m_tiles, -(-co // CONV_FMA_TILE), 1), 0, 0, m_tiles)
+
+
 def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,
                   with_stats: bool = False):
     """y = act(conv(x, w, k=4, s=2, p=1) * scale + offset), NHWC/HWIO;
@@ -92,17 +180,18 @@ def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,
     _build.check_cuda_tensor("conv2d_k4s2p1 x", x)
     _build.check_cuda_tensor("conv2d_k4s2p1 w", w, dtype=x.dtype)
     sp, op = affine_pointers("conv2d_k4s2p1", scale, offset, co)
+    plan = conv_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
     y = torch.empty(n, h // 2, wd // 2, co, dtype=x.dtype, device=x.device)
     stats = (torch.empty(2, co, dtype=torch.float32, device=x.device)
              if with_stats else None)
+    ws = _build.workspace(plan.workspace_floats(co, with_stats), x)
     lib = _build.library()
-    dt = _build.DTYPE_CODES[x.dtype]
-    # f32 split-K partial sums (deep layers) and partial rows of the stats
-    ws = _build.workspace(lib.discogan_conv_k4s2p1_workspace(
-        n, h, wd, ci, co, dt, int(with_stats)), x)
     _build.launch("conv_k4s2p1", lib.discogan_conv_k4s2p1, x.data_ptr(),
                   w.data_ptr(), sp, op, y.data_ptr(), _build.ptr(ws),
-                  _build.ptr(stats), n, h, wd, ci, co, code, dt,
+                  _build.ptr(stats), n, h, wd, ci, co, code,
+                  _build.DTYPE_CODES[x.dtype], CONV_PATH_CODES[plan.path],
+                  plan.tile[0], plan.stages, plan.splits, plan.steps_per_split,
+                  plan.grid[0], plan.grid[1], plan.smem_bytes, plan.stat_rows,
                   _build.stream_of(x))
     return (y, (stats[0], stats[1])) if with_stats else y
 
@@ -149,7 +238,6 @@ FMA_TILE, FMA_STEP, FMA_TARGET_BLOCKS, FMA_MIN_STEPS_PER_SPLIT = 64, 16, 2 * 132
 STEM_BO, STEM_BLOCKS_PER_SM, STEM_SMEM = 64, 4, 4 * DW_CHUNK * 128
 DW_PATH_CODES = {"fma": 0, "wgmma_planes": 1, "wgmma_windows": 2,
                  "wgmma_stem": 3}
-H100_SMS = 132
 
 
 class DwPlan(NamedTuple):
@@ -212,11 +300,6 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     splits = max(1, -(-steps // sps))
     return DwPlan("fma", (FMA_TILE, FMA_TILE, FMA_STEP), 0, splits, sps,
                   out_tiles * splits, out_tiles * splits, 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv2d_k4s2p1_dw(x, dy):
