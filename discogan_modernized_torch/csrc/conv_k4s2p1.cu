@@ -23,16 +23,20 @@
 // passes a block's 232,448 bytes. Three paths:
 // - bf16 with CI % 64 == 0 and CO % 8 == 0 (enc2..enc6; enc1 of the 64px
 //   model): conv_wgmma_kernel. A block computes a 128 x 128 output tile
-//   (64 x 128 where M <= 64) with two warpgroups, wgmma m64n128k16 (or
-//   m64n64k16, the warpgroups then splitting N) from shared memory. A K
-//   step is one tap and 64 channels: A holds, for each output pixel of the
-//   tile, the 128 contiguous bytes x[b, 2oy-1+kh, 2ox-1+kw, c0:c0+64], one
-//   K-major row in the 128-byte swizzle, copied by cp.async and zero-filled
-//   where the tap falls in the padding (each thread's taps inside the map
-//   are a 16-bit mask, so a step costs no gather arithmetic); B holds w's 64
-//   rows of the step by the tile's 128 columns, MN-major, as two 64-column
-//   groups. A ring of stages in dynamic shared memory keeps the copies
-//   STAGES - 2 steps ahead of the wgmmas. The epilogue runs on the
+//   with two warpgroups, wgmma m64n128k16 from shared memory; 128 x 256
+//   (m64n256k16) where those tiles fill a wave without a split (enc2 and
+//   enc3 at batch 8, enc2 at batch 4): they read a third less from L2 per
+//   product, which is what holds the 128 x 128 tile (its copies alone take
+//   ~80% of its time); 64 x 128 (m64n64k16, the warpgroups splitting N)
+//   where M <= 64. A K step is one tap and 64 channels: A holds, for each
+//   output pixel of the tile, the 128 contiguous bytes x[b, 2oy-1+kh,
+//   2ox-1+kw, c0:c0+64], one K-major row in the 128-byte swizzle, copied by
+//   cp.async and zero-filled where the tap falls in the padding (each
+//   thread's taps inside the map are a 16-bit mask, so a step costs no
+//   gather arithmetic); B holds w's 64 rows of the step by the tile's
+//   columns, MN-major, in groups of 64 columns. A ring of stages in dynamic
+//   shared memory keeps the copies STAGES - 2 steps ahead of the wgmmas
+//   (deeper rings ran no faster). The epilogue runs on the
 //   accumulators in registers: serving applies scale, offset and act;
 //   training also takes the statistics (each column summed over the
 //   thread's rows, over its eight lanes by fixed shuffles, then over the
@@ -209,41 +213,43 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 using namespace hopper;
-constexpr int THREADS = 256;        // two warpgroups
-constexpr int BN = 128;             // output channels of a tile
-constexpr int BK = 64;              // K of a step: one tap, 64 channels
-constexpr int B_BYTES = BK * BN * 2;
-constexpr int LINE_PITCH = BN + 8;  // bf16 values of an epilogue row (against bank conflicts)
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int BK = 64;        // K of a step: one tap, 64 channels
 
-template <int BM>
-__host__ __device__ constexpr int stage_bytes() { return BM * 128 + B_BYTES; }
-// The epilogue's line of y and the statistics' partial sums, in the ring.
-template <int BM>
+// A (BM rows of 128 bytes) and B (BK rows of BN bf16) of a step.
+template <int BM, int BN>
+__host__ __device__ constexpr int stage_bytes() { return BM * 128 + BK * BN * 2; }
+// The epilogue's line of y (rows of BN + 8 bf16, against bank conflicts)
+// and the statistics' partial sums, in the ring.
+template <int BM, int BN>
 __host__ __device__ constexpr int epilogue_bytes() {
-  return BM * LINE_PITCH * 2 + 2 * (BM / 16) * BN * 4;
+  return BM * (BN + 8) * 2 + 2 * (BM / 16) * BN * 4;
 }
 
 // Block (blockIdx.x, blockIdx.y, blockIdx.z): output rows m0 .. m0+BM-1,
-// columns n0 .. n0+127 and K steps [s_begin, s_begin + steps_per_split) of
-// 16 * CI / 64. Warpgroup g takes rows 64g .. 64g+63 of all 128 columns
-// (BM 128) or all 64 rows of columns 64g .. 64g+63 (BM 64). With `partial`
-// (a split), it writes its f32 sums to partial[blockIdx.z][m][co];
-// otherwise y and, with `stat_part`, one partial row of the statistics.
-// Run by THREADS threads, one block an SM, with STAGES * stage_bytes<BM>()
-// of dynamic shared memory.
-template <int BM, int STAGES>
+// columns n0 .. n0+BN-1 and K steps [s_begin, s_begin + steps_per_split) of
+// 16 * CI / 64. Warpgroup g takes rows 64g .. 64g+63 of all BN columns
+// (BM 128) or all 64 rows of columns (BN/2) g .. (BN/2) (g+1) - 1 (BM 64).
+// With `partial` (a split), it writes its f32 sums to
+// partial[blockIdx.z][m][co]; otherwise y and, with `stat_part`, one partial
+// row of the statistics. Run by THREADS threads, one block an SM, with
+// STAGES * stage_bytes<BM, BN>() of dynamic shared memory.
+template <int BM, int BN, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
     conv_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       const float* __restrict__ scale, const float* __restrict__ offset,
                       bf16* __restrict__ y, float* __restrict__ partial,
                       float* __restrict__ stat_part, int n, int h, int wd, int ci, int co,
                       int act, int steps_per_split) {
-  constexpr int A_BYTES = BM * 128, STAGE = stage_bytes<BM>();
-  constexpr int A_COPIES = BM / 32;          // A rows a thread copies a step
-  constexpr int NACC = BM == 128 ? 64 : 32;  // a warpgroup's 64 x 128 or 64 x 64
-  constexpr int NT = NACC / 4;               // its 8-column groups
-  constexpr int RG = BM / 16;                // 16-row groups of the tile
-  static_assert(epilogue_bytes<BM>() <= STAGES * STAGE, "the epilogue reuses the ring");
+  constexpr int A_BYTES = BM * 128, STAGE = stage_bytes<BM, BN>();
+  constexpr int A_COPIES = BM / 32;            // A rows a thread copies a step
+  constexpr int WN = BM == 128 ? BN : BN / 2;  // a warpgroup's columns
+  constexpr int NACC = WN / 2, NT = WN / 8;    // its accumulators, its 8-column groups
+  constexpr int RG = BM / 16;                  // 16-row groups of the tile
+  constexpr int UNITS = BN / 8;                // 16-byte units of a tile row
+  constexpr int B_ROWS = THREADS / UNITS;      // B rows the block copies at once
+  constexpr int LINE_PITCH = BN + 8;
+  static_assert(epilogue_bytes<BM, BN>() <= STAGES * STAGE, "the epilogue reuses the ring");
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int wo = wd / 2, hw = (h / 2) * wo, m_total = n * hw;
@@ -276,9 +282,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     a_off[j] = ((static_cast<long long>(b) * h + 2 * oy - 1) * wd + 2 * ox - 1) * ci + 8 * au;
   }
   const uint32_t a_soff = ar * 128 + ((au ^ (ar & 7)) << 4);
-  // B: unit bu of the tile's 16 across its 128 columns, K rows bk + 16j of
-  // the step; MN-major, two groups of 64 columns x 64 rows.
-  const int bu = tid & 15, bk = tid >> 4;
+  // B: unit bu of the tile's BN / 8 across its columns, K rows bk + B_ROWS j
+  // of the step; MN-major, groups of 64 columns x 64 rows.
+  const int bu = tid % UNITS, bk = tid / UNITS;
   const bool b_ok = n0 + 8 * bu < co;
   const bf16* b_src =
       w + (static_cast<long long>(s_begin) * BK + bk) * co + (b_ok ? n0 + 8 * bu : 0);
@@ -299,8 +305,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const bf16* bs = b_src + static_cast<long long>(st_q) * BK * co;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cp_async16(slot + b_soff + j * 16 * 128, b_ok ? bs + 16LL * j * co : w, b_ok, go);
+    for (int j = 0; j < BK / B_ROWS; ++j)
+      cp_async16(slot + b_soff + j * B_ROWS * 128, b_ok ? bs + 1LL * B_ROWS * j * co : w, b_ok,
+                 go);
     ++st_q;
     st_c0 += BK;
     const bool wrap = st_c0 == ci;
@@ -315,7 +322,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_commit();
   }
   const uint32_t a_wg = BM == 128 ? g * 64 * 128 : 0;
-  const uint32_t b_wg = A_BYTES + (BM == 128 ? 0 : g * BK * 128);
+  const uint32_t b_wg = A_BYTES + (BM == 128 ? 0 : g * (WN / 64) * BK * 128);
   // Step q: its copies landed (this thread's, then everyone's at the
   // barrier, which also sees every warpgroup past step q - 2's wgmmas); its
   // wgmmas issued; step q + STAGES - 2 copied into step q - 2's slot; then
@@ -331,7 +338,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       // A: the k16 slice s of the warpgroup's 64 rows, 32 bytes along them;
       // B: w rows 16s .. 16s+15 of the step.
       const uint64_t da = k_desc(slot + a_wg + 32 * s), db = mn_desc(slot + b_wg + s * 16 * 128);
-      if constexpr (BM == 128)
+      if constexpr (WN == 256)
+        wgmma_m64n256k16(acc, da, db, (q | s) != 0);
+      else if constexpr (WN == 128)
         wgmma_m64n128k16(acc, da, db, (q | s) != 0);
       else
         wgmma_m64n64k16(acc, da, db, (q | s) != 0);
@@ -349,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // acc[4 nt + 2 hf + e]: tile row rb + 8 hf, column cb + 8 nt + e.
   const int rb = (BM == 128 ? 64 * g : 0) + 16 * warp + (lane >> 2);
-  const int cb = (BM == 128 ? 0 : 64 * g) + 2 * (lane & 3);
+  const int cb = (BM == 128 ? 0 : WN * g) + 2 * (lane & 3);
   if (partial != nullptr) {  // a split: f32 pairs, summed by the split pass
     float* part = partial + static_cast<long long>(blockIdx.z) * m_total * co;
 #pragma unroll
@@ -417,7 +426,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     stat_part[row + n0 + tid] = s;
     stat_part[row + co + n0 + tid] = q;
   }
-  constexpr int UNITS = BN / 8;  // 16-byte units of a tile row
 #pragma unroll
   for (int i = 0; i < BM * UNITS / THREADS; ++i) {
     const int e = tid + i * THREADS, row = e / UNITS, u = e % UNITS;
@@ -428,15 +436,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int BM, int STAGES>
+template <int BM, int BN, int STAGES>
 int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, const float* scale,
            const float* offset, void* y, float* partial, float* stat_part, int n, int h, int wd,
            int ci, int co, int act, int steps_per_split) {
-  if (smem < STAGES * stage_bytes<BM>()) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem < STAGES * stage_bytes<BM, BN>()) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      conv_wgmma_kernel<BM, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv_wgmma_kernel<BM, BN, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_wgmma_kernel<BM, STAGES><<<grid, THREADS, smem, s>>>(
+  conv_wgmma_kernel<BM, BN, STAGES><<<grid, THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, offset,
       static_cast<bf16*>(y), partial, stat_part, n, h, wd, ci, co, act, steps_per_split);
   return launch_status();
@@ -710,7 +718,7 @@ __global__ void conv_stats_finalize_kernel(const float* __restrict__ stat_part, 
 }  // namespace
 
 // The wrapper's plan (ops/conv_k4s2p1.py::conv_plan): path (ConvPath); bm,
-// stages: the wgmma tile's rows and its ring; splits, steps_per_split: the
+// bn, stages: the wgmma tile's rows and columns and its ring; splits, steps_per_split: the
 // wgmma path's parts of K (steps of one tap and 64 channels) or the stem's
 // blocks along M (chunks of 64 pixels); grid_x, grid_y: the grid (the split
 // is its z); smem: dynamic shared memory; stat_rows: partial rows of the
@@ -721,7 +729,8 @@ __global__ void conv_stats_finalize_kernel(const float* __restrict__ stat_part, 
 extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* scale,
                                     const void* offset, void* y, void* workspace, void* stats,
                                     int n, int h, int wd, int ci, int co, int act, int dtype,
-                                    int path, int bm, int stages, int splits, int steps_per_split,
+                                    int path, int bm, int bn, int stages, int splits,
+                                    int steps_per_split,
                                     int grid_x, int grid_y, int smem, int stat_rows,
                                     void* stream) {
   const long long m_total = static_cast<long long>(n) * (h / 2) * (wd / 2);
@@ -742,7 +751,7 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
   if (path == CONV_WGMMA) {
     if (dtype != DT_BF16 || ci < wg::BK || ci % wg::BK || co % 8 ||
         !covers_once(16 * ci / wg::BK, splits, steps_per_split) || grid_x != tiles_m ||
-        grid_y != (co + wg::BN - 1) / wg::BN ||
+        grid_y != (co + bn - 1) / (bn > 0 ? bn : 1) ||
         stat_rows != (split ? (m_total + wg::SR_ROWS - 1) / wg::SR_ROWS : tiles_m))
       return BAD;
     const dim3 grid(grid_x, grid_y, splits);
@@ -752,10 +761,12 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
       return launch(grid, smem, s, x, w, sc, of, y, partial, tile_stats, n, h, wd, ci, co, act,
                     steps_per_split);
     };
-    if (bm == 128 && stages == 5) {
-      err = run(wg::launch<128, 5>);
-    } else if (bm == 64 && stages == 6) {
-      err = run(wg::launch<64, 6>);
+    if (bm == 128 && bn == 256 && stages == 4) {
+      err = run(wg::launch<128, 256, 4>);
+    } else if (bm == 128 && bn == 128 && stages == 5) {
+      err = run(wg::launch<128, 128, 5>);
+    } else if (bm == 64 && bn == 128 && stages == 6) {
+      err = run(wg::launch<64, 128, 6>);
     } else {
       return BAD;
     }

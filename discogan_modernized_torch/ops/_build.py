@@ -46,7 +46,7 @@ _SIGNATURES = {
     "discogan_batch_stats": (_I, [_P, _P, _P, _P, _LL, _I, _I, _P]),
     "discogan_batch_stats_workspace": (_LL, [_LL, _I]),
     "discogan_bn_act": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _P]),
-    "discogan_conv_k4s2p1": (_I, [_P] * 7 + [_I] * 16 + [_P]),
+    "discogan_conv_k4s2p1": (_I, [_P] * 7 + [_I] * 17 + [_P]),
     "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,

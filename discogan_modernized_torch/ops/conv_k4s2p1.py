@@ -89,10 +89,11 @@ def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
 
 
 # K3's three paths (csrc/conv_k4s2p1.cu). wgmma (bf16, I % 64 == 0, O % 8
-# == 0): output tiles of CONV_BM rows (64 where M fits one) by CONV_BN
-# columns, K in steps of CONV_BK (one tap, 64 channels) through a ring of
-# CONV_STAGES[rows] stages of A (rows x 128 bytes) and B (CONV_BK x CONV_BN
-# bf16); K is split while the tiles fill less than one wave of the card,
+# == 0): output tiles of CONV_BM rows (64 where M fits one) by CONV_BN_WIDE
+# columns where O is a multiple of them and those tiles fill at least
+# CONV_WIDE_FILL of a wave unsplit, else CONV_BN; K in steps of CONV_BK (one tap, 64 channels) through a ring of
+# CONV_STAGES[(rows, columns)] stages of A (rows x 128 bytes) and B (CONV_BK
+# x columns bf16); K is split while the tiles fill less than one wave of the card,
 # each part of at least CONV_MIN_STEPS_PER_SPLIT steps, its f32 partials
 # summed by a second pass whose statistics take one partial row per
 # CONV_SPLIT_STAT_ROWS rows. The stem (bf16, I <= 4, O % 64 == 0): one
@@ -100,8 +101,9 @@ def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
 # pixel chunks, CONV_STEM_BLOCKS_PER_SM blocks an SM, each of at least
 # CONV_STEM_MIN_CHUNKS chunks. FMA: CONV_FMA_TILE x CONV_FMA_TILE tiles, K
 # in steps of 16.
-CONV_BM, CONV_BN, CONV_BK = 128, 128, 64
-CONV_STAGES = {128: 5, 64: 6}
+CONV_BM, CONV_BN, CONV_BN_WIDE, CONV_BK = 128, 128, 256, 64
+CONV_WIDE_FILL = 7 / 8
+CONV_STAGES = {(128, 256): 4, (128, 128): 5, (64, 128): 6}
 CONV_MIN_STEPS_PER_SPLIT = 4
 CONV_SPLIT_STAT_ROWS = 64
 CONV_STEM_CHUNK, CONV_STEM_BO = 64, 64
@@ -131,7 +133,10 @@ class ConvPlan(NamedTuple):
 def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
               sms: int = H100_SMS) -> ConvPlan:
     """K3's plan for x (n,h,w,ci) and CO output channels. The wgmma path
-    takes 64-row tiles where M fits in one, and splits K only while its
+    takes 64-row tiles where M fits in one, 256 columns where CO is a
+    multiple of them and those tiles fill most of a wave without a split
+    (wide tiles read less from L2 per product, a split costs its partials),
+    and splits K only while its
     tiles fill less than one wave of ``sms`` blocks (one fits an SM), into
     as many parts as fit in that wave; the grid walks M fastest. The stem
     spreads M over CONV_STEM_BLOCKS_PER_SM blocks an SM."""
@@ -148,16 +153,19 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
                         blocks)
     if dtype == torch.bfloat16 and ci % CONV_BK == 0 and ci > 0 and co % 8 == 0:
         bm = 64 if m <= 64 else CONV_BM
+        wide = (bm == CONV_BM and co % CONV_BN_WIDE == 0
+                and -(-m // bm) * (co // CONV_BN_WIDE) >= CONV_WIDE_FILL * sms)
+        bn = CONV_BN_WIDE if wide else CONV_BN
         steps = 16 * ci // CONV_BK
-        m_tiles, n_tiles = -(-m // bm), -(-co // CONV_BN)
+        m_tiles, n_tiles = -(-m // bm), -(-co // bn)
         splits = max(1, min(sms // (m_tiles * n_tiles),
                             steps // CONV_MIN_STEPS_PER_SPLIT))
         sps = -(-steps // splits)
         splits = -(-steps // sps)
-        stages = CONV_STAGES[bm]
-        return ConvPlan("wgmma", (bm, CONV_BN, CONV_BK), stages, splits, sps,
+        stages = CONV_STAGES[(bm, bn)]
+        return ConvPlan("wgmma", (bm, bn, CONV_BK), stages, splits, sps,
                         (m_tiles, n_tiles, splits),
-                        stages * (bm * 128 + CONV_BK * CONV_BN * 2),
+                        stages * (bm * 128 + CONV_BK * bn * 2),
                         splits * m * co if splits > 1 else 0,
                         -(-m // CONV_SPLIT_STAT_ROWS) if splits > 1 else m_tiles)
     m_tiles = -(-m // CONV_FMA_TILE)
@@ -190,7 +198,7 @@ def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,
                   w.data_ptr(), sp, op, y.data_ptr(), _build.ptr(ws),
                   _build.ptr(stats), n, h, wd, ci, co, code,
                   _build.DTYPE_CODES[x.dtype], CONV_PATH_CODES[plan.path],
-                  plan.tile[0], plan.stages, plan.splits, plan.steps_per_split,
+                  plan.tile[0], plan.tile[1], plan.stages, plan.splits, plan.steps_per_split,
                   plan.grid[0], plan.grid[1], plan.smem_bytes, plan.stat_rows,
                   _build.stream_of(x))
     return (y, (stats[0], stats[1])) if with_stats else y
