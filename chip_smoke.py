@@ -13,11 +13,19 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               (the CLI's) and at batch 1 (the daemon's, where K3 takes other
               split-K counts); all seven kernels (K1, K2, K3 with and
               without its statistics, K4, K5f, K5b, K6) at every shape of
-              one 512px training step at batch 8; one odd shape each, and
-              for K5f's tensor-core path enc1 at batch 1, 4 and 8 with and
-              without the epilogue and its edge shapes (bands that do not
-              divide the map, strips under 64 wide, CO off the 64 tile, CI
-              16/32/48, non-square maps), each with and without it; K4
+              one 512px training step at batch 8; one odd shape each; K3
+              (on its wgmma kernels: conv_wgmma_kernel for the deep layers,
+              conv_stem_wgmma_kernel for the stem) at enc2..enc6 with and
+              without its statistics at batch 1, 4 and 8, and at its edge
+              shapes (K3_EDGE: CO 72, M under one 64-row tile, ragged M, a
+              split that does not divide the K steps, CI 32 and 96 on the
+              FMA kernel, stems of 1, 3 and 4 channels), each call's route
+              (conv_plan) asserted, launched once, and with the statistics
+              launched twice for the same bits; for K5f's tensor-core path
+              enc1 at batch 1, 4 and 8 with and without the epilogue and
+              its edge shapes (bands that do not divide the map, strips
+              under 64 wide, CO off the 64 tile, CI 16/32/48, non-square
+              maps), each with and without it; K4
               (the halving convs' weight gradient) at enc5 and enc6 at
               batch 1 and at its edge shapes (CI 16/32/48 under one channel
               block, CO 72, M under one chunk, a ragged M, enc2 at batch 2
@@ -48,9 +56,11 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               forward (6 K3, 1 K5f, 8 K2, 1 K6); outputs finite, in [0,1],
               and equal to the plain versions' forward in f32 (1e-4), close
               in bf16 (PATH_TOL); the forward timed and profiled at batch 4
-              and at batch 1, each profile showing K5f's and K6's time
-              under their tensor-core kernels (halo_wgmma_kernel,
-              head_convt_mma_kernel) and none under their FMA ones.
+              and at batch 1, each profile showing K3's, K5f's and K6's time
+              under their tensor-core kernels (conv_wgmma_kernel and
+              conv_stem_wgmma_kernel with their split sums,
+              halo_wgmma_kernel, head_convt_mma_kernel) and none under their
+              FMA ones (nor under a WMMA one for K3).
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -71,8 +81,9 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               against PER_STEP, every loss finite, ms per D and per G step
               (CUDA events, median after the first two iterations), img/s
               and peak memory; gen_B_final.pth through the inference CLI;
-              a torch.profiler split of one G step, which shows K4's bf16
-              time under its wgmma kernels (conv_dw_wgmma_kernel,
+              a torch.profiler split of one G step, which shows K3's bf16
+              time under its wgmma kernels and split sums, K4's under its
+              wgmma kernels (conv_dw_wgmma_kernel,
               conv_dw_stem_kernel), K5b's under halo_dw_wgmma_kernel and
               K6's under head_convt_mma_kernel, and none under their FMA
               kernels.
@@ -263,6 +274,19 @@ K5B_EDGE = [("ci16", (2, 64, 64, 16, 128)), ("ci32 co72", (1, 48, 256, 32, 72)),
             ("w/2 20", (3, 30, 40, 16, 72)), ("ragged M", (1, 10, 208, 64, 128)),
             ("b2", (2, 256, 256, 64, 128))]
 
+# K3's edge shapes (label, (n, h, w, ci, co)), each with the epilogue and
+# with the statistics: CO 72 (off the 128 tile; split, and unsplit at 16
+# images), M under one 64-row tile (enc6 at batch 1: 16 pixels), a ragged M
+# (105 pixels split; 8649 unsplit), a split that does not divide the K
+# steps (64 in 13 parts), CI 32 and 96 (the FMA kernel), stems of 1, 3 and 4
+# channels (tests/test_torch_conv_plan.py holds the plans).
+K3_EDGE = [("co72", (2, 16, 16, 64, 72)), ("co72 b16", (16, 64, 64, 64, 72)),
+           ("m16", (1, 8, 8, 2048, 2048)), ("ragged M", (3, 14, 10, 64, 128)),
+           ("ragged M b9", (9, 62, 62, 64, 128)), ("split 13", (5, 32, 32, 256, 128)),
+           ("ci32", (2, 32, 32, 32, 64)), ("ci96", (2, 6, 10, 96, 136)),
+           ("stem ci1", (2, 16, 16, 1, 64)), ("stem ci3", (3, 14, 10, 3, 64)),
+           ("stem ci4", (2, 32, 32, 4, 128))]
+
 # K6's tensor-core edge shapes (label, (n, h, w, ci, co)): W off a multiple
 # of 16 (24, 40), three strips of 128 columns (300: the last 44 wide), bands
 # that do not divide H (10 rows in bands of 3, 58 in bands of 10), H 1, 2
@@ -331,6 +355,18 @@ def kernel_cases():
             cases.append(("conv_k4s2p1_dw", f"enc{i} dw", (b, h, h, ci, co), tr, 4))
         h, ci = h // 2, co
 
+    # K3 at every layer with and without its statistics at batch 1, 4 and 8
+    # (the paths above hold the other halves), and its edge shapes
+    h, ci = 128, 128
+    for i, co in enumerate(CHANS[2:], start=2):
+        for batch in (1, 4):
+            cases.append(("conv_stats", f"enc{i} b{batch} st", (batch, h, h, ci, co), None, 0))
+        cases.append(("conv_k4s2p1", f"enc{i} b8 ep", (b, h, h, ci, co, True, "leaky"), None, 0))
+        h, ci = h // 2, co
+    for label, (n, h, w, ci, co) in K3_EDGE:
+        cases.append(("conv_k4s2p1", label, (n, h, w, ci, co, True, "leaky"), None, 0))
+        cases.append(("conv_stats", label + " st", (n, h, w, ci, co), None, 0))
+
     cases += [
         ("bn_act", "odd 75 rows", (3, 5, 5, 100, "leaky"), None, 0),
         ("conv_k4s2p1", "odd 6x10", (3, 6, 10, 16, 72, True, "leaky"), None, 0),
@@ -359,7 +395,7 @@ def run_case(kernel, args, dtype, timer, g):
 
     from discogan_modernized_torch.ops.conv_k4s2p1 import (
         conv2d_k4s2p1, conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain,
-        conv2d_k4s2p1_plain)
+        conv2d_k4s2p1_plain, conv_plan)
     from discogan_modernized_torch.ops.fused import (
         batch_stats, batch_stats_plain, bn_act, bn_act_plain)
     from discogan_modernized_torch.ops.halo_conv import (
@@ -410,6 +446,9 @@ def run_case(kernel, args, dtype, timer, g):
         fn, plain_fn = ((halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_plain)
                         if kernel == "halo_conv_k4s2p1" else
                         (conv2d_k4s2p1, conv2d_k4s2p1_plain))
+        if kernel != "halo_conv_k4s2p1" and dtype == torch.bfloat16:  # K3's route
+            want = "wgmma_stem" if ci <= 4 else "wgmma" if ci % 64 == 0 else "fma"
+            assert conv_plan(n, h, w, ci, co, dtype).path == want
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
         m = n * (h // 2) * (w // 2)
         flops = 2 * m * 16 * ci * co
@@ -455,15 +494,22 @@ def run_case(kernel, args, dtype, timer, g):
         flops = 2 * n * h * w * 16 * ci * co
         nbytes = (x.numel() + wt.numel() + 4 * n * h * w * co) * size
 
-    before = _build.launches[KIND_KERNEL.get(kernel, kernel)]
+    counted = KIND_KERNEL.get(kernel, kernel)
+    before = _build.launches[counted]
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    if kernel == "head_convt" and _build.launches[kernel] != before + 1:
-        raise AssertionError(f"head_convt {args}: {_build.launches[kernel] - before} "
+    if counted in ("head_convt", "conv_k4s2p1") and _build.launches[counted] != before + 1:
+        raise AssertionError(f"{counted} {args}: {_build.launches[counted] - before} "
                              "launches for one call")
     if kernel.endswith("_dw") and not torch.equal(got, kern()):
         raise AssertionError(f"{kernel} {args} {DTYPE_NAMES[dtype]}: two launches "
                              "gave different bits")
+    if kernel == "conv_stats":
+        again = kern()
+        if not all(torch.equal(a, b) for a, b in zip((got[0], *got[1]),
+                                                     (again[0], *again[1]))):
+            raise AssertionError(f"conv_stats {args} {DTYPE_NAMES[dtype]}: two launches "
+                                 "gave different bits")
     # (output, tolerance) pairs: y, and the statistics where there are some
     if kernel == "conv_stats":
         pairs = [(got[0], want[0], TOL[dtype]),
@@ -707,7 +753,8 @@ def check_serve_outputs(model_dir: Path, images: np.ndarray) -> None:
 KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "batch_stats_partial_kernel": "K1 batch_stats",
     "batch_stats_finalize_kernel": "K1 batch_stats",
-    "conv_k4s2p1_kernel": "K3 conv_k4s2p1", "conv_tc_kernel": "K3 conv_k4s2p1",
+    "conv_k4s2p1_kernel": "K3 conv_k4s2p1", "conv_wgmma_kernel": "K3 conv_k4s2p1",
+    "conv_stem_wgmma_kernel": "K3 conv_k4s2p1",
     "splitk_epilogue_kernel": "K3 conv_k4s2p1",
     "splitk_stats_epilogue_kernel": "K3 conv_k4s2p1",
     "conv_stats_finalize_kernel": "K3 conv_k4s2p1",
@@ -752,6 +799,29 @@ def check_k5f_route(by_kernel: dict, what: str) -> None:
                              f"{fma:.1f} us under halo_conv_kernel")
     print(f"{what}: K5f {tc / 1e3:.4f} ms under {K5F_TC_KERNEL}, none under "
           "halo_conv_kernel")
+
+
+K3_TC_KERNELS = ("conv_wgmma_kernel", "conv_stem_wgmma_kernel")
+K3_SPLIT_KERNELS = ("splitk_epilogue_kernel", "splitk_stats_epilogue_kernel",
+                    "conv_stats_finalize_kernel")
+# K3's FMA kernel, and the WMMA kernel its bf16 path ran before the wgmma one
+K3_OFF_ROUTE = ("conv_k4s2p1_kernel", "conv_tc_kernel")
+
+
+def check_k3_route(by_kernel: dict, what: str) -> None:
+    """The profile shows K3's time under its wgmma kernels (the deep layers'
+    and the stem's) and their split sums, and none under the FMA kernel or a
+    WMMA one: every bf16 K3 call of the path takes the tensor cores."""
+    tc = {k: sum(us for name, us in by_kernel.items() if k in name) for k in K3_TC_KERNELS}
+    sums = sum(us for name, us in by_kernel.items()
+               if any(k in name for k in K3_SPLIT_KERNELS))
+    off = {k: sum(us for name, us in by_kernel.items() if k in name) for k in K3_OFF_ROUTE}
+    if not all(us > 0 for us in tc.values()) or any(us > 0 for us in off.values()):
+        raise AssertionError(f"{what}: K3 {tc} us under its wgmma kernels, {off} us off "
+                             "their route")
+    print(f"{what}: K3 " + ", ".join(f"{us / 1e3:.4f} ms under {k}" for k, us in tc.items())
+          + f" and {sums / 1e3:.4f} ms under its split sums and statistics, none under "
+          + " or ".join(K3_OFF_ROUTE))
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
@@ -873,6 +943,7 @@ def time_forward(model_dir: Path, images: np.ndarray, timer, batch: int) -> floa
         if all(any(k in name for name in by_kernel) for k in ("halo_", "head_convt")):
             break
         print("the profile holds no K5f or no K6 kernel; profiling again")
+    check_k3_route(by_kernel, f"forward batch {batch}")
     check_k5f_route(by_kernel, f"forward batch {batch}")
     check_k6_route(by_kernel, f"forward batch {batch}")
     return ms
@@ -1133,6 +1204,7 @@ def profile_g_step() -> None:
     what = "one G step (512px, batch 8, bf16)"
     by_kernel = profile_call(lambda: gen_step(ts, A, B, 0.01), what, top=16, ops=12)
     if by_kernel:
+        check_k3_route(by_kernel, what)
         check_k4_route(by_kernel, what)
         check_k5b_route(by_kernel, what)
         check_k6_route(by_kernel, what)

@@ -32,6 +32,7 @@ from .activations import act_code
 from .conv_k4s2p1 import (DW_PATH_CODES, H100_SMS, DwPlan, _sm_count,
                           affine_pointers, check_conv_args, check_dw_args,
                           dw_plan)
+from .conv_k4s2p1 import MAX_SMEM_BYTES as SMEM_PER_BLOCK
 from .conv_k4s2p1 import conv2d_k4s2p1_dw_plain as halo_conv2d_k4s2p1_dw_plain
 from .conv_k4s2p1 import conv2d_k4s2p1_plain as halo_conv2d_k4s2p1_plain
 
@@ -49,7 +50,6 @@ TC_CO_TILE = 64
 TC_SLOTS = 6
 TC_PIXEL_BYTES = 128
 TC_MAX_CI = 64
-SMEM_PER_BLOCK = 232_448  # bytes of shared memory a block may have (H100)
 # K5b's f32 FMA kernel (csrc/halo_conv_k4s2p1_dw.cu, halo_dw_kernel): a block
 # owns one kernel row, a FMA_TILE tile of CI and of CO and a run of output
 # rows; runs are halved while the blocks fill fewer than two waves and each

@@ -20,11 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_k4s2p1 import H100_SMS, _sm_count
+from .conv_k4s2p1 import H100_SMS, MAX_SMEM_BYTES, _sm_count
 
 MAX_CO = 8
 STAGED_FLOATS = 3 * 258 * 17  # the FMA kernel's staged input rows
-MAX_SMEM_BYTES = 232448       # a block's shared memory on the H100
 SMEM_PER_SM = 233_472         # an SM's shared memory, of which each block
 SMEM_RESERVED = 1024          # takes this much beside its own
 # The tensor-core path's tiling (csrc/head_convt.cu, namespace tc): a block

@@ -88,6 +88,44 @@ def test_conv_k4s2p1(gen, dtype, n, h, w, ci, co, affine):
            conv2d_k4s2p1_plain(x, wt, scale=s, offset=o, act="leaky"), dtype)
 
 
+@pytest.mark.parametrize("stats", [False, True], ids=["epilogue", "stats"])
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (1, 128, 128, 128, 256), (4, 128, 128, 128, 256), (8, 128, 128, 128, 256),
+    (8, 64, 64, 256, 512), (8, 32, 32, 512, 1024), (4, 16, 16, 1024, 2048),
+    (8, 8, 8, 2048, 2048), (2, 16, 16, 64, 72), (16, 64, 64, 64, 72),
+    (1, 8, 8, 2048, 2048), (3, 14, 10, 64, 128), (9, 62, 62, 64, 128),
+    (5, 32, 32, 256, 128), (2, 32, 32, 32, 64), (2, 6, 10, 96, 136),
+    (2, 16, 16, 1, 64), (8, 512, 512, 3, 64), (3, 14, 10, 3, 64), (2, 32, 32, 4, 128)])
+def test_conv_k4s2p1_tensor_cores(gen, n, h, w, ci, co, stats):
+    """bf16 on the route conv_plan gives: the wgmma kernel at enc2 (batch 1,
+    4, 8: split, and 128 x 256 tiles), enc3-enc6 and its edge shapes (CO 72
+    split and unsplit, M under one 64-row tile, a ragged M split and
+    unsplit, a split that does not divide the 64 K steps in 13 parts); the
+    FMA kernel at CI 32 and 96; the stem's kernel at CI 1, 3 and 4. One
+    launch each; the statistics within 1e-4."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.conv_k4s2p1 import conv_plan
+
+    configure(BF16)
+    want_path = "wgmma_stem" if ci <= 4 else "wgmma" if ci % 64 == 0 else "fma"
+    assert conv_plan(n, h, w, ci, co, torch.bfloat16).path == want_path
+    x = _rand(gen, torch.bfloat16, n, h, w, ci)
+    wt = _rand(gen, torch.bfloat16, 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+    s = None if stats else torch.rand(co, device="cuda", generator=gen) + 0.5
+    o = None if stats else torch.randn(co, device="cuda", generator=gen) * 0.1
+    act = None if stats else "leaky"
+    before = _build.launches["conv_k4s2p1"]
+    got = conv2d_k4s2p1(x, wt, scale=s, offset=o, act=act, with_stats=stats)
+    assert _build.launches["conv_k4s2p1"] == before + 1
+    want = conv2d_k4s2p1_plain(x, wt, scale=s, offset=o, act=act, with_stats=stats)
+    if not stats:
+        _close(got, want, torch.bfloat16)
+        return
+    _close(got[0], want[0], torch.bfloat16)
+    for g, w_ in zip(got[1], want[1]):
+        _close(g, w_, torch.bfloat16, tol=1e-4)
+
+
 @pytest.mark.parametrize("n,h,w,ci,co,affine", [
     (2, 16, 16, 8, 16, False), (3, 14, 22, 8, 24, True), (2, 32, 32, 16, 16, True),
     (3, 40, 64, 16, 8, True), (1, 512, 512, 16, 8, True), (4, 256, 256, 64, 128, True)])
@@ -249,10 +287,12 @@ def test_halo_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
 
 
 def test_two_launches_give_the_same_bits(gen, dtype):
-    """Every reduction across blocks (K1, K3's statistics on both of its
-    paths, K4's split sums on the stem's and the tensor-core path in bf16
-    and the FMA path in f32, K5b's on its wgmma path in bf16 and its FMA
-    path in f32) sums its partials in a fixed order."""
+    """Every reduction across blocks (K1; K3's statistics on each of its
+    paths: in bf16 the wgmma kernel split and unsplit, with a split that
+    does not divide its K steps, and the stem's, in f32 the FMA kernel;
+    K4's split sums on the stem's and the tensor-core path in bf16 and the
+    FMA path in f32; K5b's on its wgmma path in bf16 and its FMA path in
+    f32) sums its partials in a fixed order."""
     x = _rand(gen, dtype, 2, 256, 256, 64)
     dy = _rand(gen, dtype, 2, 128, 128, 128, scale=0.1)
     xd = _rand(gen, dtype, 2, 16, 16, 1024)
@@ -263,9 +303,15 @@ def test_two_launches_give_the_same_bits(gen, dtype):
     dy0 = _rand(gen, dtype, 2, 32, 32, 64)
     x2 = _rand(gen, dtype, 2, 128, 128, 128)
     dy2 = _rand(gen, dtype, 2, 64, 64, 256, scale=0.1)
+    xs = _rand(gen, dtype, 5, 32, 32, 256)
+    ws = _rand(gen, dtype, 4, 4, 256, 128, scale=1 / 64)
+    ws0 = _rand(gen, dtype, 4, 4, 3, 64, scale=1 / 7)
     calls = [lambda: batch_stats(x),
              lambda: conv2d_k4s2p1(xd, wd, with_stats=True)[1],  # split-K
              lambda: conv2d_k4s2p1(xu, wu, with_stats=True)[1],  # unsplit
+             lambda: (lambda r: (r[0], *r[1]))(  # 64 K steps in 13 parts: y too
+                 conv2d_k4s2p1(xs, ws, with_stats=True)),
+             lambda: conv2d_k4s2p1(x0, ws0, with_stats=True)[1],  # the stem
              lambda: conv2d_k4s2p1_dw(x0, dy0),  # the stem: its parts summed
              lambda: conv2d_k4s2p1_dw(x2, dy2),  # enc2 at batch 2, split over M
              lambda: halo_conv2d_k4s2p1_dw(x, dy)]

@@ -84,6 +84,24 @@ def test_k3_with_stats():
                                    rtol=1e-4)
 
 
+@pytest.mark.parametrize("n,h,w_,ci,co", [(2, 16, 16, 64, 128), (1, 16, 16, 128, 256),
+                                          (2, 16, 16, 64, 72), (3, 14, 10, 64, 128)])
+def test_k3_with_stats_at_plan_edges(n, h, w_, ci, co):
+    """The shapes where K3's wgmma plan (ops/conv_k4s2p1.py::conv_plan)
+    changes hands, at a small size: CI 64 and 128 (one and two 64-channel
+    steps a tap), CO 72 (off the 128-column tile) and a ragged M (105
+    pixels); the same tolerance as test_k3_with_stats."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(n, h, w_, ci).astype(np.float32)
+    w = (rng.randn(4, 4, ci, co) * (16 * ci) ** -0.5).astype(np.float32)
+    y, (mean, mean_sq) = jax_k3(jnp.asarray(x), jnp.asarray(w),
+                                with_stats=True, interpret=True)
+    py, (pm, pq) = conv2d_k4s2p1(t(x), t(w), with_stats=True)
+    for port, want in ((py, y), (pm, mean), (pq, mean_sq)):
+        np.testing.assert_allclose(port.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+
+
 @pytest.mark.parametrize("n,h,ci,co", [(4, 16, 64, 128), (2, 32, 3, 64)])
 def test_k4_conv_dw(n, h, ci, co):
     """The second shape is the 3-channel stem's."""
