@@ -91,14 +91,15 @@ def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
 # K3's three paths (csrc/conv_k4s2p1.cu). wgmma (bf16, I % 64 == 0, O % 8
 # == 0): output tiles of CONV_BM rows (64 where M fits one) by CONV_BN_WIDE
 # columns where O is a multiple of them and those tiles fill at least
-# CONV_WIDE_FILL of a wave unsplit, else CONV_BN; K in steps of CONV_BK (one tap, 64 channels) through a ring of
-# CONV_STAGES[(rows, columns)] stages of A (rows x 128 bytes) and B (CONV_BK
-# x columns bf16); K is split while the tiles fill less than one wave of the card,
-# each part of at least CONV_MIN_STEPS_PER_SPLIT steps, its f32 partials
-# summed by a second pass whose statistics take one partial row per
-# CONV_SPLIT_STAT_ROWS rows. The stem (bf16, I <= 4, O % 64 == 0): one
-# warpgroup a block over CONV_STEM_BO channels and a run of CONV_STEM_CHUNK-
-# pixel chunks, CONV_STEM_BLOCKS_PER_SM blocks an SM, each of at least
+# CONV_WIDE_FILL of a wave unsplit, else CONV_BN; K in steps of CONV_BK
+# (one tap, 64 channels) through a ring of CONV_STAGES[(rows, columns)]
+# stages of A (rows x 128 bytes) and B (CONV_BK x columns bf16); K is split
+# while the tiles fill less than one wave of the card, each part of at
+# least CONV_MIN_STEPS_PER_SPLIT steps, its f32 partials summed by a second
+# pass whose statistics take one partial row per CONV_SPLIT_STAT_ROWS rows.
+# The stem (bf16, I <= 4, O % 64 == 0): one warpgroup a block over
+# CONV_STEM_BO channels and a run of CONV_STEM_CHUNK-pixel chunks,
+# CONV_STEM_BLOCKS_PER_SM blocks an SM, each of at least
 # CONV_STEM_MIN_CHUNKS chunks. FMA: CONV_FMA_TILE x CONV_FMA_TILE tiles, K
 # in steps of 16.
 CONV_BM, CONV_BN, CONV_BN_WIDE, CONV_BK = 128, 128, 256, 64
@@ -135,11 +136,11 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     """K3's plan for x (n,h,w,ci) and CO output channels. The wgmma path
     takes 64-row tiles where M fits in one, 256 columns where CO is a
     multiple of them and those tiles fill most of a wave without a split
-    (wide tiles read less from L2 per product, a split costs its partials),
-    and splits K only while its
-    tiles fill less than one wave of ``sms`` blocks (one fits an SM), into
-    as many parts as fit in that wave; the grid walks M fastest. The stem
-    spreads M over CONV_STEM_BLOCKS_PER_SM blocks an SM."""
+    (wide tiles read less from L2 per product, a split costs its
+    partials), and splits K only while its tiles fill less than one wave
+    of ``sms`` blocks (one fits an SM), into as many parts as fit in that
+    wave; the grid walks M fastest. The stem spreads M over
+    CONV_STEM_BLOCKS_PER_SM blocks an SM."""
     m = n * (h // 2) * (w // 2)
     if dtype == torch.bfloat16 and 1 <= ci <= 4 and co % CONV_STEM_BO == 0 and co > 0:
         chunks = -(-m // CONV_STEM_CHUNK)
@@ -198,8 +199,9 @@ def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,
                   w.data_ptr(), sp, op, y.data_ptr(), _build.ptr(ws),
                   _build.ptr(stats), n, h, wd, ci, co, code,
                   _build.DTYPE_CODES[x.dtype], CONV_PATH_CODES[plan.path],
-                  plan.tile[0], plan.tile[1], plan.stages, plan.splits, plan.steps_per_split,
-                  plan.grid[0], plan.grid[1], plan.smem_bytes, plan.stat_rows,
+                  plan.tile[0], plan.tile[1], plan.stages, plan.splits,
+                  plan.steps_per_split, plan.grid[0], plan.grid[1],
+                  plan.smem_bytes, plan.stat_rows,
                   _build.stream_of(x))
     return (y, (stats[0], stats[1])) if with_stats else y
 

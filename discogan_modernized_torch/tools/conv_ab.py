@@ -53,14 +53,17 @@ SHAPES = [("enc2 b8 stats", (8, 128, 128, 128, 256), True),
 
 _NO_MMA = [(f"wgmma_m64n{n}k16(acc, da, db, (q | s) != 0);", "(void)da, (void)db;")
            for n in (256, 128, 64)]
-_RING = "  cp_async_wait();\n  __syncthreads();  // every warpgroup's wgmmas are done: the ring is free\n"
+_RING = ("  cp_async_wait();\n"
+         "  __syncthreads();  // every warpgroup's wgmmas are done: the ring is free\n")
 
 
 def _stages(s128, s64):
-    return [("bm == 128 && bn == 128 && stages == 5", f"bm == 128 && bn == 128 && stages == {s128}"),
-            ("run(wg::launch<128, 128, 5>)", f"run(wg::launch<128, 128, {s128}>)"),
-            ("bm == 64 && bn == 128 && stages == 6", f"bm == 64 && bn == 128 && stages == {s64}"),
-            ("run(wg::launch<64, 128, 6>)", f"run(wg::launch<64, 128, {s64}>)")]
+    """The C entry's dispatch and the instantiations, at other ring depths."""
+    return [(f"bm == {bm} && bn == 128 && stages == {old}",
+             f"bm == {bm} && bn == 128 && stages == {new}")
+            for bm, old, new in ((128, 5, s128), (64, 6, s64))] + [
+            (f"run(wg::launch<{bm}, 128, {old}>)", f"run(wg::launch<{bm}, 128, {new}>)")
+            for bm, old, new in ((128, 5, s128), (64, 6, s64))]
 
 
 # name -> (patches, plan constants)
