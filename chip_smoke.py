@@ -40,7 +40,12 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               edge shapes (K6_EDGE: W off a multiple of 16, three strips,
               bands that do not divide H, H 1 and 2, CO 1/3/8, CI
               16/32/48/64/128, a ring of 4 rows), each bf16 call on the
-              tensor-core path (head_plan) and counted once. In
+              tensor-core path (head_plan) and counted once; K1 and K2
+              at their edge shapes (FUSED_EDGE: C 3 and 24, C 100 at 75
+              rows, one row, rows fewer than K1's splits, C 2048 at batch
+              1, a ragged last split), every K1 call launched twice for
+              the same bits, each K1 and K2 call timed beside x.clone() of
+              its input (the practical copy rate). In
               f32 (TF32 off; tolerance 1e-4 of max(1, max|ref|)) and bf16
               (2e-2: the kernel and the plain version round to bf16 at
               different places; statistics 1e-4 in both, from f32 sums of
@@ -60,7 +65,9 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               under their tensor-core kernels (conv_wgmma_kernel and
               conv_stem_wgmma_kernel with their split sums,
               halo_wgmma_kernel, head_convt_mma_kernel) and none under their
-              FMA ones (nor under a WMMA one for K3).
+              FMA ones (nor under a WMMA one for K3), and K2's under
+              bn_act_vec_kernel and bn_act_any_kernel (the latent's C of
+              100) and none under the kernel they replaced.
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -86,9 +93,13 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               wgmma kernels (conv_dw_wgmma_kernel,
               conv_dw_stem_kernel), K5b's under halo_dw_wgmma_kernel and
               K6's under head_convt_mma_kernel, and none under their FMA
-              kernels.
+              kernels; K2's as in phase 4 and K1's under its one-launch
+              batch_stats_kernel, none under the two kernels it replaced.
   8. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
-              main-path shapes against the library call and the bound;
+              main-path shapes against the library call and the bound, and
+              of K2 (batch 8, 4 and 1) and K1 (batch 8) with x.clone() of
+              the same tensor beside them, with their sums per G step or
+              forward;
               one JSON line of kernels, the nvidia-smi line, and the last
               line {"ok": true, "device": {...}}.
 """
@@ -211,23 +222,26 @@ def smi_line() -> str:
 # -- timing ------------------------------------------------------------------
 
 class Timer:
-    """CUDA-event medians with L2 evicted before each timed run. A device
-    sleep (about 0.1 ms) before the start event lets the host enqueue the
-    call while the device waits, so a call of a few small kernels is timed
-    on the device and not on the host's launch path."""
+    """CUDA-event medians with L2 evicted before each timed run, by a write
+    of 96 MB (or with ``clean``, a read of it, which leaves no dirty lines
+    for the timed call to write back). A device sleep (about 0.1 ms) before
+    the start event lets the host enqueue the call while the device waits,
+    so a call of a few small kernels is timed on the device and not on the
+    host's launch path."""
 
     SLEEP_CYCLES = 200_000
 
-    def __init__(self, reps: int = 20):
+    def __init__(self, reps: int = 20, clean: bool = False):
         self.reps = reps
         self.flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        self.evict = self.flush.amax if clean else self.flush.zero_
 
     def ms(self, fn) -> float:
         for _ in range(3):
             fn()
         times = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            self.evict()
             torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -300,6 +314,18 @@ K6_EDGE = [("w24", (2, 10, 24, 64, 3)), ("w40 co1", (1, 6, 40, 16, 1)),
            ("ci128 co8", (30, 20, 40, 128, 8))]
 
 
+# K1's and K2's edge shapes (label, (n, h, w, c)), each case of both: C 3
+# (bf16 and f32 off the 16-byte vectors: the general path, 315 elements, a
+# scalar tail) and 24 (three vectors a row: a grid in multiples of 3 blocks),
+# C 100 at 75 rows (bf16 general path, f32 25 vectors a row), one row, rows
+# fewer than K1's target splits, C 2048 at batch 1 (enc6/dec0), a ragged
+# last split (tests/test_torch_fused_plan.py holds the plans).
+FUSED_EDGE = [("c3 odd", (3, 5, 7, 3)), ("c24", (2, 5, 7, 24)),
+              ("odd 75 rows", (3, 5, 5, 100)), ("one row", (1, 1, 1, 256)),
+              ("100 rows", (1, 10, 10, 64)), ("c2048 b1", (1, 4, 4, 2048)),
+              ("ragged", (3, 37, 41, 128))]
+
+
 def kernel_cases():
     """(kind, label, shape args, path, calls per G step) for every call:
     path "cli" for one 512px forward at batch 4, "serve" for one at batch 1
@@ -367,8 +393,10 @@ def kernel_cases():
         cases.append(("conv_k4s2p1", label, (n, h, w, ci, co, True, "leaky"), None, 0))
         cases.append(("conv_stats", label + " st", (n, h, w, ci, co), None, 0))
 
+    for label, shape in FUSED_EDGE:
+        cases.append(("bn_act", label, (*shape, "leaky"), None, 0))
+        cases.append(("batch_stats", label, shape, None, 0))
     cases += [
-        ("bn_act", "odd 75 rows", (3, 5, 5, 100, "leaky"), None, 0),
         ("conv_k4s2p1", "odd 6x10", (3, 6, 10, 16, 72, True, "leaky"), None, 0),
         ("halo_conv_k4s2p1", "odd 14x22", (3, 14, 22, 8, 24, True, "leaky"), None, 0),
         ("halo_conv_k4s2p1", "enc1 b1 raw", (1, 256, 256, 64, 128, False, None), None, 0),
@@ -379,7 +407,6 @@ def kernel_cases():
           for n, h, w, ci, co in K5F_EDGE for affine in (True, False)],
         ("head_convt", "odd 40x24", (1, 40, 24, 8, 3), None, 0),
         *[("head_convt", label, shape, None, 0) for label, shape in K6_EDGE],
-        ("batch_stats", "odd 75 rows", (3, 5, 5, 100), None, 0),
         ("conv_stats", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
         ("conv_k4s2p1_dw", "odd 6x10", (3, 6, 10, 16, 72), None, 0),
         *[("conv_k4s2p1_dw", label, shape, None, 0) for label, shape in K4_EDGE],
@@ -413,6 +440,7 @@ def run_case(kernel, args, dtype, timer, g):
 
     math_dtype = dtype
     stats_tol = None  # tolerance of the statistics outputs, where there are some
+    copy = None  # x.clone(), the practical copy rate, beside K1 and K2
     if kernel == "bn_act":
         n, h, w, c, act = args
         x = rand(n, h, w, c)
@@ -425,6 +453,7 @@ def run_case(kernel, args, dtype, timer, g):
         # eval BatchNorm with mean 0 and var 1: the same per-channel affine
         lib = lambda: F.batch_norm(x_nchw, zeros, ones, s, o, False, 0.0, 1e-5)  # noqa: E731
         flops, nbytes = 2 * x.numel(), 2 * x.numel() * size + 8 * c
+        copy = lambda: x.clone()  # noqa: E731
     elif kernel == "batch_stats":
         x = (rand(*args) + 0.5).to(dtype)
         c = args[-1]
@@ -433,6 +462,7 @@ def run_case(kernel, args, dtype, timer, g):
         lib = lambda: torch.var_mean(x.view(-1, c), dim=0, correction=0)  # noqa: E731
         flops, nbytes = 3 * x.numel(), x.numel() * size + 8 * c
         math_dtype, stats_tol = torch.float32, 1e-4
+        copy = lambda: x.clone()  # noqa: E731
     elif kernel in ("conv_k4s2p1", "halo_conv_k4s2p1", "conv_stats"):
         if kernel == "conv_stats":
             n, h, w, ci, co = args
@@ -504,6 +534,9 @@ def run_case(kernel, args, dtype, timer, g):
     if kernel.endswith("_dw") and not torch.equal(got, kern()):
         raise AssertionError(f"{kernel} {args} {DTYPE_NAMES[dtype]}: two launches "
                              "gave different bits")
+    if kernel == "batch_stats" and not all(torch.equal(a, b) for a, b in zip(got, kern())):
+        raise AssertionError(f"batch_stats {args} {DTYPE_NAMES[dtype]}: two launches "
+                             "gave different bits")
     if kernel == "conv_stats":
         again = kern()
         if not all(torch.equal(a, b) for a, b in zip((got[0], *got[1]),
@@ -527,9 +560,12 @@ def run_case(kernel, args, dtype, timer, g):
                                  f"{e:.3e} > {limit:.3e}")
         err = max(err, e)
     bound, by = bound_ms(flops, nbytes, math_dtype)
-    return {"err": err, "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
-            "library_ms": timer.ms(lib), "bound_ms": bound, "bound_by": by,
-            "flops": flops, "bytes": nbytes}
+    out = {"err": err, "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(lib), "bound_ms": bound, "bound_by": by,
+           "flops": flops, "bytes": nbytes}
+    if copy is not None:
+        out["clone_ms"] = timer.ms(copy)
+    return out
 
 
 def check_kernels(timer):
@@ -576,6 +612,22 @@ def per_layer_lines(results) -> None:
         print(f"{what} (ms: kernel / library / bound): " + "; ".join(
             f"{label} {v['ms']:.4f} / {v['library_ms']:.4f} / {v['bound_ms']:.4f}"
             for label, v in cases))
+    # K1 and K2, with x.clone() of the same tensor as the practical copy rate
+    for what, kernel, path in (("K2 batch 8", "bn_act", "train"),
+                               ("K2 batch 4", "bn_act", "cli"),
+                               ("K2 batch 1", "bn_act", "serve"),
+                               ("K1 batch 8", "batch_stats", "train")):
+        cases = [(k[1].split()[0], v) for k, v in results.items()
+                 if k[2] == torch.bfloat16 and k[0] == kernel and v["path"] == path]
+        print(f"{what} (ms: kernel / library / bound / clone): " + "; ".join(
+            f"{label} {v['ms']:.4f} / {v['library_ms']:.4f} / {v['bound_ms']:.4f} / "
+            f"{v['clone_ms']:.4f}" for label, v in cases))
+        weight = (lambda v: v["calls"]) if path == "train" else (lambda v: 1)
+        total = {key: sum(weight(v) * v[key] for _, v in cases)
+                 for key in ("ms", "library_ms", "bound_ms", "clone_ms")}
+        print(f"{what} summed over one {'G step' if path == 'train' else 'forward'} "
+              f"(ms): kernel {total['ms']:.4f}, library {total['library_ms']:.4f}, "
+              f"bound {total['bound_ms']:.4f}, clone {total['clone_ms']:.4f}")
 
 
 def kernel_summary(results, launches):
@@ -751,8 +803,7 @@ def check_serve_outputs(model_dir: Path, images: np.ndarray) -> None:
 
 
 KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
-    "batch_stats_partial_kernel": "K1 batch_stats",
-    "batch_stats_finalize_kernel": "K1 batch_stats",
+    "batch_stats_kernel": "K1 batch_stats",
     "conv_k4s2p1_kernel": "K3 conv_k4s2p1", "conv_wgmma_kernel": "K3 conv_k4s2p1",
     "conv_stem_wgmma_kernel": "K3 conv_k4s2p1",
     "splitk_epilogue_kernel": "K3 conv_k4s2p1",
@@ -764,7 +815,8 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_wgmma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
-    "bn_act_kernel": "K2 bn_act", "head_convt_kernel": "K6 head_convt",
+    "bn_act_vec_kernel": "K2 bn_act", "bn_act_any_kernel": "K2 bn_act",
+    "head_convt_kernel": "K6 head_convt",
     "head_convt_mma_kernel": "K6 head_convt"}
 # Library kernels (cuDNN convolutions and their gradients, cuBLAS products)
 LIBRARY_MARKERS = ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_",
@@ -825,6 +877,28 @@ def check_k3_route(by_kernel: dict, what: str) -> None:
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
+
+# K2's kernels: channels kept per thread (C a multiple of the 16-byte
+# vector: every main-path call but bf16's latent), and the general one (the
+# latent's C of 100); K1's one-launch kernel; the kernels they replaced.
+K2_KERNELS = ("bn_act_vec_kernel", "bn_act_any_kernel")
+K1_KERNEL = "batch_stats_kernel"
+FUSED_OFF_ROUTE = ("bn_act_kernel", "batch_stats_partial_kernel",
+                   "batch_stats_finalize_kernel")
+
+
+def check_fused_route(by_kernel: dict, what: str, stats: bool) -> None:
+    """The profile shows K2's time under its kernels (the vector kernel's
+    and, for bf16's latent, the general one's), with ``stats`` K1's under
+    its one-launch kernel, and none under the kernels they replaced."""
+    got = {k: sum(us for name, us in by_kernel.items() if k in name)
+           for k in K2_KERNELS + ((K1_KERNEL,) if stats else ())}
+    off = {k: sum(us for name, us in by_kernel.items() if k in name) for k in FUSED_OFF_ROUTE}
+    if not all(us > 0 for us in got.values()) or any(us > 0 for us in off.values()):
+        raise AssertionError(f"{what}: K1/K2 {got} us under their kernels, {off} us under "
+                             "the ones they replaced")
+    print(f"{what}: " + ", ".join(f"{us / 1e3:.4f} ms under {k}" for k, us in got.items())
+          + ", none under " + " or ".join(FUSED_OFF_ROUTE))
 
 
 K6_TC_KERNEL = "head_convt_mma_kernel"
@@ -946,6 +1020,7 @@ def time_forward(model_dir: Path, images: np.ndarray, timer, batch: int) -> floa
     check_k3_route(by_kernel, f"forward batch {batch}")
     check_k5f_route(by_kernel, f"forward batch {batch}")
     check_k6_route(by_kernel, f"forward batch {batch}")
+    check_fused_route(by_kernel, f"forward batch {batch}", stats=False)
     return ms
 
 
@@ -1208,6 +1283,7 @@ def profile_g_step() -> None:
         check_k4_route(by_kernel, what)
         check_k5b_route(by_kernel, what)
         check_k6_route(by_kernel, what)
+        check_fused_route(by_kernel, what, stats=True)
     del ts
     torch.cuda.empty_cache()
 

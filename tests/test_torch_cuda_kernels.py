@@ -62,15 +62,33 @@ def dtype(request):
     return request.param
 
 
+# K1's and K2's edge shapes (chip_smoke.py's FUSED_EDGE): C 3 (off the
+# 16-byte vectors, an odd count: the general path and its scalar tail), C 24
+# (three vectors a row), one row, rows fewer than K1's target splits, C 2048
+# at batch 1, a ragged last split.
+FUSED_EDGE = [(3, 5, 7, 3), (2, 5, 7, 24), (1, 1, 1, 256), (1, 10, 10, 64),
+              (1, 4, 4, 2048), (3, 37, 41, 128)]
+
+
 @pytest.mark.parametrize("shape,act", [((2, 8, 8, 128), "leaky"),
                                        ((3, 5, 5, 100), "relu"),
-                                       ((4, 4, 4, 2048), None)])
+                                       ((4, 4, 4, 2048), None),
+                                       ((8, 256, 256, 64), "relu"),
+                                       *[(s, "leaky") for s in FUSED_EDGE]])
 def test_bn_act(gen, dtype, shape, act):
+    """Both kernels: C a multiple of the vector keeps its channels
+    (bn_act_vec_kernel), the rest (bf16 C 100, C 3) takes bn_act_any_kernel;
+    one launch each."""
+    from discogan_modernized_torch.ops import _build
+
     c = shape[-1]
     x = _rand(gen, dtype, *shape)
     s = torch.rand(c, device="cuda", generator=gen) + 0.5
     o = torch.randn(c, device="cuda", generator=gen)
-    _close(bn_act(x, s, o, act), bn_act_plain(x, s, o, act), dtype)
+    before = _build.launches["bn_act"]
+    got = bn_act(x, s, o, act)
+    assert _build.launches["bn_act"] == before + 1
+    _close(got, bn_act_plain(x, s, o, act), dtype)
 
 
 @pytest.mark.parametrize("n,h,w,ci,co,affine", [
@@ -225,7 +243,8 @@ def test_misaligned_view_raises(gen, fn):
 
 
 @pytest.mark.parametrize("shape", [(4, 128, 128, 128), (3, 5, 5, 128), (8, 1, 1, 100),
-                                   (2, 4, 4, 2048), (2, 256, 256, 64)])
+                                   (2, 4, 4, 2048), (2, 256, 256, 64), (3, 5, 5, 100),
+                                   *FUSED_EDGE])
 def test_batch_stats(gen, dtype, shape):
     x = (_rand(gen, torch.float32, *shape) + 0.5).to(dtype)
     got, want = batch_stats(x), batch_stats_plain(x)
@@ -287,7 +306,8 @@ def test_halo_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
 
 
 def test_two_launches_give_the_same_bits(gen, dtype):
-    """Every reduction across blocks (K1; K3's statistics on each of its
+    """Every reduction across blocks (K1 at C 128, 64, 100 and 2048, split
+    over several blocks; K3's statistics on each of its
     paths: in bf16 the wgmma kernel split and unsplit, with a split that
     does not divide its K steps, and the stem's, in f32 the FMA kernel;
     K4's split sums on the stem's and the tensor-core path in bf16 and the
@@ -306,7 +326,10 @@ def test_two_launches_give_the_same_bits(gen, dtype):
     xs = _rand(gen, dtype, 5, 32, 32, 256)
     ws = _rand(gen, dtype, 4, 4, 256, 128, scale=1 / 64)
     ws0 = _rand(gen, dtype, 4, 4, 3, 64, scale=1 / 7)
+    k1 = [_rand(gen, dtype, *shape) for shape in
+          ((2, 64, 64, 64), (8, 16, 16, 100), (8, 8, 8, 2048))]
     calls = [lambda: batch_stats(x),
+             *[lambda t=t: batch_stats(t) for t in k1],
              lambda: conv2d_k4s2p1(xd, wd, with_stats=True)[1],  # split-K
              lambda: conv2d_k4s2p1(xu, wu, with_stats=True)[1],  # unsplit
              lambda: (lambda r: (r[0], *r[1]))(  # 64 K steps in 13 parts: y too
