@@ -2,7 +2,9 @@
 """On-card smoke run of the PyTorch port: builds the CUDA kernels from
 ``discogan_modernized_torch/csrc``, holds each against its plain PyTorch
 version, drives the 512px serving path through the inference CLI and the
-serving daemon, and trains the 512px DiscoGAN through the trainer CLI.
+serving daemon, trains the 512px DiscoGAN through the trainer CLI on the
+synthetic task and on an edges2shoes tree (stopped by SIGTERM and
+resumed), and trains the 64px angle-pairing model through its CLI.
 
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
 
@@ -45,7 +47,10 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               rows, one row, rows fewer than K1's splits, C 2048 at batch
               1, a ragged last split), every K1 call launched twice for
               the same bits, each K1 and K2 call timed beside x.clone() of
-              its input (the practical copy rate). In
+              its input (the practical copy rate); K1, K2, K3 (with and
+              without its statistics), K4 and K6 at every shape of one 64px
+              training step at the angle trainer's batch of 64 (K3 takes
+              enc1 there; K5f and K5b are off that path). In
               f32 (TF32 off; tolerance 1e-4 of max(1, max|ref|)) and bf16
               (2e-2: the kernel and the plain version round to bf16 at
               different places; statistics 1e-4 in both, from f32 sums of
@@ -95,11 +100,31 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               K6's under head_convt_mma_kernel, and none under their FMA
               kernels; K2's as in phase 4 and K1's under its one-launch
               batch_stats_kernel, none under the two kernels it replaced.
-  8. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
+  8. real data  an edges2shoes tree under the work directory (64 train
+              and 8 test side-by-side 512x256 JPEGs from a numpy seed): one
+              epoch of the host loader cold (decoding into the cache) and
+              warm, timed; the trainer CLI at 512px, batch 8, bf16,
+              slim_state=all, 2 epochs (16 iterations), sent SIGTERM at the
+              end of iteration 7 (it saves and returns, and gives the
+              SIGTERM handler back), resumed with --resume to the end, and
+              run again uninterrupted: every step's launches checked
+              against PER_STEP, every loss finite, and the two final
+              train_state.pt equal tensor for tensor, bit for bit (else the
+              differing tensors are printed with a probe of which gradients
+              differ between two runs of a step, and the phase fails);
+              img/s and peak memory against phase 7's, the loader's wait
+              per step (the trainer's own line); a G step under mv and all
+              split into its gradients and its Adam update (CUDA events).
+  9. angle    a car sweep (car_<id>_<azimuth>.png, 16 cars x 18 views,
+              64px) and the angle CLI's trainer at the angle parser's
+              defaults but 2 epochs (4 iterations at batch 64): launches
+              of every step against PER_STEP64, losses finite, log lines
+              without the FM field.
+ 10. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
               main-path shapes against the library call and the bound, and
               of K2 (batch 8, 4 and 1) and K1 (batch 8) with x.clone() of
               the same tensor beside them, with their sums per G step or
-              forward;
+              forward, and each kernel's sums over one 64px G step;
               one JSON line of kernels, the nvidia-smi line, and the last
               line {"ok": true, "device": {...}}.
 """
@@ -110,7 +135,9 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -179,6 +206,20 @@ PER_STEP = {
     "gen": {"conv_k4s2p1": 48, "halo_conv_k4s2p1": 8, "batch_stats": 40,
             "bn_act": 80, "head_convt": 8, "conv_k4s2p1_dw": 24,
             "halo_conv_k4s2p1_dw": 4},
+}
+# The angle trainer's 64px model at its batch of 64: K3 takes enc1 there
+# (K5f's route starts at 256px inputs), and K5b is not on the path. Per
+# step: 8 forwards of 4 halving convs (K3 8 stems + 24 with statistics), K1
+# on the latent and the 4 decoder BNs of the 4 generator forwards (20), K2
+# 44, K6 4 heads and on a G step 4 stems' input gradients, K4 16.
+SIZE64, BATCH64 = 64, 64
+CHANS64 = [64, 128, 256, 512]
+DEC_CHANS64 = [512, 256, 128, 64]
+PER_STEP64 = {
+    "dis": {"conv_k4s2p1": 32, "batch_stats": 20, "bn_act": 44, "head_convt": 4,
+            "conv_k4s2p1_dw": 16},
+    "gen": {"conv_k4s2p1": 32, "batch_stats": 20, "bn_act": 44, "head_convt": 8,
+            "conv_k4s2p1_dw": 16},
 }
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "batch_stats": ("discogan_modernized_torch/csrc/batch_stats.cu",
@@ -380,6 +421,7 @@ def kernel_cases():
         else:
             cases.append(("conv_k4s2p1_dw", f"enc{i} dw", (b, h, h, ci, co), tr, 4))
         h, ci = h // 2, co
+    cases += train64_cases()
 
     # K3 at every layer with and without its statistics at batch 1, 4 and 8
     # (the paths above hold the other halves), and its edge shapes
@@ -414,6 +456,32 @@ def kernel_cases():
         ("halo_conv_k4s2p1_dw", "enc1 dw b1", (1, 256, 256, 64, 128), None, 0),
         *[("halo_conv_k4s2p1_dw", label, shape, None, 0) for label, shape in K5B_EDGE],
     ]
+    return cases
+
+
+def train64_cases():
+    """The kernels' calls in one 64px G step at the angle trainer's batch
+    (path "train64"), each with its calls per step."""
+    b, tr = BATCH64, "train64"
+    cases = [("conv_k4s2p1", "enc0 t64", (b, SIZE64, SIZE64, 3, 64, False, "leaky"), tr, 8)]
+    h, ci = SIZE64 // 2, 64
+    for i, co in enumerate(CHANS64[1:], start=1):
+        cases.append(("conv_stats", f"enc{i} t64", (b, h, h, ci, co), tr, 8))
+        cases.append(("bn_act", f"enc{i} t64", (b, h // 2, h // 2, co, "leaky"), tr, 8))
+        h, ci = h // 2, co
+    cases.append(("bn_act", "latent t64", (b, 1, 1, 100, "leaky"), tr, 4))
+    cases.append(("batch_stats", "latent t64", (b, 1, 1, 100), tr, 4))
+    h = 4
+    for j, c in enumerate(DEC_CHANS64):
+        cases.append(("bn_act", f"dec{j} t64", (b, h, h, c, "relu"), tr, 4))
+        cases.append(("batch_stats", f"dec{j} t64", (b, h, h, c), tr, 4))
+        h *= 2
+    cases.append(("head_convt", "dec4 t64", (b, 32, 32, 64, 3), tr, 4))
+    cases.append(("head_convt", "stem dx t64", (b, 32, 32, 64, 3), tr, 4))
+    h, ci = SIZE64, 3
+    for i, co in enumerate(CHANS64):
+        cases.append(("conv_k4s2p1_dw", f"enc{i} dw t64", (b, h, h, ci, co), tr, 4))
+        h, ci = h // 2, co
     return cases
 
 
@@ -628,6 +696,14 @@ def per_layer_lines(results) -> None:
         print(f"{what} summed over one {'G step' if path == 'train' else 'forward'} "
               f"(ms): kernel {total['ms']:.4f}, library {total['library_ms']:.4f}, "
               f"bound {total['bound_ms']:.4f}, clone {total['clone_ms']:.4f}")
+    # each kernel over one 64px G step at the angle trainer's batch
+    for kernel in ("conv_k4s2p1", "batch_stats", "bn_act", "head_convt", "conv_k4s2p1_dw"):
+        rows = [v for k, v in results.items() if k[2] == torch.bfloat16 and k[0] == kernel
+                and v["path"] == "train64"]
+        total, by = _sums(rows, lambda v: v["calls"])
+        print(f"{kernel} summed over one 64px batch-{BATCH64} G step ({sum(v['calls'] for v in rows)} "
+              f"calls; ms): kernel {total['ms']:.4f}, plain {total['plain_ms']:.4f}, library "
+              f"{total['library_ms']:.4f}, bound {total['bound_ms']:.4f} ({by})")
 
 
 def kernel_summary(results, launches):
@@ -1186,12 +1262,14 @@ def check_equivalence() -> None:
 # -- phase 7: the trainer ----------------------------------------------------
 
 class StepObserver:
-    """Around each trainer step: CUDA events, and the launches the step made."""
+    """Around each trainer step: CUDA events, and the launches the step made,
+    which ``report`` holds against ``per_step``."""
 
-    def __init__(self):
+    def __init__(self, per_step=None, batch: int = TRAIN_BATCH):
         from discogan_modernized_torch.ops import _build
 
         self.launches = _build.launches
+        self.per_step, self.batch = per_step or PER_STEP, batch
         self.steps = []  # (iters, kind, start event, end event, launches, losses)
 
     def begin(self, iters, kind):
@@ -1210,9 +1288,9 @@ class StepObserver:
         torch.cuda.synchronize()
         times = {"dis": [], "gen": []}
         for iters, kind, start, end, delta, losses in self.steps:
-            if delta != PER_STEP[kind]:
+            if delta != self.per_step[kind]:
                 raise AssertionError(f"iteration {iters} ({kind}): launches {delta}, "
-                                     f"want {PER_STEP[kind]}")
+                                     f"want {self.per_step[kind]}")
             bad = [k for k, v in losses.items() if not torch.isfinite(v).item()]
             if bad:
                 raise AssertionError(f"iteration {iters}: non-finite losses {bad}")
@@ -1220,7 +1298,7 @@ class StepObserver:
                 times[kind].append(start.elapsed_time(end))
         counts = {k: sum(1 for s in self.steps if s[1] == k) for k in times}
         print(f"launches checked for {counts['dis']} D and {counts['gen']} G steps: "
-              f"D {PER_STEP['dis']}, G {PER_STEP['gen']}; all losses finite")
+              f"D {self.per_step['dis']}, G {self.per_step['gen']}; all losses finite")
         out = {k: statistics.median(v) for k, v in times.items()}
         for k, v in times.items():
             print(f"{k} step: median {out[k]:.3f} ms over {len(v)} steps after the "
@@ -1249,14 +1327,19 @@ def drive_trainer(work: Path):
     launches = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
     step_ms = observer.report()
-    n_dis = sum(1 for s in observer.steps if s[1] == "dis")
-    n_gen = len(observer.steps) - n_dis
-    steady = TRAIN_BATCH * (n_dis + n_gen) / (n_dis * step_ms["dis"] + n_gen * step_ms["gen"]) * 1e3
+    steady = steady_img_s(observer, step_ms)
     print(f"trainer: {len(observer.steps)} iterations in {wall:.1f} s (host clock, "
           f"data, sample forwards and saves included); {steady:.1f} img/s at the "
           f"median step times; peak memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
-    return model_path, launches, step_ms
+    return model_path, launches, {"step_ms": step_ms, "img_s": steady, "peak": peak}
+
+
+def steady_img_s(observer, step_ms) -> float:
+    """img/s of the run's steps at the median D and G step times."""
+    n_dis = sum(1 for s in observer.steps if s[1] == "dis")
+    n_gen = len(observer.steps) - n_dis
+    return observer.batch * (n_dis + n_gen) / (n_dis * step_ms["dis"] + n_gen * step_ms["gen"]) * 1e3
 
 
 def profile_g_step() -> None:
@@ -1287,6 +1370,280 @@ def profile_g_step() -> None:
     del ts
     torch.cuda.empty_cache()
 
+
+
+# -- phase 8: a real-data task at 512px, slim_state=all, SIGTERM and resume --
+
+REAL_TRAIN, REAL_TEST = 64, 8  # edges2shoes pairs written for the run
+REAL_EPOCHS = 2  # 16 iterations at batch 8
+SIGTERM_AT = 7  # the iteration at whose end the trainer gets SIGTERM
+
+
+class SigtermObserver(StepObserver):
+    """A StepObserver that sends this process SIGTERM at the end of one
+    iteration, as a preemption would."""
+
+    def __init__(self, at: int):
+        super().__init__()
+        self.at = at
+
+    def end(self, iters, kind, losses):
+        super().end(iters, kind, losses)
+        if iters == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def write_edges2shoes(root: Path) -> None:
+    """The dataset's geometry: side-by-side 512x256 JPEGs (edges left, photo
+    right), made from a numpy seed."""
+    from PIL import Image
+
+    rng = np.random.RandomState(3)
+    for split, n in (("train", REAL_TRAIN), ("test", REAL_TEST)):
+        d = root / "edges2shoes" / split
+        d.mkdir(parents=True)
+        for i in range(n):
+            Image.fromarray((rng.rand(256, 512, 3) * 255).astype(np.uint8)).save(
+                d / f"{i}_AB.jpg", quality=95)
+
+
+def time_decode() -> None:
+    """One epoch of the loader over the tree, cold (decoding into the cache)
+    and warm (reading it), copies to the card included."""
+    from discogan_modernized_torch.data.pipeline import HostLoader
+    from discogan_modernized_torch.data.resolvers import get_edge2photo_files
+
+    files, _ = get_edge2photo_files("edges2shoes")
+    times = {}
+    for what in ("cold", "warm"):
+        loader = HostLoader(files, files, TRAIN_BATCH, SIZE, "cuda",
+                            domain_A="A", domain_B="B")
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader.epoch(0))
+        torch.cuda.synchronize()
+        times[what] = time.perf_counter() - t0
+        loader.close()
+    print(f"decode of {len(files)} edges2shoes pairs to {SIZE}px, both domains, "
+          f"{n} batches: cold (decode into the cache) {times['cold']:.3f} s, warm "
+          f"(from the cache) {times['warm']:.3f} s (host clock)")
+
+
+def real_args(work: Path, tag: str, *extra):
+    from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
+
+    return parse_with_config(translation_parser(), [
+        "--task_name=edges2shoes", f"--image_size={SIZE}", f"--batch_size={TRAIN_BATCH}",
+        f"--epochs={REAL_EPOCHS}", "--precision=bf16", "--slim_state=all",
+        "--model_save_interval=1000", f"--results_dir={work / tag / 'results'}",
+        f"--models_dir={work / tag / 'models'}", *extra])
+
+
+def compare_states(a: Path, b: Path) -> None:
+    """The two runs' final train_state.pt, tensor by tensor: bit-identical,
+    or the differing tensors and what differs, then a probe of which op
+    gives other bits on the same inputs."""
+    sa = torch.load(a / "train_state.pt", map_location="cpu", weights_only=True)
+    sb = torch.load(b / "train_state.pt", map_location="cpu", weights_only=True)
+    pairs = [(f"{name}.{k}", v, sb["models"][name][k])
+             for name in sa["models"] for k, v in sa["models"][name].items()]
+    for key in ("opt_gen", "opt_dis"):
+        if sa[key]["step"] != sb[key]["step"]:
+            raise AssertionError(f"{key} step {sa[key]['step']} vs {sb[key]['step']}")
+        for part in ("m", "v"):
+            pairs += [(f"{key}.{part}[{i}]", x, y)
+                      for i, (x, y) in enumerate(zip(sa[key][part], sb[key][part], strict=True))]
+    differ = [(n, (x.float() - y.float()).abs().max().item()) for n, x, y in pairs
+              if x.dtype != y.dtype or not torch.equal(x, y)]
+    nbytes = sum(x.numel() * x.element_size() for _, x, _ in pairs)
+    print(f"final train_state.pt, resumed vs uninterrupted: {len(pairs)} tensors "
+          f"({nbytes / 2**30:.2f} GiB), {len(differ)} differ")
+    if differ:
+        for n, d in sorted(differ, key=lambda t: -t[1])[:12]:
+            print(f"  {n}: max |diff| {d:.3e}")
+        determinism_probe()
+        raise AssertionError("the resumed run's train state is not the uninterrupted one's")
+
+
+def determinism_probe() -> None:
+    """One 512px bf16 G step's and D step's gradients twice from the same
+    state and batch: the tensors whose gradients differ, with cuDNN's
+    default algorithms and with its deterministic ones."""
+    from discogan_modernized_torch.core.precision import BF16
+    from discogan_modernized_torch.train.graph import trainable_subsets
+    from discogan_modernized_torch.train.step import (TrainConfig, init_train_state,
+                                                      loss_and_grads)
+
+    cfg = TrainConfig(image_size=SIZE, precision="bf16", slim_state="all")
+    ts = init_train_state(2, cfg, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(5)
+    A, B = (torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=rng)
+            for _ in range(2))
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        for which in ("dis", "gen"):
+            keys = trainable_subsets(cfg.model_arch)[0 if which == "gen" else 1]
+            names = [f"{k}.{n}" for k in keys for n, _ in ts.models[k].named_parameters()]
+            _, g1 = loss_and_grads(ts, A, B, 0.01, cfg, BF16, which)
+            _, g2 = loss_and_grads(ts, A, B, 0.01, cfg, BF16, which)
+            differ = [n for n, x, y in zip(names, g1, g2) if not torch.equal(x, y)]
+            print(f"determinism probe, {which} step, cudnn.deterministic={deterministic}: "
+                  f"{len(differ)} of {len(names)} gradients differ between two runs "
+                  f"{differ[:8]}")
+    torch.backends.cudnn.deterministic = False
+    del ts
+    torch.cuda.empty_cache()
+
+
+def drive_real_data(work: Path, synthetic: dict) -> dict:
+    """The trainer on an edges2shoes tree at 512px, batch 8, bf16,
+    slim_state=all, 2 epochs (16 iterations): stopped by SIGTERM at the end
+    of iteration SIGTERM_AT and resumed to the end, then the same run
+    uninterrupted; every step's launches checked, the two final train
+    states compared. Returns the uninterrupted run's launches."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train.loop import run_training
+
+    os.environ["DISCOGAN_DATASETS_ROOT"] = str(work / "datasets")
+    os.environ["DISCOGAN_TORCH_CACHE_DIR"] = str(work / "data_cache")
+    write_edges2shoes(work / "datasets")
+    time_decode()
+
+    handler = signal.getsignal(signal.SIGTERM)
+    stop = SigtermObserver(SIGTERM_AT)
+    _, stopped = run_training(real_args(work, "stopped"), observer=stop)
+    meta = json.loads((stopped / "train_state_meta.json").read_text())
+    if not (meta.get("preempted") and meta["iters"] == SIGTERM_AT + 1
+            and signal.getsignal(signal.SIGTERM) is handler):
+        raise AssertionError(f"SIGTERM at iteration {SIGTERM_AT}: meta {meta}")
+    print(f"SIGTERM at the end of iteration {SIGTERM_AT}: the trainer saved at "
+          f"iteration {meta['iters']} and returned; the caller's handler is back")
+    stop.report()
+    resume = StepObserver()
+    _, resumed = run_training(real_args(work, "resumed", f"--resume={stopped}"),
+                              observer=resume)
+    done = [s[0] for s in resume.steps]
+    if done != list(range(SIGTERM_AT + 1, REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH)):
+        raise AssertionError(f"the resumed run trained iterations {done}")
+    resume.report()
+    shutil.rmtree(work / "stopped")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    full = StepObserver()
+    t0 = time.perf_counter()
+    _, uninterrupted = run_training(real_args(work, "uninterrupted"), observer=full)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = full.report()
+    img_s = steady_img_s(full, step_ms)
+    print(f"real data, slim_state=all: {len(full.steps)} iterations in {wall:.1f} s "
+          f"(host clock, decode from the cache, sample forwards and saves included); "
+          f"{img_s:.1f} img/s at the median step times against {synthetic['img_s']:.1f} "
+          f"for phase 7's synthetic run under mv (D {step_ms['dis']:.3f} / G "
+          f"{step_ms['gen']:.3f} ms against {synthetic['step_ms']['dis']:.3f} / "
+          f"{synthetic['step_ms']['gen']:.3f})")
+    print(f"peak memory: slim_state=all {peak / 2**30:.2f} GiB, phase 7's mv "
+          f"{synthetic['peak'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    compare_states(resumed, uninterrupted)
+    shutil.rmtree(work / "resumed")
+    shutil.rmtree(work / "uninterrupted")
+    return launches
+
+
+def optimizer_share() -> None:
+    """A 512px batch-8 bf16 G step split into its loss-and-gradients part
+    and its Adam update, under slim_state mv and all (CUDA events, median of
+    3 steps after a D and a G step that warm it)."""
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.train.step import (TrainConfig, init_train_state,
+                                                      loss_and_grads, make_train_steps)
+
+    configure(BF16)
+    rng = torch.Generator(device="cuda").manual_seed(8)
+    A, B = (torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=rng)
+            for _ in range(2))
+    for slim in ("mv", "all"):
+        cfg = TrainConfig(image_size=SIZE, precision="bf16", slim_state=slim)
+        ts = init_train_state(1, cfg, "cuda")
+        gen_step, dis_step = make_train_steps(cfg, BF16)
+        dis_step(ts, A, B, 0.01)
+        gen_step(ts, A, B, 0.01)
+        grads_ms, update_ms = [], []
+        for _ in range(3):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            _, grads = loss_and_grads(ts, A, B, 0.01, cfg, BF16, "gen")
+            e[1].record()
+            ts.opt_gen.update(grads)
+            e[2].record()
+            e[2].synchronize()
+            grads_ms.append(e[0].elapsed_time(e[1]))
+            update_ms.append(e[1].elapsed_time(e[2]))
+        g, u = statistics.median(grads_ms), statistics.median(update_ms)
+        n = sum(p.numel() for p in ts.opt_gen.params)
+        print(f"G step, slim_state={slim}: loss and gradients {g:.3f} ms, Adam update "
+              f"{u:.3f} ms over {n / 1e6:.1f} M parameters (optimizer share "
+              f"{u / (g + u):.3f}; CUDA events, median of 3)")
+        del ts, grads
+        torch.cuda.empty_cache()
+
+
+# -- phase 9: the angle-pairing trainer at 64px ---------------------------------
+
+ANGLE_CARS, ANGLE_STEP = 16, 10  # cars, degrees between views (18 views a car)
+ANGLE_EPOCHS = 2
+ANGLE_LINE = re.compile(r"^Iter \[\d+/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, "
+                        r"RECON: \d+\.\d{4}/\d+\.\d{4}, DIS: \d+\.\d{4}/\d+\.\d{4}$",
+                        re.M)
+
+
+def write_cars(root: Path) -> None:
+    """A rendered-car sweep, car_<id>_<azimuth>.png, made from a numpy seed:
+    each half of the rotation holds 144 views, 130 of them for training."""
+    from PIL import Image
+
+    rng = np.random.RandomState(4)
+    d = root / "data" / "cars"
+    d.mkdir(parents=True)
+    for car in range(ANGLE_CARS):
+        for az in range(0, 180, ANGLE_STEP):
+            Image.fromarray((rng.rand(SIZE64, SIZE64, 3) * 255).astype(np.uint8)).save(
+                d / f"car_{car:02d}_{az:03d}.png")
+
+
+def drive_angle(work: Path) -> dict:
+    """The angle CLI's trainer at the angle parser's defaults (car2car,
+    64px, batch 64, bf16 on the card, rates 0.9) for ANGLE_EPOCHS epochs;
+    every step's launches checked against PER_STEP64, every loss finite, the
+    log's lines without the FM field. Returns the run's launches."""
+    from discogan_modernized_torch.cli.common import angle_parser, parse_with_config
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train.loop import run_training
+
+    os.environ["DISCOGAN_DATASETS_ROOT"] = str(work / "angle_data")
+    write_cars(work / "angle_data")
+    args = parse_with_config(angle_parser(), [
+        f"--epochs={ANGLE_EPOCHS}", f"--results_dir={work / 'angle' / 'results'}",
+        f"--models_dir={work / 'angle' / 'models'}"])
+    if (args.image_size, args.batch_size) != (SIZE64, BATCH64):
+        raise AssertionError("the angle parser's defaults moved")
+    observer = StepObserver(PER_STEP64, batch=BATCH64)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result, _ = run_training(args, observer=observer, angle_variant=True)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    step_ms = observer.report()
+    log = (result / "training_log.txt").read_text()
+    lines = ANGLE_LINE.findall(log)
+    if not lines or "FM:" in log:
+        raise AssertionError(f"angle log without its lines or with FM:\n{log}")
+    print(f"angle CLI: {len(observer.steps)} iterations at {SIZE64}px batch {BATCH64} "
+          f"in {wall:.1f} s (host clock); {steady_img_s(observer, step_ms):.1f} img/s "
+          f"at the median step times; log lines without FM, e.g. {lines[0]!r}")
+    return launches
 
 def main() -> int:
     phase("device")
@@ -1347,18 +1704,28 @@ def main() -> int:
         check_equivalence()
 
         phase("train: the trainer CLI at 512px, batch 8, bf16")
-        train_model_path, train_counts, step_ms = drive_trainer(work)
+        train_model_path, train_counts, synthetic = drive_trainer(work)
+        step_ms = synthetic["step_ms"]
         print("inference CLI on the trained generators:")
         _build.reset_launches()
         forwards = drive_cli(train_model_path, work / "trained", images)
         per_forward_check(dict(_build.launches), forwards, "CLI on trained weights")
+        shutil.rmtree(train_model_path)
         profile_g_step()
+
+        phase("train: a real-data task at 512px, slim_state=all, SIGTERM and resume")
+        real_counts = drive_real_data(work, synthetic)
+        optimizer_share()
+
+        phase("train: the angle-pairing CLI at 64px")
+        angle_counts = drive_angle(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     phase("report")
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
-                    "train": train_counts[k]} for k in train_counts}
+                    "train": train_counts[k], "real_data": real_counts[k],
+                    "angle": angle_counts[k]} for k in train_counts}
     per_layer_lines(results)
     summary = kernel_summary(results, launches)
     serving = [k for k in summary if k["name"] in SERVING_KERNELS]

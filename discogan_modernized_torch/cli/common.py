@@ -1,8 +1,9 @@
 """Flag parsing for the port's entry points: the inference CLI's flags
-(ref inference.py:12-37) and the trainer's (ref image_translation.py
-:21-81), with the JAX package's extensions that are ported, and the
-optional ``--config`` YAML of flag defaults. Flags of features not ported
-yet are left out, so argparse refuses them.
+(ref inference.py:12-37) and the two trainers' (ref image_translation.py
+:21-81, angle_pairing.py:22-72), with the JAX package's extensions that
+are ported, and the optional ``--config`` YAML of flag defaults. Flags of
+features not ported yet are left out, so argparse refuses them
+(``trainer_parser`` lists them).
 
 The port runs on the card by default (``--device cuda``) and raises when
 there is none; ``--device cpu`` runs on the CPU.
@@ -101,26 +102,35 @@ def inference_parser() -> argparse.ArgumentParser:
     return p
 
 
-def translation_parser() -> argparse.ArgumentParser:
-    """image_translation.py flags (ref :21-81; the JAX package's
-    ``cli/common.py:81-237`` for the extensions). Not ported yet, and so
-    refused: --paired, --lean_dis, --remat, --remat_policy,
-    --steps_per_call, --no_device_cache, --bn_sync, --xla_copts, --profile,
-    --resume, --ckpt_backend, and --n_test and the CelebA style flags,
-    which belong to the real-data tasks."""
-    p = argparse.ArgumentParser(description='DiscoGAN trainer (PyTorch/CUDA)')
+def trainer_parser(description: str, *, task_default: str, epochs_default: int,
+                   starting_rate_default: float, default_rate_default: float,
+                   image_save_default: int,
+                   celebA_flags: bool) -> argparse.ArgumentParser:
+    """The flags both trainers take (the JAX package's ``add_common_flags``,
+    ``cli/common.py:81-235``), as far as the port has them. Not ported
+    yet, and so refused: --paired, --lean_dis, --remat, --remat_policy,
+    --steps_per_call, --no_device_cache, --bn_sync, --xla_copts,
+    --profile; and --ckpt_backend, since the port writes its train state
+    with torch.save only (the JAX package's orbax backend has no
+    counterpart here)."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
                         'is available')
-    p.add_argument('--task_name', type=str, default='facescrub',
-                   help='Set data name; only synthetic is ported so far')
+    p.add_argument('--task_name', type=str, default=task_default,
+                   help='Set data name (facescrub/celebA/edges2shoes/'
+                        'edges2handbags/handbags2shoes/shoes2handbags/'
+                        'tops2hanbok/hanbok2tops/car2car/face2face/'
+                        'chair2chair/chair2car/chair2face/car2face, or '
+                        'synthetic); datasets sit under '
+                        'DISCOGAN_DATASETS_ROOT (default ./datasets)')
     p.add_argument('--results_dir', type=str, default='./results/',
                    help='Directory to save the results')
     p.add_argument('--models_dir', type=str, default='./models/',
                    help='Directory to save models')
     p.add_argument('--model_arch', type=str, default='discogan',
                    help='Model architecture: gan/recongan/discogan')
-    p.add_argument('--epochs', type=int, default=100,
+    p.add_argument('--epochs', type=int, default=epochs_default,
                    help='Number of epochs to train')
     p.add_argument('--batch_size', type=int, default=64, help='Batch size')
     p.add_argument('--learning_rate', type=float, default=0.0002,
@@ -132,16 +142,27 @@ def translation_parser() -> argparse.ArgumentParser:
     p.add_argument('--image_size', type=int, default=64, help='Image size')
     p.add_argument('--gan_curriculum', type=int, default=10000,
                    help='Number of steps with strong GAN loss')
-    p.add_argument('--starting_rate', type=float, default=0.01,
+    p.add_argument('--starting_rate', type=float, default=starting_rate_default,
                    help='Initial lambda weight between GAN and Recon loss')
-    p.add_argument('--default_rate', type=float, default=0.5,
+    p.add_argument('--default_rate', type=float, default=default_rate_default,
                    help='Lambda weight between GAN and Recon loss after '
                         'curriculum')
+    if celebA_flags:
+        p.add_argument('--style_A', type=str, default=None,
+                       help='Style A for CelebA (e.g., Male, Young)')
+        p.add_argument('--style_B', type=str, default=None,
+                       help='Style B for CelebA')
+        p.add_argument('--constraint', type=str, default=None,
+                       help='Constraint for CelebA')
+        p.add_argument('--constraint_type', type=str, default=None,
+                       help='Constraint type (1/-1) for CelebA')
+    p.add_argument('--n_test', type=int, default=200,
+                   help='Number of test images')
     p.add_argument('--update_interval', type=int, default=3,
                    help='Interval for discriminator updates')
     p.add_argument('--log_interval', type=int, default=50,
                    help='Print loss interval')
-    p.add_argument('--image_save_interval', type=int, default=1000,
+    p.add_argument('--image_save_interval', type=int, default=image_save_default,
                    help='Image save interval')
     p.add_argument('--model_save_interval', type=int, default=10000,
                    help='Model save interval')
@@ -156,9 +177,31 @@ def translation_parser() -> argparse.ArgumentParser:
                    choices=['off', 'mv', 'all'],
                    help='(extension) optimizer state: mv = Adam moments in '
                         'bf16 (update math f32; the trainer default), off = '
-                        'f32 moments. all (bf16 master parameters) is not '
-                        'ported yet and raises')
+                        'f32 moments, all = moments and master parameters '
+                        'in bf16, the parameters written back with '
+                        'stochastic rounding')
+    p.add_argument('--resume', type=str, default=None,
+                   help='(extension) model dir with a full train state '
+                        '(train_state.pt): resumes the networks, the '
+                        'optimizer state and the iteration count exactly, '
+                        'and trains on to the run\'s original total')
     p.add_argument('--debug', action='store_true',
                    help='(extension) autograd anomaly detection: a NaN in '
                         'the backward raises with the forward op that made it')
     return p
+
+
+def translation_parser() -> argparse.ArgumentParser:
+    """image_translation.py flags (ref :21-81)."""
+    return trainer_parser('DiscoGAN trainer (PyTorch/CUDA)',
+                          task_default='facescrub', epochs_default=100,
+                          starting_rate_default=0.01, default_rate_default=0.5,
+                          image_save_default=1000, celebA_flags=True)
+
+
+def angle_parser() -> argparse.ArgumentParser:
+    """angle_pairing.py flags (ref :22-72)."""
+    return trainer_parser('DiscoGAN for angle pairing (PyTorch/CUDA)',
+                          task_default='car2car', epochs_default=10,
+                          starting_rate_default=0.9, default_rate_default=0.9,
+                          image_save_default=500, celebA_flags=False)

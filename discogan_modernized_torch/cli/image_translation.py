@@ -1,7 +1,11 @@
 """Trainer CLI (ref image_translation.py), on the card by default.
 
     python -m discogan_modernized_torch.cli.image_translation \
-        --task_name=synthetic --image_size=512 --batch_size=8 --epochs=1
+        --task_name=edges2shoes --image_size=512 --batch_size=8 --epochs=1
+
+The dataset tree sits under DISCOGAN_DATASETS_ROOT (default ./datasets);
+``--task_name=synthetic`` needs none. ``--resume <model dir>`` continues a
+run from its train state.
 
 ``--device cpu`` runs the kernels' plain PyTorch versions on the CPU.
 """

@@ -1,16 +1,38 @@
-"""Training data: the synthetic task and the per-epoch batch iterator.
+"""Training data: the synthetic task and the host loader (the port of the
+JAX package's ``PrefetchLoader`` host epoch, without its device-resident
+dataset).
 
-``synthetic_pair`` is the JAX package's deterministic random task
-(``--task_name=synthetic``); real-data tasks and their decode cache are
-not ported yet. ``epoch_batches`` yields one epoch of (A, B) batches with
-independent per-domain shuffles (unpaired training, ref dataset.py:24-35),
-copied to the device a batch at a time.
+``HostLoader`` yields one epoch of (A, B) batches with independent
+per-domain shuffles (unpaired training, ref dataset.py:24-35). Datasets
+are arrays of file paths, decoded through the decoded-sample cache
+(``data/cache.py``) by a thread pool, or arrays already decoded (the
+synthetic task, the car sweeps). A thread decodes ahead of the step into
+a bounded queue and copies each batch into pinned memory; the consumer
+moves it to the card with ``non_blocking=True``. A file that fails to
+decode is skipped (ref dataset.py:44-46) and remembered by the cache, so
+its batch comes out smaller.
+
+Each epoch's two permutations are drawn from (seed, epoch), so a resumed
+run sees the batches the uninterrupted run saw; ``skip`` starts an epoch
+at a batch index without decoding the batches before it.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
 import numpy as np
 import torch
+
+from .cache import STATUS_OK, STATUS_UNKNOWN, DecodedCache, cache_enabled
+from .preprocess import decode_image
+
+PREFETCH = 3  # batches the decode thread keeps ready
 
 
 def synthetic_pair(n: int, image_size: int, seed: int = 0):
@@ -21,17 +43,150 @@ def synthetic_pair(n: int, image_size: int, seed: int = 0):
     return a, b
 
 
-def n_batches(data_A, data_B, batch_size: int) -> int:
-    return min(len(data_A), len(data_B)) // batch_size
+def is_paths(data) -> bool:
+    return len(data) > 0 and isinstance(
+        np.asarray(data).ravel()[0], (str, np.str_, bytes))
 
 
-def epoch_batches(data_A: np.ndarray, data_B: np.ndarray, batch_size: int,
-                  device, rng: np.random.RandomState):
-    """One epoch of (A, B) NHWC f32 batches on ``device``; the last partial
-    batch is dropped."""
-    pa = rng.permutation(len(data_A))
-    pb = rng.permutation(len(data_B))
-    for i in range(n_batches(data_A, data_B, batch_size)):
-        sl = slice(i * batch_size, (i + 1) * batch_size)
-        yield (torch.from_numpy(data_A[pa[sl]]).to(device),
-               torch.from_numpy(data_B[pb[sl]]).to(device))
+def epoch_perms(seed: int, epoch: int, n_a: int, n_b: int):
+    """Epoch ``epoch``'s independent permutations of the two domains."""
+    rng = np.random.default_rng([seed, epoch])
+    return rng.permutation(n_a), rng.permutation(n_b)
+
+
+class HostLoader:
+    """Per-epoch iterator of (A, B) NHWC f32 batches on ``device``; the last
+    partial batch is dropped.
+
+    data_A/data_B: arrays of file paths, or decoded (N,H,W,3) f32 arrays.
+    domain_A/domain_B: the decode-time domain tags ('A', 'B' or None).
+    ``waits`` collects the seconds the consumer waited for each batch.
+    """
+
+    def __init__(self, data_A, data_B, batch_size: int, image_size: int,
+                 device, *, domain_A: Optional[str] = None,
+                 domain_B: Optional[str] = None, seed: int = 0,
+                 workers: Optional[int] = None, cache: Optional[bool] = None):
+        self.data_A, self.data_B = np.asarray(data_A), np.asarray(data_B)
+        self.batch_size, self.image_size = batch_size, image_size
+        self.device = torch.device(device)
+        self.domains = (domain_A, domain_B)
+        self.seed = seed
+        self.paths = (is_paths(self.data_A), is_paths(self.data_B))
+        # PIL's decode and cv2's ops release the GIL, so threads scale.
+        self.workers = max(1, workers or min(8, os.cpu_count() or 1))
+        self._pool = None
+        self.caches = [None, None]
+        if cache is None:
+            cache = cache_enabled()
+        if cache:
+            try:
+                self.caches = [DecodedCache(d, dom, image_size) if p else None
+                               for d, dom, p in zip((self.data_A, self.data_B),
+                                                    self.domains, self.paths)]
+            except OSError as e:  # larger than the free disk: run uncached
+                print(f"디코딩 캐시 비활성화: {e}")
+                self.caches = [None, None]
+        self.waits: list[float] = []
+
+    @property
+    def n_batches(self) -> int:
+        return min(len(self.data_A), len(self.data_B)) // self.batch_size
+
+    def _decode_paths(self, paths, domain, cache) -> list:
+        """Decode ``paths`` through ``cache``: one array per path, None where
+        the decode failed (now or in an earlier run)."""
+        out = [None] * len(paths)
+        missing = []
+        for j, p in enumerate(paths):
+            st, arr = cache.load(p) if cache is not None else (STATUS_UNKNOWN, None)
+            if st == STATUS_OK:
+                out[j] = arr
+            elif st == STATUS_UNKNOWN:
+                missing.append(j)
+
+        def work(j):
+            return j, decode_image(paths[j], domain, self.image_size, on_error="none")
+
+        if self.workers > 1 and len(missing) > 1:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=self.workers)
+            results = self._pool.map(work, missing)
+        else:
+            results = map(work, missing)
+        for j, arr in results:
+            out[j] = arr
+            if cache is not None:
+                cache.store(paths[j], arr)
+        return out
+
+    def _host_batch(self, data, k: int, idx) -> np.ndarray:
+        if not self.paths[k]:
+            return np.ascontiguousarray(data[idx], np.float32)
+        arrs = [a for a in self._decode_paths([str(p) for p in data[idx]],
+                                             self.domains[k], self.caches[k])
+                if a is not None]
+        if not arrs:
+            raise ValueError("유효한 이미지가 없습니다.")
+        return np.stack(arrs)
+
+    def _pinned(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def epoch(self, epoch: int, skip: int = 0):
+        """Yield epoch ``epoch``'s batches from batch index ``skip`` on."""
+        pa, pb = epoch_perms(self.seed, epoch, len(self.data_A), len(self.data_B))
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # A consumer that leaves mid-epoch (a SIGTERM return, an error)
+            # must not leave this thread blocked on a full queue.
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.25)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                bs = self.batch_size
+                for i in range(skip, self.n_batches):
+                    if stop.is_set():
+                        return
+                    sl = slice(i * bs, (i + 1) * bs)
+                    item = (self._pinned(self._host_batch(self.data_A, 0, pa[sl])),
+                            self._pinned(self._host_batch(self.data_B, 1, pb[sl])))
+                    if not put(item):
+                        return
+                put(None)
+            except Exception as e:  # noqa: BLE001 - raised in the consumer
+                put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = q.get()
+                self.waits.append(time.perf_counter() - t0)
+                if item is None:
+                    self.waits.pop()
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield tuple(x.to(self.device, non_blocking=True) for x in item)
+        finally:
+            stop.set()
+            t.join()
+            for c in self.caches:
+                if c is not None:
+                    c.flush()
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None

@@ -9,16 +9,23 @@
 - resize to (size, size) with bilinear interpolation (cv2's INTER_LINEAR)
 - float32 / 255, HWC (NHWC once batched)
 
-cv2 is used when importable, for bit parity with the reference; a numpy
-version (exact for the dilation, float-exact bilinear for the resize)
-serves where it is not. PIL and cv2 are imported inside the functions that
-need them, so the array-level path (``preprocess_array`` on a decoded
-array) runs on a host that has neither.
+A failed decode follows the call site, as in the JAX package: the
+trainer's ``read_images`` skips the file (ref dataset.py:44-46),
+``load_image`` returns None (ref inference.py:66-68), and
+``decode_image(..., on_error="random")`` gives a random image (the
+reference DataLoader's fallback, ref dataset.py:258-261).
+
+Selection for a uint8 image, as in the JAX package: cv2 when importable
+(bit parity with the reference), else the native C++ pass
+(``data/native.py``; first with DISCOGAN_NATIVE=1), else numpy (exact for
+the dilation, float-exact bilinear for the resize). PIL and cv2 are
+imported inside the functions that need them, so the array-level path
+(``preprocess_array`` on a decoded array) runs on a host that has neither.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -72,6 +79,14 @@ def preprocess_array(image: np.ndarray, domain: Optional[str],
                      image_size: int) -> np.ndarray:
     """Domain crop/dilate + resize + normalize: HWC uint8/float in, HWC
     float32 in [0,1] out."""
+    if isinstance(image, np.ndarray) and image.dtype == np.uint8:
+        from . import native
+
+        try:
+            if native.prefer_native() or (_cv2() is None and native.available()):
+                return native.preprocess(image, domain, image_size)
+        except Exception:  # noqa: BLE001 - the Python path decides, as in the JAX package
+            pass
     if domain == "A":
         image = image[:, :256, :]
         image = 255.0 - image
@@ -83,19 +98,53 @@ def preprocess_array(image: np.ndarray, domain: Optional[str],
     return np.asarray(image, np.float32) / 255.0
 
 
+def decode_image(path, domain: Optional[str] = None, image_size: int = 64,
+                 on_error: str = "raise") -> Optional[np.ndarray]:
+    """Decode one file to (H, W, 3) float32 in [0,1]. on_error: "raise",
+    "none" (None, with a message) or "random" (a random image, with a
+    message)."""
+    from PIL import Image
+
+    try:
+        with Image.open(path) as im:
+            image = np.array(im.convert("RGB"))
+        return preprocess_array(image, domain, image_size)
+    except Exception as e:  # noqa: BLE001 - the reference's own catch-all
+        if on_error == "raise":
+            raise
+        print(f"이미지 로딩 실패: {path}, 오류: {e}")
+        if on_error == "random":
+            return np.random.rand(image_size, image_size, 3).astype(np.float32)
+        return None
+
+
+def read_images(filenames: List[str], domain: Optional[str] = None,
+                image_size: int = 64) -> np.ndarray:
+    """Decode a list of files to NHWC, skipping the ones that fail (ref
+    dataset.py:37-73)."""
+    images = [img for img in (decode_image(fn, domain, image_size, on_error="none")
+                              for fn in filenames) if img is not None]
+    if not images:
+        raise ValueError("유효한 이미지가 없습니다.")
+    return np.stack(images)
+
+
 def load_image(path, image_size: int = 64, domain: Optional[str] = None,
                dataset_type: Optional[str] = None) -> Optional[np.ndarray]:
     """Decode one file to (H, W, 3) float32 in [0,1] (ref inference.py:
     39-68): the domain crop applies only to the edges2* dataset types, and
     a file that cannot be read gives None, with a message."""
-    from PIL import Image
-
     if dataset_type not in ("edges2handbags", "edges2shoes"):
         domain = None
-    try:
-        with Image.open(path) as im:
-            image = np.array(im.convert("RGB"))
-    except (OSError, ValueError) as e:
-        print(f"이미지 로딩 실패: {path}, 오류: {e}")
-        return None
-    return preprocess_array(image, domain, image_size)
+    return decode_image(path, domain, image_size, on_error="none")
+
+
+def shuffle_data(da, db) -> Tuple[np.ndarray, np.ndarray]:
+    """Independent per-domain shuffles from numpy's global state: unpaired
+    training (ref dataset.py:24-35). The trainer's loader draws its orders
+    from (seed, epoch) instead (``data/pipeline.py``)."""
+    a_idx = np.arange(len(da))
+    np.random.shuffle(a_idx)
+    b_idx = np.arange(len(db))
+    np.random.shuffle(b_idx)
+    return np.array(da)[a_idx], np.array(db)[b_idx]

@@ -31,10 +31,12 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def feature_matching_loss(real_feats, fake_feats, *, skip_first: bool = False):
-    """Sum over features of mean((mean_N(real) - mean_N(fake))^2)."""
+    """Sum over features of mean((mean_N(real) - mean_N(fake))^2); 0 where
+    no feature is left (a 16px discriminator has one)."""
+    device = real_feats[0].device if real_feats else None
     if skip_first:
         real_feats, fake_feats = real_feats[1:], fake_feats[1:]
-    total = torch.zeros((), dtype=torch.float32, device=real_feats[0].device)
+    total = torch.zeros((), dtype=torch.float32, device=device)
     for rf, ff in zip(real_feats, fake_feats):
         diff = rf.float().mean(0) - ff.float().mean(0)
         total = total + diff.square().mean()

@@ -33,10 +33,13 @@ ARCH_MODES = ("discogan", "recongan", "gan")
 
 
 def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
-                    policy: Policy = F32, plain: bool = False) -> dict:
+                    policy: Policy = F32, plain: bool = False,
+                    skip_first_fm: bool = False) -> dict:
     """Run the full forward graph with the models in their current mode.
     models: gen_A, gen_B, dis_A, dis_B. Returns the eight raw loss
-    components the reference logs."""
+    components the reference logs. ``skip_first_fm`` leaves the first
+    discriminator feature out of the feature-matching losses (the angle
+    trainer, ref angle_pairing.py:114-115)."""
     kw = dict(policy=policy, plain=plain)
     AB = models["gen_B"](A, **kw)
     BA = models["gen_A"](B, **kw)
@@ -50,9 +53,11 @@ def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
     B_real, B_feats_real = models["dis_B"](B, **kw)
     B_fake, B_feats_fake = models["dis_B"](AB, **kw)
     dis_loss_A, gen_loss_A = gan_losses(A_real, A_fake)
-    fm_loss_A = feature_matching_loss(A_feats_real, A_feats_fake)
+    fm_loss_A = feature_matching_loss(A_feats_real, A_feats_fake,
+                                      skip_first=skip_first_fm)
     dis_loss_B, gen_loss_B = gan_losses(B_real, B_fake)
-    fm_loss_B = feature_matching_loss(B_feats_real, B_feats_fake)
+    fm_loss_B = feature_matching_loss(B_feats_real, B_feats_fake,
+                                      skip_first=skip_first_fm)
     return {"gen_A": gen_loss_A, "gen_B": gen_loss_B, "fm_A": fm_loss_A,
             "fm_B": fm_loss_B, "recon_A": recon_A, "recon_B": recon_B,
             "dis_A": dis_loss_A, "dis_B": dis_loss_B}

@@ -40,10 +40,12 @@ class TrainConfig:
     starting_rate: float = 0.01
     default_rate: float = 0.5
     update_interval: int = 3
+    skip_first_fm: bool = False  # the angle trainer's variant (ref angle_pairing.py:114-115)
     precision: str | None = None
     # Optimizer state: None/"off" keeps f32 Adam moments; "mv" stores them
-    # in bf16 (the update math stays f32). "all" (bf16 master parameters
-    # with stochastic rounding) is not ported yet.
+    # in bf16 (the update math stays f32); "all" also stores the master
+    # parameters in bf16, written back with stochastic rounding
+    # (train/optim.py). BatchNorm running statistics stay f32 in every mode.
     slim_state: str | None = None
 
     def rate_for(self, iters: int) -> float:
@@ -56,16 +58,11 @@ class TrainConfig:
 
 
 def resolve_slim_state(cfg: TrainConfig) -> str:
-    """"off" | "mv"; "all" raises until its slice of the port lands."""
+    """"off" | "mv" | "all" (None is "off")."""
     s = cfg.slim_state or "off"
-    if s in ("off", "mv"):
+    if s in ("off", "mv", "all"):
         return s
-    if s == "all":
-        raise NotImplementedError(
-            "slim_state=all (bf16 master parameters with stochastic "
-            "rounding) is not ported yet: it comes with the trainer's next "
-            "slice, beside --resume (ROADMAP.md, Queue 1); use off or mv")
-    raise ValueError(f"slim_state must be off|mv|all, got {s!r}")
+    raise ValueError(f"slim_state must be off, mv or all, got {s!r}")
 
 
 @dataclasses.dataclass
@@ -79,7 +76,8 @@ def init_train_state(seed: int, cfg: TrainConfig,
                      device: torch.device | str = "cpu") -> TrainState:
     """The four networks from one seeded ``torch.Generator`` (gen_A, gen_B,
     dis_A, dis_B in turn), in train mode on ``device``, and the two Adam
-    states over the trainable subsets."""
+    states over the trainable subsets. Under slim state "all" the
+    parameters are cast to bf16; the running statistics are not."""
     g = torch.Generator().manual_seed(seed)
     models = {
         "gen_A": Generator(cfg.image_size, generator=g),
@@ -88,11 +86,22 @@ def init_train_state(seed: int, cfg: TrainConfig,
         "dis_B": Discriminator(cfg.image_size, generator=g),
     }
     models = {k: m.to(device).train() for k, m in models.items()}
+    if resolve_slim_state(cfg) == "all":
+        for m in models.values():
+            cast_parameters(m, torch.bfloat16)
     return TrainState(models, *make_optimizers(models, cfg))
 
 
+def cast_parameters(module, dtype: torch.dtype) -> None:
+    """Cast ``module``'s parameters, and not its buffers, to ``dtype``."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.data = p.data.to(dtype)
+
+
 def make_optimizers(models: dict, cfg: TrainConfig) -> tuple[Adam, Adam]:
-    mv_dtype = torch.bfloat16 if resolve_slim_state(cfg) == "mv" else torch.float32
+    mv_dtype = (torch.float32 if resolve_slim_state(cfg) == "off"
+                else torch.bfloat16)
     return tuple(
         Adam(subset_params(models, keys), lr=cfg.learning_rate,
              beta1=cfg.beta1, beta2=cfg.beta2, weight_decay=cfg.weight_decay,
@@ -113,7 +122,8 @@ def loss_and_grads(ts: TrainState, A, B, rate, cfg: TrainConfig,
     keys = gen_keys if which == "gen" else dis_keys
     for name, m in ts.models.items():
         m.requires_grad_(name in keys)
-    losses = discogan_losses(ts.models, A, B, policy=policy, plain=plain)
+    losses = discogan_losses(ts.models, A, B, policy=policy, plain=plain,
+                             skip_first_fm=cfg.skip_first_fm)
     gen_total, dis_total = mix_losses(losses, rate, cfg.model_arch)
     total = gen_total if which == "gen" else dis_total
     grads = torch.autograd.grad(total, subset_params(ts.models, keys),

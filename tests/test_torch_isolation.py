@@ -45,7 +45,24 @@ def test_sources_import_no_jax():
     assert not offenders
 
 
-@pytest.mark.parametrize("entry", ["inference", "serve", "trainer", "device"])
+def test_native_library_and_caches_are_the_ports_own(monkeypatch):
+    """The port builds its own copy of the native source, and keeps its
+    native build and its decoded-sample cache under this checkout's build/,
+    apart from the JAX package's directories under ~/.cache; no source of
+    the port names a path into the JAX package or the home directory."""
+    from discogan_modernized_torch.data import cache, native
+
+    monkeypatch.delenv("DISCOGAN_TORCH_CACHE_DIR", raising=False)
+    assert native._SRC == PKG / "native" / "discodata.cpp"
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    assert cache.cache_root() == ROOT / "build" / "data_cache"
+    sources = list(PKG.rglob("*.py")) + list(PKG.rglob("*.cpp"))
+    pattern = re.compile(r"discogan_modernized_tpu|[\"'/]\.cache\b|Path\.home|expanduser")
+    assert not [str(f) for f in sources if pattern.search(f.read_text())]
+
+
+@pytest.mark.parametrize("entry", ["inference", "serve", "trainer", "device",
+                                   "angle", "real_data"])
 def test_cuda_request_raises_without_a_card(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -53,11 +70,16 @@ def test_cuda_request_raises_without_a_card(entry, tmp_path, monkeypatch):
             from discogan_modernized_torch.cli.inference import main
 
             main([f"--model_path={tmp_path}", f"--input_path={tmp_path}"])
-        elif entry == "trainer":
+        elif entry in ("trainer", "real_data"):
             from discogan_modernized_torch.cli.image_translation import main
 
-            main(["--task_name=synthetic", f"--models_dir={tmp_path}",
+            task = "synthetic" if entry == "trainer" else "edges2shoes"
+            main([f"--task_name={task}", f"--models_dir={tmp_path}",
                   f"--results_dir={tmp_path}"])
+        elif entry == "angle":
+            from discogan_modernized_torch.cli.angle_pairing import main
+
+            main([f"--models_dir={tmp_path}", f"--results_dir={tmp_path}"])
         elif entry == "serve":
             from discogan_modernized_torch.tools.serve import parse_args, serve
 
@@ -79,6 +101,8 @@ def test_defaults_are_cuda_and_bf16_there():
     assert parse_args(["--model_path=m"]).device == "cuda"
     train_args = translation_parser().parse_args([])
     assert (train_args.device, train_args.slim_state) == ("cuda", "mv")
+    from discogan_modernized_torch.cli.common import angle_parser
+    assert angle_parser().parse_args([]).device == "cuda"
     assert default_policy(None, "cuda") is BF16
     assert default_policy(None, "cpu") is F32
     with pytest.raises(ValueError):
