@@ -1557,16 +1557,23 @@ def optimizer_share() -> None:
     and its Adam update, under slim_state mv and all (CUDA events, median of
     3 steps after a D and a G step that warm it)."""
     from discogan_modernized_torch.core.precision import BF16, configure
-    from discogan_modernized_torch.train.step import (TrainConfig, init_train_state,
-                                                      loss_and_grads, make_train_steps)
+    from discogan_modernized_torch.train.step import (TrainConfig, TrainState,
+                                                      cast_parameters, init_train_state,
+                                                      loss_and_grads, make_optimizers,
+                                                      make_train_steps)
 
     configure(BF16)
     rng = torch.Generator(device="cuda").manual_seed(8)
     A, B = (torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=rng)
             for _ in range(2))
+    ts = init_train_state(1, TrainConfig(image_size=SIZE, precision="bf16",
+                                         slim_state="mv"), "cuda")
     for slim in ("mv", "all"):
         cfg = TrainConfig(image_size=SIZE, precision="bf16", slim_state=slim)
-        ts = init_train_state(1, cfg, "cuda")
+        if slim == "all":  # the same networks, their parameters cast to bf16
+            for m in ts.models.values():
+                cast_parameters(m, torch.bfloat16)
+            ts = TrainState(ts.models, *make_optimizers(ts.models, cfg))
         gen_step, dis_step = make_train_steps(cfg, BF16)
         dis_step(ts, A, B, 0.01)
         gen_step(ts, A, B, 0.01)
@@ -1586,8 +1593,9 @@ def optimizer_share() -> None:
         print(f"G step, slim_state={slim}: loss and gradients {g:.3f} ms, Adam update "
               f"{u:.3f} ms over {n / 1e6:.1f} M parameters (optimizer share "
               f"{u / (g + u):.3f}; CUDA events, median of 3)")
-        del ts, grads
-        torch.cuda.empty_cache()
+        del grads
+    del ts
+    torch.cuda.empty_cache()
 
 
 # -- phase 9: the angle-pairing trainer at 64px ---------------------------------

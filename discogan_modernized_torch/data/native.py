@@ -4,7 +4,7 @@
 Built at first use with ``g++ -O3 -march=native`` into
 ``build/native/`` under the repository root (gitignored, beside the CUDA
 kernels' ``build/torch_kernels/``), named by the hash of the source, so a
-changed source builds anew and concurrent builders race safely. The
+changed source builds anew and concurrent builds race safely. The
 binary is never committed: ``-march=native`` makes it specific to the
 host's instruction set. The fused ``preprocess_u8`` replaces the
 reference's PIL -> numpy -> cv2 chain (crop, invert + dilate + invert,

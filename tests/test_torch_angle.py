@@ -5,10 +5,11 @@
   16px, with one, they are 0), and one G and one D step's losses and gradients
   match ``jax.grad`` of JAX's graph with skip_first_fm (per tensor,
   max|diff| <= 1e-4 * max(1, max|g|), as tests/test_torch_train_step.py),
-  at batch 8. (At batch 4 with seed 7 the port's gradients differ from
-  JAX's by up to 5e-3 of max|g|, with or without skip_first_fm, while JAX
-  moved by one ulp of its images moves by 1.3e-6: ROADMAP.md, Queue 3,
-  F7.);
+  at batch 8, seed 3. (At batch 4 with seed 7 the port's gradients differ
+  from JAX's by up to 5e-3 of max|g|, with or without skip_first_fm: the
+  generators' outputs differ by 2.3e-6 between the packages, and JAX fed
+  the port's fake images moves its own gradients by the same amount;
+  ROADMAP.md, Queue 3, F7.);
 - the angle CLI of both packages on a tiny car sweep at 32px, f32, from
   the same weights (the JAX initial state carried into the port and given
   to it through --resume): one car's 20 views, 9 of them in each half's
