@@ -66,7 +66,7 @@ class HostLoader:
     def __init__(self, data_A, data_B, batch_size: int, image_size: int,
                  device, *, domain_A: Optional[str] = None,
                  domain_B: Optional[str] = None, seed: int = 0,
-                 workers: Optional[int] = None, cache: Optional[bool] = None):
+                 workers: Optional[int] = None):
         self.data_A, self.data_B = np.asarray(data_A), np.asarray(data_B)
         self.batch_size, self.image_size = batch_size, image_size
         self.device = torch.device(device)
@@ -77,9 +77,7 @@ class HostLoader:
         self.workers = max(1, workers or min(8, os.cpu_count() or 1))
         self._pool = None
         self.caches = [None, None]
-        if cache is None:
-            cache = cache_enabled()
-        if cache:
+        if cache_enabled():
             try:
                 self.caches = [DecodedCache(d, dom, image_size) if p else None
                                for d, dom, p in zip((self.data_A, self.data_B),

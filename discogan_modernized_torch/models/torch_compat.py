@@ -143,10 +143,13 @@ def read_jax_train_state_npz(path, image_size: int, arch: str) -> dict:
     with np.load(path) as z:
         leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
     it = iter(leaves)
-    out = _fill(tree, it)
-    if next(it, None) is not None:
-        raise ValueError(f"{path}: more leaves than a {image_size}px {arch} "
-                         "train state holds")
+    try:
+        out = _fill(tree, it)
+    except StopIteration:
+        out = None
+    if out is None or next(it, None) is not None:
+        raise ValueError(f"{path}: {len(leaves)} leaves, not those of a "
+                         f"{image_size}px {arch} train state")
     return out
 
 

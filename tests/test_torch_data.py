@@ -510,7 +510,8 @@ def test_loader_decodes_in_parallel(ab_files, monkeypatch):
         return np.zeros((image_size, image_size, 3), np.float32)
 
     monkeypatch.setattr(pl, "decode_image", fake_decode)
-    loader = HostLoader(ab_files[:4], ab_files[:4], 4, 8, "cpu", workers=4, cache=False)
+    monkeypatch.setenv("DISCOGAN_DATA_CACHE", "0")
+    loader = HostLoader(ab_files[:4], ab_files[:4], 4, 8, "cpu", workers=4)
     assert len(host_epoch(loader)) == 1
     loader.close()
 
@@ -520,6 +521,7 @@ def test_loader_surfaces_a_decode_crash(ab_files, monkeypatch):
         raise RuntimeError("decoder crashed")
 
     monkeypatch.setattr(pl, "decode_image", broken)
-    loader = HostLoader(ab_files[:4], ab_files[:4], 2, 8, "cpu", cache=False)
+    monkeypatch.setenv("DISCOGAN_DATA_CACHE", "0")
+    loader = HostLoader(ab_files[:4], ab_files[:4], 2, 8, "cpu")
     with pytest.raises(RuntimeError, match="decoder crashed"):
         host_epoch(loader)

@@ -5,9 +5,9 @@ statistic, Adam moment and step count of train_state.pt).
 
 N = 16: two epochs of the 256-image synthetic task at batch 32, 16px. The
 stops: at the epoch boundary (a run of --epochs=1, resumed with
---epochs=2), mid-epoch (a run that crashes at iteration k after the
-periodic save of iteration k - 1), and by SIGTERM (the trainer saves and
-returns). Also: the log of a resumed run (JAX's test_full_state_resume,
+--epochs=2), mid-epoch (a run that crashes at iteration 6, resumed from
+its periodic save of iteration 4), and by SIGTERM at the end of iteration
+10 (the trainer saves and returns). Also: the log of a resumed run (JAX's test_full_state_resume,
 tests/test_cli.py), and a state of another slim state, architecture or
 image size is refused before anything is written.
 """
@@ -19,8 +19,6 @@ import signal
 
 import pytest
 import torch
-
-from discogan_modernized_torch.cli.image_translation import main
 
 NB = 8  # batches an epoch: 256 synthetic pairs at batch 32
 N = 2 * NB

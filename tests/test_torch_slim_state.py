@@ -240,3 +240,28 @@ def test_all_iterations_against_jax(monkeypatch):
           + "; |seed a - seed b| " + ", ".join(f"{k} {v:.3e}" for k, v in floor.items()))
     for k, v in got.items():
         assert v < max(PARAM_GATES[k], 2 * floor[k]), (k, v, floor[k])
+
+
+@pytest.mark.parametrize("slim", ["off", "all"])
+def test_train_state_from_jax_npz_equals_from_pytree(slim, tmp_path):
+    """The JAX package's train_state.npz, read with numpy alone, carries
+    the same state across as its pytree: parameters in the slim state's
+    dtype, running statistics, both Adam states and their steps."""
+    from discogan_modernized_tpu.train.checkpoint import save_train_state as jax_save
+    from discogan_modernized_torch.models.torch_compat import read_jax_train_state_npz
+
+    jts, ts, cfg = carried(slim, steps=2, seed=6)
+    jax_save(tmp_path, jts, 2)
+    from_npz = train_state_from_jax(
+        read_jax_train_state_npz(tmp_path / "train_state.npz", IMAGE_SIZE, "discogan"), cfg)
+    for name, m in ts.models.items():
+        for (k, a), b in zip(m.state_dict().items(), from_npz.models[name].state_dict().values()):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, k)
+    for a, b in ((ts.opt_gen, from_npz.opt_gen), (ts.opt_dis, from_npz.opt_dis)):
+        assert a.step == b.step == int(jts["opt_gen"]["step"] if a is ts.opt_gen
+                                       else jts["opt_dis"]["step"])
+        for x, y in zip(a.m + a.v, b.m + b.v, strict=True):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    for arch, size in (("gan", IMAGE_SIZE), ("discogan", 2 * IMAGE_SIZE)):
+        with pytest.raises(ValueError, match="leaves, not those of"):
+            read_jax_train_state_npz(tmp_path / "train_state.npz", size, arch)
