@@ -45,6 +45,7 @@ from discogan_modernized_torch.models.torch_compat import train_state_from_jax
 from discogan_modernized_torch.train.checkpoint import save_train_state, train_state_meta
 from discogan_modernized_torch.train.graph import discogan_losses
 from discogan_modernized_torch.train.step import TrainConfig, loss_and_grads
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ANGLE_LINE = re.compile(
     r"Iter \[(\d+)/(\d+)\] GEN: (\d+\.\d{4})/(\d+\.\d{4}), "

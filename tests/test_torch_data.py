@@ -34,6 +34,7 @@ from discogan_modernized_torch.data import preprocess as pp
 from discogan_modernized_torch.data import resolvers as res
 from discogan_modernized_torch.data.cache import DecodedCache
 from discogan_modernized_torch.data.pipeline import HostLoader, epoch_perms
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture()

@@ -20,6 +20,7 @@ from discogan_modernized_torch.core.precision import F32
 from discogan_modernized_torch.models.generator import Generator
 from discogan_modernized_torch.models.torch_compat import generator_from_jax
 from tests.torch_ref import RefGenerator
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def random_stats(state, rng):

@@ -28,6 +28,7 @@ from discogan_modernized_torch.ops.conv_k4s2p1 import conv2d_k4s2p1
 from discogan_modernized_torch.ops.fused import fused_batchnorm_act
 from discogan_modernized_torch.ops.halo_conv import halo_conv2d_k4s2p1, takes_halo
 from discogan_modernized_torch.ops.head import head_convt
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

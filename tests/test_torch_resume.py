@@ -20,6 +20,8 @@ import signal
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
 NB = 8  # batches an epoch: 256 synthetic pairs at batch 32
 N = 2 * NB
 

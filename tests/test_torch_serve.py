@@ -24,6 +24,7 @@ from discogan_modernized_tpu.data.preprocess import preprocess_array as jax_prep
 from discogan_modernized_tpu.models.generator import generator_apply, generator_init
 from discogan_modernized_tpu.models.torch_compat import generator_to_state_dict
 from tests.test_torch_generator import random_stats
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 16
 

@@ -43,6 +43,7 @@ from discogan_modernized_torch.train.graph import trainable_subsets
 from discogan_modernized_torch.train.optim import rounding_seed, stochastic_round_bf16
 from discogan_modernized_torch.train.step import (TrainConfig, init_train_state,
                                                   make_train_steps)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 IMAGE_SIZE = 16
 BATCH = 4

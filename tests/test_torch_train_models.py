@@ -26,6 +26,7 @@ from discogan_modernized_torch.models.torch_compat import (discriminator_from_ja
                                                            generator_from_jax)
 from tests.test_torch_generator import jax_generator
 from tests.torch_ref import RefDiscriminator
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

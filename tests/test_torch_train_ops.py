@@ -37,6 +37,7 @@ from discogan_modernized_torch.ops.conv_k4s2p1 import (conv2d_k4s2p1,
 from discogan_modernized_torch.ops.fused import batch_stats
 from discogan_modernized_torch.ops.halo_conv import (halo_conv2d_k4s2p1_dw,
                                                      takes_halo)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 1e-5
 

@@ -48,6 +48,7 @@ from discogan_modernized_torch.train.step import (TrainConfig, TrainState,
                                                   make_optimizers,
                                                   make_train_steps)
 from tests.test_train_step import _run_torch_reference, _torch_models_from_state
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 IMAGE_SIZE = 16
 BATCH = 4

@@ -14,6 +14,7 @@ from PIL import Image
 
 from discogan_modernized_torch.cli.image_translation import main
 from tests.torch_ref import RefDiscriminator, RefGenerator
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LINE = re.compile(
     r"Iter \[\d+/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, FM: \d+\.\d{4}/\d+\.\d{4}, "
