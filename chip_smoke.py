@@ -113,13 +113,21 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               differing tensors are printed with a probe of which gradients
               differ between two runs of a step, and the phase fails);
               img/s and peak memory against phase 7's, the loader's wait
-              per step (the trainer's own line); a G step under mv and all
-              split into its gradients and its Adam update (CUDA events).
-  9. angle    a car sweep (car_<id>_<azimuth>.png, 16 cars x 18 views,
+              per step (the trainer's own line); the uninterrupted run
+              goes first, the stopped and the resumed run after it; then
+              the steps from one slim_state=all state fed an epoch at a
+              time from the real tree's loader, the synthetic task's
+              loader, the real batches in pinned memory (copied at each
+              step) and on the card, in the order AB_ORDER, with each
+              source's median D and G step, host issue time and per-block
+              G medians; a G
+              step under mv and all split into its gradients and its Adam
+              update (CUDA events).
+  9. angle    a car sweep (car_<id>_<azimuth>.png, 32 cars x 18 views,
               64px) and the angle CLI's trainer at the angle parser's
-              defaults but 2 epochs (4 iterations at batch 64): launches
+              defaults (10 epochs, 40 iterations at batch 64): launches
               of every step against PER_STEP64, losses finite, log lines
-              without the FM field.
+              without the FM field, median D and G step.
  10. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
               main-path shapes against the library call and the bound, and
               of K2 (batch 8, 4 and 1) and K1 (batch 8) with x.clone() of
@@ -1496,10 +1504,10 @@ def determinism_probe() -> None:
 
 def drive_real_data(work: Path, synthetic: dict) -> dict:
     """The trainer on an edges2shoes tree at 512px, batch 8, bf16,
-    slim_state=all, 2 epochs (16 iterations): stopped by SIGTERM at the end
-    of iteration SIGTERM_AT and resumed to the end, then the same run
-    uninterrupted; every step's launches checked, the two final train
-    states compared. Returns the uninterrupted run's launches."""
+    slim_state=all, 2 epochs (16 iterations): uninterrupted, then stopped
+    by SIGTERM at the end of iteration SIGTERM_AT and resumed to the end;
+    every step's launches checked, the two final train states compared.
+    Returns the uninterrupted run's launches."""
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.train.loop import run_training
 
@@ -1507,25 +1515,6 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     os.environ["DISCOGAN_TORCH_CACHE_DIR"] = str(work / "data_cache")
     write_edges2shoes(work / "datasets")
     time_decode()
-
-    handler = signal.getsignal(signal.SIGTERM)
-    stop = SigtermObserver(SIGTERM_AT)
-    _, stopped = run_training(real_args(work, "stopped"), observer=stop)
-    meta = json.loads((stopped / "train_state_meta.json").read_text())
-    if not (meta.get("preempted") and meta["iters"] == SIGTERM_AT + 1
-            and signal.getsignal(signal.SIGTERM) is handler):
-        raise AssertionError(f"SIGTERM at iteration {SIGTERM_AT}: meta {meta}")
-    print(f"SIGTERM at the end of iteration {SIGTERM_AT}: the trainer saved at "
-          f"iteration {meta['iters']} and returned; the caller's handler is back")
-    stop.report()
-    resume = StepObserver()
-    _, resumed = run_training(real_args(work, "resumed", f"--resume={stopped}"),
-                              observer=resume)
-    done = [s[0] for s in resume.steps]
-    if done != list(range(SIGTERM_AT + 1, REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH)):
-        raise AssertionError(f"the resumed run trained iterations {done}")
-    resume.report()
-    shutil.rmtree(work / "stopped")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1546,10 +1535,108 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
           f"{synthetic['step_ms']['gen']:.3f})")
     print(f"peak memory: slim_state=all {peak / 2**30:.2f} GiB, phase 7's mv "
           f"{synthetic['peak'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+    handler = signal.getsignal(signal.SIGTERM)
+    stop = SigtermObserver(SIGTERM_AT)
+    _, stopped = run_training(real_args(work, "stopped"), observer=stop)
+    meta = json.loads((stopped / "train_state_meta.json").read_text())
+    if not (meta.get("preempted") and meta["iters"] == SIGTERM_AT + 1
+            and signal.getsignal(signal.SIGTERM) is handler):
+        raise AssertionError(f"SIGTERM at iteration {SIGTERM_AT}: meta {meta}")
+    print(f"SIGTERM at the end of iteration {SIGTERM_AT}: the trainer saved at "
+          f"iteration {meta['iters']} and returned; the caller's handler is back")
+    stop.report()
+    resume = StepObserver()
+    _, resumed = run_training(real_args(work, "resumed", f"--resume={stopped}"),
+                              observer=resume)
+    done = [s[0] for s in resume.steps]
+    if done != list(range(SIGTERM_AT + 1, REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH)):
+        raise AssertionError(f"the resumed run trained iterations {done}")
+    resume.report()
+    shutil.rmtree(work / "stopped")
     compare_states(resumed, uninterrupted)
     shutil.rmtree(work / "resumed")
     shutil.rmtree(work / "uninterrupted")
     return launches
+
+
+AB_ORDER = ("real", "synthetic", "pinned", "resident",
+            "resident", "pinned", "synthetic", "real")
+
+
+def data_source_ab(work: Path) -> None:
+    """The trainer's steps at 512px, batch 8, bf16, slim_state=all, from one
+    state, fed an epoch at a time in the order AB_ORDER from four sources:
+    the host loader over the edges2shoes tree (cache reads, np.stack and
+    pin_memory on its thread), the host loader over synthetic arrays of the
+    same count (the synthetic task's path: an index copy and pin_memory),
+    the real batches held in pinned memory and copied to the card at each
+    step (no loader thread), and the same batches already on the card. Per
+    source, the median D and G step (CUDA events), the median host time to
+    issue a step, and each block's median G step: the steps are host-bound,
+    so what the loader's thread takes from the launch loop shows as the
+    difference between sources, apart from run order."""
+    from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.data.pipeline import HostLoader, synthetic_pair
+    from discogan_modernized_torch.data.resolvers import get_edge2photo_files
+    from discogan_modernized_torch.train.loop import config_from_args
+    from discogan_modernized_torch.train.step import init_train_state, make_train_steps
+
+    cfg = config_from_args(parse_with_config(translation_parser(), [
+        "--task_name=edges2shoes", f"--image_size={SIZE}", "--precision=bf16",
+        "--slim_state=all"]))
+    configure(BF16)
+    files, _ = get_edge2photo_files("edges2shoes")
+    loaders = {"real": HostLoader(files, files, TRAIN_BATCH, SIZE, "cuda",
+                                  domain_A="A", domain_B="B"),
+               "synthetic": HostLoader(*synthetic_pair(len(files), SIZE),
+                                       TRAIN_BATCH, SIZE, "cuda")}
+    resident = list(loaders["real"].epoch(0))
+    pinned = [tuple(x.cpu().pin_memory() for x in batch) for batch in resident]
+    ts = init_train_state(6, cfg, "cuda")
+    gen_step, dis_step = make_train_steps(cfg, BF16)
+    for step in (dis_step, gen_step):  # warm
+        step(ts, *resident[0], 0.01)
+    times = {src: {"dis": [], "gen": [], "host": [], "blocks": []}
+             for src in ("real", "synthetic", "pinned", "resident")}
+    iters = 0
+    for block, src in enumerate(AB_ORDER):
+        if src == "resident":
+            batches = resident
+        elif src == "pinned":
+            batches = (tuple(x.to("cuda", non_blocking=True) for x in b) for b in pinned)
+        else:
+            batches = loaders[src].epoch(block)
+        events = []
+        for A, B in batches:
+            kind = "dis" if cfg.is_dis_iter(iters) else "gen"
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            h0 = time.perf_counter()
+            (dis_step if kind == "dis" else gen_step)(ts, A, B, 0.01)
+            times[src]["host"].append((time.perf_counter() - h0) * 1e3)
+            e[1].record()
+            events.append((kind, e))
+            iters += 1
+        torch.cuda.synchronize()
+        gen_ms = []
+        for kind, (e0, e1) in events:
+            times[src][kind].append(e0.elapsed_time(e1))
+            if kind == "gen":
+                gen_ms.append(e0.elapsed_time(e1))
+        times[src]["blocks"].append(statistics.median(gen_ms))
+    for loader in loaders.values():
+        loader.close()
+    for src, t in times.items():
+        med = {k: statistics.median(t[k]) for k in ("dis", "gen", "host")}
+        print(f"data source {src}, slim_state=all, order {'/'.join(AB_ORDER)}: D "
+              f"{med['dis']:.3f} ms over {len(t['dis'])}, G {med['gen']:.3f} ms over "
+              f"{len(t['gen'])} steps (medians, CUDA events); host time to issue a "
+              f"step {med['host']:.3f} ms (median, host clock); G median per block "
+              + ", ".join(f"{v:.3f}" for v in t["blocks"]))
+    del ts, resident, pinned
+    torch.cuda.empty_cache()
 
 
 def optimizer_share() -> None:
@@ -1600,8 +1687,7 @@ def optimizer_share() -> None:
 
 # -- phase 9: the angle-pairing trainer at 64px ---------------------------------
 
-ANGLE_CARS, ANGLE_STEP = 16, 10  # cars, degrees between views (18 views a car)
-ANGLE_EPOCHS = 2
+ANGLE_CARS, ANGLE_STEP = 32, 10  # cars, degrees between views (18 views a car)
 ANGLE_LINE = re.compile(r"^Iter \[\d+/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, "
                         r"RECON: \d+\.\d{4}/\d+\.\d{4}, DIS: \d+\.\d{4}/\d+\.\d{4}$",
                         re.M)
@@ -1609,7 +1695,8 @@ ANGLE_LINE = re.compile(r"^Iter \[\d+/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, "
 
 def write_cars(root: Path) -> None:
     """A rendered-car sweep, car_<id>_<azimuth>.png, made from a numpy seed:
-    each half of the rotation holds 144 views, 130 of them for training."""
+    each half of the rotation holds 288 views, 260 of them for training (4
+    batches of 64)."""
     from PIL import Image
 
     rng = np.random.RandomState(4)
@@ -1623,7 +1710,7 @@ def write_cars(root: Path) -> None:
 
 def drive_angle(work: Path) -> dict:
     """The angle CLI's trainer at the angle parser's defaults (car2car,
-    64px, batch 64, bf16 on the card, rates 0.9) for ANGLE_EPOCHS epochs;
+    64px, batch 64, bf16 on the card, rates 0.9, 10 epochs: 40 iterations);
     every step's launches checked against PER_STEP64, every loss finite, the
     log's lines without the FM field. Returns the run's launches."""
     from discogan_modernized_torch.cli.common import angle_parser, parse_with_config
@@ -1633,7 +1720,7 @@ def drive_angle(work: Path) -> dict:
     os.environ["DISCOGAN_DATASETS_ROOT"] = str(work / "angle_data")
     write_cars(work / "angle_data")
     args = parse_with_config(angle_parser(), [
-        f"--epochs={ANGLE_EPOCHS}", f"--results_dir={work / 'angle' / 'results'}",
+        f"--results_dir={work / 'angle' / 'results'}",
         f"--models_dir={work / 'angle' / 'models'}"])
     if (args.image_size, args.batch_size) != (SIZE64, BATCH64):
         raise AssertionError("the angle parser's defaults moved")
@@ -1723,6 +1810,7 @@ def main() -> int:
 
         phase("train: a real-data task at 512px, slim_state=all, SIGTERM and resume")
         real_counts = drive_real_data(work, synthetic)
+        data_source_ab(work)
         optimizer_share()
 
         phase("train: the angle-pairing CLI at 64px")

@@ -11,8 +11,7 @@ reference's PIL -> numpy -> cv2 chain (crop, invert + dilate + invert,
 resize, /255: ref dataset.py:52-66) with one C++ pass.
 
 Selection in ``data/preprocess.py``: cv2 when importable (the reference's
-own numerics), else this library, else numpy; DISCOGAN_NATIVE=1 prefers
-this library over cv2.
+own numerics), else this library, else numpy.
 """
 
 from __future__ import annotations
@@ -123,7 +122,3 @@ def preprocess(image_u8: np.ndarray, domain, size: int) -> np.ndarray:
         image_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         h, w, c, _DOMAIN_CODES[domain], size, _f32p(out))
     return out
-
-
-def prefer_native() -> bool:
-    return os.environ.get("DISCOGAN_NATIVE", "0") == "1"

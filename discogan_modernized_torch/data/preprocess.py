@@ -17,7 +17,7 @@ reference DataLoader's fallback, ref dataset.py:258-261).
 
 Selection for a uint8 image, as in the JAX package: cv2 when importable
 (bit parity with the reference), else the native C++ pass
-(``data/native.py``; first with DISCOGAN_NATIVE=1), else numpy (exact for
+(``data/native.py``), else numpy (exact for
 the dilation, float-exact bilinear for the resize). PIL and cv2 are
 imported inside the functions that need them, so the array-level path
 (``preprocess_array`` on a decoded array) runs on a host that has neither.
@@ -83,7 +83,7 @@ def preprocess_array(image: np.ndarray, domain: Optional[str],
         from . import native
 
         try:
-            if native.prefer_native() or (_cv2() is None and native.available()):
+            if _cv2() is None and native.available():
                 return native.preprocess(image, domain, image_size)
         except Exception:  # noqa: BLE001 - the Python path decides, as in the JAX package
             pass

@@ -69,13 +69,12 @@ class Adam:
         self.m = [torch.zeros_like(p, dtype=mv_dtype) for p in self.params]
         self.v = [torch.zeros_like(p, dtype=mv_dtype) for p in self.params]
         self.step = 0
-        self._generators: dict = {}  # device -> torch.Generator
+        self._generator = None  # made on the parameters' device at first use
 
-    def _rounding_generator(self, device: torch.device, index: int):
-        gen = self._generators.get(device)
-        if gen is None:
-            gen = self._generators[device] = torch.Generator(device=device)
-        return gen.manual_seed(rounding_seed(self.step, index))
+    def _rounding_generator(self, index: int):
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.params[0].device)
+        return self._generator.manual_seed(rounding_seed(self.step, index))
 
     @torch.no_grad()
     def update(self, grads) -> None:
@@ -97,7 +96,7 @@ class Adam:
             if p.dtype == torch.bfloat16:
                 # Not p.sub_, which would round to nearest in bf16.
                 p.copy_(stochastic_round_bf16(
-                    p32 - upd, self._rounding_generator(p.device, i)))
+                    p32 - upd, self._rounding_generator(i)))
             else:
                 p.sub_(upd)
             m.copy_(m_new)

@@ -5,11 +5,9 @@
   16px, with one, they are 0), and one G and one D step's losses and gradients
   match ``jax.grad`` of JAX's graph with skip_first_fm (per tensor,
   max|diff| <= 1e-4 * max(1, max|g|), as tests/test_torch_train_step.py),
-  at batch 8, seed 3. (At batch 4 with seed 7 the port's gradients differ
-  from JAX's by up to 5e-3 of max|g|, with or without skip_first_fm: the
-  generators' outputs differ by 2.3e-6 between the packages, and JAX fed
-  the port's fake images moves its own gradients by the same amount;
-  ROADMAP.md, Queue 3, F7.);
+  at batch 8, seed 3; at batch 4, seed 7, where the step sits at a
+  LeakyReLU's kink, within twice the floor that JAX's own gradients show
+  between its fake images and the port's (ROADMAP.md, Queue 3, F7);
 - the angle CLI of both packages on a tiny car sweep at 32px, f32, from
   the same weights (the JAX initial state carried into the port and given
   to it through --resume): one car's 20 views, 9 of them in each half's
@@ -59,37 +57,96 @@ def to_sd(name, params, state):
     return {k: np.asarray(v) for k, v in conv(params, state).items()}
 
 
-@pytest.mark.parametrize("which", ["gen", "dis"])
-def test_skip_first_fm_step_matches_jax_grad(which):
+def _skip_first_fm_step(which, seed, batch):
+    """One G or D step of the port and ``jax.grad`` of JAX's graph with
+    skip_first_fm at 32px, f32, from the same state and images. Returns
+    (port losses, JAX losses, names, port grads, JAX grads as state dicts,
+    JAX's grads given the port's fakes as state dicts): for the last, JAX's
+    two generator forwards from the real images take as their values the
+    fake images that the port's step made (their gradients stay JAX's own)."""
     jcfg = JaxConfig(image_size=32, precision="f32", skip_first_fm=True)
     cfg = TrainConfig(image_size=32, precision="f32", skip_first_fm=True)
-    jts = jax_init(jax.random.PRNGKey(3), jcfg)
+    jts = jax_init(jax.random.PRNGKey(seed), jcfg)
     ts = train_state_from_jax(jax.tree.map(np.asarray, jts), cfg)
-    rng = np.random.RandomState(3)
-    A, B = (rng.rand(8, 32, 32, 3).astype(np.float32) for _ in range(2))
+    rng = np.random.RandomState(seed)
+    A, B = (rng.rand(batch, 32, 32, 3).astype(np.float32) for _ in range(2))
     keys = jax_graph.trainable_subsets("discogan")[0 if which == "gen" else 1]
     frozen = {k: v for k, v in jts["models"].items() if k not in keys}
 
-    def loss_fn(trainable, skip=True):
-        losses, _ = jax_graph.discogan_losses({**frozen, **trainable},
-                                              jts["model_states"], A, B,
-                                              policy=JAX_F32, skip_first_fm=skip)
+    made = {}  # generator -> its first output in the port's step: AB, BA
+
+    def keep(g):
+        def hook(_module, _inputs, y):
+            made.setdefault(g, y.detach().numpy().copy())
+        return hook
+    hooks = [ts.models[g].register_forward_hook(keep(g)) for g in ("gen_A", "gen_B")]
+    losses, grads = loss_and_grads(ts, torch.from_numpy(A), torch.from_numpy(B),
+                                   0.9, cfg, F32, which)
+    for h in hooks:
+        h.remove()
+    jax_apply = jax_graph.generator_apply
+    fakes = ((A, made["gen_B"]), (B, made["gen_A"]))
+
+    def given_fakes(p, s, x, **kw):
+        y, s2 = jax_apply(p, s, x, **kw)
+        for real, fake in fakes:
+            if x is real:
+                y = jax.lax.stop_gradient(fake) + (y - jax.lax.stop_gradient(y))
+        return y, s2
+
+    def loss_fn(trainable, skip=True, apply=jax_apply):
+        jax_graph.generator_apply = apply
+        try:
+            losses, _ = jax_graph.discogan_losses({**frozen, **trainable},
+                                                  jts["model_states"], A, B,
+                                                  policy=JAX_F32, skip_first_fm=skip)
+        finally:
+            jax_graph.generator_apply = jax_apply
         gen_total, dis_total = jax_graph.mix_losses(losses, 0.9, "discogan")
         return (gen_total if which == "gen" else dis_total), losses
 
     trainable = {k: jts["models"][k] for k in keys}
     (_, jlosses), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+    fed_grads = jax.grad(lambda t: loss_fn(t, apply=given_fakes)[0])(trainable)
     _, full = loss_fn(trainable, skip=False)
     assert float(jlosses["fm_A"]) < float(full["fm_A"])  # a feature left out
-    losses, grads = loss_and_grads(ts, torch.from_numpy(A), torch.from_numpy(B),
-                                   0.9, cfg, F32, which)
+    names = [(k, n) for k in keys for n, _ in ts.models[k].named_parameters()]
+    sd = lambda g: {k: to_sd(k, g[k], jts["model_states"][k]) for k in keys}  # noqa: E731
+    return losses, jlosses, names, grads, sd(jgrads), sd(fed_grads)
+
+
+def _rel(a, w):
+    return float(np.abs(a - w).max()) / max(1.0, float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("which", ["gen", "dis"])
+def test_skip_first_fm_step_matches_jax_grad(which):
+    losses, jlosses, names, grads, want, _ = _skip_first_fm_step(which, seed=3, batch=8)
     for k, v in jlosses.items():
         assert abs(float(losses[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), k
-    names = [(k, n) for k in keys for n, _ in ts.models[k].named_parameters()]
-    want = {k: to_sd(k, jgrads[k], jts["model_states"][k]) for k in keys}
     for (k, n), g in zip(names, grads, strict=True):
-        w = want[k][n]
-        assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * max(1.0, float(np.abs(w).max())), (k, n)
+        assert _rel(g.numpy(), want[k][n]) <= 1e-4, (k, n)
+
+
+@pytest.mark.parametrize("which", ["gen", "dis"])
+def test_skip_first_fm_step_at_a_kink_within_jax_floor(which):
+    """Batch 4, seed 7: one element of dis_B's third feature lies 1.5e-7
+    from the LeakyReLU's kink with JAX's fake images, and the port's fakes
+    (2.3e-6 away) can put it on the other side, which moves JAX's own
+    gradients by up to 5e-3 of max|g| (ROADMAP.md, Queue 3, F7). The floor
+    is that move: the spread between JAX's gradients from its own fakes and
+    from the port's, max over tensors, as tests/test_torch_train_step.py
+    measures a floor; every port gradient lies within max(1e-4, 2 x floor)
+    of JAX's, and the losses within 1e-5."""
+    losses, jlosses, names, grads, want, fed = _skip_first_fm_step(which, seed=7, batch=4)
+    for k, v in jlosses.items():
+        assert abs(float(losses[k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), k
+    floor = max(_rel(fed[k][n], want[k][n]) for k, n in names)
+    err = {(k, n): _rel(g.numpy(), want[k][n]) for (k, n), g in zip(names, grads, strict=True)}
+    print(f"{which}: max |port - JAX| {max(err.values()):.3e}, "
+          f"|JAX given the port's fakes - JAX| {floor:.3e}")
+    for kn, e in err.items():
+        assert e <= max(1e-4, 2 * floor), (kn, e, floor)
 
 
 @pytest.mark.parametrize("size", [16, 32])

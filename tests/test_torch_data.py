@@ -258,7 +258,6 @@ def test_native_is_chosen_without_cv2(natives, monkeypatch):
     monkeypatch.setattr(pp, "_cv2", lambda: None)
     np.testing.assert_array_equal(pp.preprocess_array(img, "A", 32),
                                   native.preprocess(img, "A", 32))
-    monkeypatch.setenv("DISCOGAN_NATIVE", "1")
     np.testing.assert_array_equal(pp.preprocess_array(img, "B", 32),
                                   native.preprocess(img, "B", 32))
 
