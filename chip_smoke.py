@@ -3,8 +3,10 @@
 ``discogan_modernized_torch/csrc``, holds each against its plain PyTorch
 version, drives the 512px serving path through the inference CLI and the
 serving daemon, trains the 512px DiscoGAN through the trainer CLI on the
-synthetic task and on an edges2shoes tree (stopped by SIGTERM and
-resumed), and trains the 64px angle-pairing model through its CLI.
+synthetic task, under the train step's graph variants (--paired,
+--lean_dis, --remat, concat_dis) and on an edges2shoes tree (stopped by
+SIGTERM and resumed), and trains the 64px angle-pairing model through its
+CLI.
 
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
 
@@ -59,7 +61,14 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               that evicts L2 and a device sleep that keeps the host's
               launches out of the window; the bound is the larger of bytes over 3.35
               TB/s and flops over the peak of the math's type (989 TFLOP/s
-              for bf16 on the tensor cores, 67 for f32).
+              for bf16 on the tensor cores, 67 for f32). Then the pair axis
+              (P = 2 problems in one launch, ops/pairs.py): every kernel at
+              each of its bf16 shapes of one 512px batch-8 training step and
+              at one edge shape (PAIR_EDGE), with operands per pair, and K3
+              and K5f also with one weight both pairs share (stride 0): each
+              pair launch counted once, each pair's outputs bit for bit a
+              single launch's, within the tolerances above of the plain pair
+              version, and timed beside the two single launches.
   4. path     two seeded 512px generators (running statistics calibrated on
               seeded images) saved as gen_A/gen_B_final.pth; the inference
               CLI on 8 seeded PNGs at batch 4; launch counts checked per
@@ -100,6 +109,22 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               K6's under head_convt_mma_kernel, and none under their FMA
               kernels; K2's as in phase 4 and K1's under its one-launch
               batch_stats_kernel, none under the two kernels it replaced.
+              Then the step's graph variants (VARIANTS: remat under the
+              "full", "latent" and "conv" policies, the lean D step,
+              concat_dis, paired) from one seeded 512px bf16 state at batch
+              8, under deterministic algorithms: after one D (lean D) and
+              one G step every parameter, moment and running statistic
+              equal to the plain graph's bit for bit (lean: but the
+              generators' statistics); every step's launches against
+              variant_per_step's table (paired: half of PER_STEP); median D
+              and G ms over 3 rounds of D, G, G; one G step's device busy,
+              window and kernels under torch.profiler; peak memory; the
+              auto-remat decision at batch 8 and 64 and one D and G step at
+              batch 64 as it decides. Then the trainer CLI as above with
+              --paired --lean_dis --remat=on --remat_policy=conv
+              --log_interval=4: launches per step, finite losses, every
+              logged line with nonzero RECON, iteration 0's line and the
+              final parameters and moments equal to the plain run's.
   8. real data  an edges2shoes tree under the work directory (64 train
               and 8 test side-by-side 512x256 JPEGs from a numpy seed): one
               epoch of the host loader cold (decoding into the cache) and
@@ -140,6 +165,7 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -665,6 +691,156 @@ def check_kernels(timer):
     return results
 
 
+# -- phase 3, the pair axis: P = 2 problems in one launch (ops/pairs.py) ------
+
+# One edge shape a kernel for its pair launches (every pair's operands start
+# on a 16-byte boundary, as the kernels require).
+PAIR_EDGE = [("batch_stats", "ragged", (3, 37, 41, 128)),
+             ("bn_act", "c24", (2, 5, 7, 24, "leaky")),
+             ("conv_k4s2p1", "ragged M", (3, 14, 10, 64, 128, True, "leaky")),
+             ("conv_stats", "split 13", (5, 32, 32, 256, 128)),
+             ("halo_conv_k4s2p1", "odd 58x40", (4, 58, 40, 32, 72, True, "leaky")),
+             ("head_convt", "w300", (1, 8, 300, 32, 3)),
+             ("conv_k4s2p1_dw", "ci48 co72", (3, 16, 16, 48, 72)),
+             ("halo_conv_k4s2p1_dw", "w/2 20", (3, 30, 40, 16, 72))]
+
+
+def pair_cases():
+    """(kind, label, shape args, shared weight, calls per G step): every
+    kernel's calls of one 512px batch-8 training step (phase 3's "train"
+    cases) and its PAIR_EDGE shape, with operands per pair; K3's and K5f's
+    also with one weight that both pairs read (pair stride 0)."""
+    cases = [(k, label, args, calls) for k, label, args, path, calls in kernel_cases()
+             if path == "train"]
+    cases += [(k, label, args, 0) for k, label, args in PAIR_EDGE]
+    out = []
+    for kind, label, args, calls in cases:
+        out.append((kind, label, args, False, calls))
+        if kind in ("conv_k4s2p1", "conv_stats", "halo_conv_k4s2p1"):
+            out.append((kind, label, args, True, calls))
+    return out
+
+
+def _flat(out) -> list:
+    """A call's output tensors in order (y; y and its statistics; mean, var)."""
+    if isinstance(out, tuple):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def run_pair_case(kernel, args, shared, timer, g):
+    """One bf16 pair launch: counted once; each pair's outputs equal, bit
+    for bit, a single launch's on that pair's operands; within TOL (the
+    statistics 1e-4) of the plain pair version; timed beside the two single
+    launches it replaces."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.conv_k4s2p1 import (
+        conv2d_k4s2p1, conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain, conv2d_k4s2p1_plain)
+    from discogan_modernized_torch.ops.fused import (batch_stats, batch_stats_plain,
+                                                     bn_act, bn_act_plain)
+    from discogan_modernized_torch.ops.halo_conv import (
+        halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain,
+        halo_conv2d_k4s2p1_plain)
+    from discogan_modernized_torch.ops.head import head_convt, head_convt_plain
+
+    dtype = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g) * scale).to(dtype)
+
+    def per_channel(c, shift):
+        return torch.rand(2, c, device="cuda", generator=g) * 0.5 + shift
+
+    if kernel == "bn_act":
+        n, h, w, c, act = args
+        operands, nds = [rand(2, n, h, w, c), per_channel(c, 0.5), per_channel(c, -0.25)], (4, 1, 1)
+        fn = lambda x, s, o: bn_act(x, s, o, act)  # noqa: E731
+        plain = lambda x, s, o: bn_act_plain(x, s, o, act)  # noqa: E731
+    elif kernel == "batch_stats":
+        operands, nds = [(rand(2, *args) + 0.5).to(dtype)], (4,)
+        fn, plain = batch_stats, batch_stats_plain
+    elif kernel in ("conv_k4s2p1", "halo_conv_k4s2p1", "conv_stats"):
+        if kernel == "conv_stats":
+            (n, h, w, ci, co), affine, act = args, False, None
+        else:
+            n, h, w, ci, co, affine, act = args
+        wt = rand(*(() if shared else (2,)), 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+        operands, nds = [rand(2, n, h, w, ci), wt], [4, 4]
+        if affine:
+            operands += [per_channel(co, 0.5), per_channel(co, -0.25)]
+            nds += [1, 1]
+        conv_fn, conv_plain = ((halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_plain)
+                               if kernel == "halo_conv_k4s2p1" else
+                               (conv2d_k4s2p1, conv2d_k4s2p1_plain))
+        kw = {"with_stats": True} if kernel == "conv_stats" else {"act": act}
+        fn = lambda x, wt, s=None, o=None: conv_fn(x, wt, scale=s, offset=o, **kw)  # noqa: E731
+        plain = lambda x, wt, s=None, o=None: conv_plain(  # noqa: E731
+            x, wt, scale=s, offset=o, **kw)
+    elif kernel in ("conv_k4s2p1_dw", "halo_conv_k4s2p1_dw"):
+        n, h, w, ci, co = args
+        operands, nds = [rand(2, n, h, w, ci), rand(2, n, h // 2, w // 2, co, scale=0.1)], (4, 4)
+        fn, plain = ((conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain) if kernel == "conv_k4s2p1_dw"
+                     else (halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain))
+    else:
+        n, h, w, ci, co = args
+        wt = rand(2, 4, 4, ci, co, scale=(16 * co) ** -0.5)
+        operands, nds = [rand(2, n, h, w, ci), wt], (4, 4)
+        fn, plain = head_convt, head_convt_plain
+
+    def single(p):
+        return fn(*(t if t.dim() == nd else t[p] for t, nd in zip(operands, nds)))
+
+    counted = KIND_KERNEL.get(kernel, kernel)
+    before = _build.launches[counted]
+    got = fn(*operands)
+    torch.cuda.synchronize()
+    if _build.launches[counted] != before + 1:
+        raise AssertionError(f"{counted} pair {args}: {_build.launches[counted] - before} "
+                             "launches for one pair call")
+    for p in range(2):
+        for a, b in zip(_flat(got), _flat(single(p))):
+            if not torch.equal(a[p], b):
+                raise AssertionError(f"{kernel} pair {args} shared={shared}: pair {p} differs "
+                                     "from a single launch")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(_flat(got), _flat(plain(*operands)))):
+        stats = kernel == "batch_stats" or (kernel == "conv_stats" and i > 0)
+        tol = 1e-4 if stats else TOL[dtype]
+        e = (a.float() - b.float()).abs().max().item()
+        limit = tol * max(1.0, b.float().abs().max().item())
+        if not (e <= limit) or a.shape != b.shape:
+            raise AssertionError(f"{kernel} pair {args}: max error {e:.3e} > {limit:.3e}")
+        err = max(err, e)
+    return {"err": err, "ms": timer.ms(lambda: fn(*operands)),
+            "singles_ms": timer.ms(lambda: (single(0), single(1)))}
+
+
+def check_pair_launches(timer) -> dict:
+    """Every case of ``pair_cases``; returns kernel -> (pair ms, two singles'
+    ms) summed over its batch-8 training shapes, each counted once."""
+    from discogan_modernized_torch.core.precision import BF16, configure
+
+    configure(BF16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    sums = {}
+    print(f"{'pair launch':18} {'case':12} {'weight':6} {'max_err':>10} {'pair ms':>9} "
+          f"{'2 singles':>9}  ratio")
+    for kind, label, args, shared, calls in pair_cases():
+        r = run_pair_case(kind, args, shared, timer, g)
+        name = KIND_KERNEL.get(kind, kind)
+        print(f"{kind:18} {label:12} {'shared' if shared else 'pair':6} {r['err']:10.3e} "
+              f"{r['ms']:9.4f} {r['singles_ms']:9.4f}  {r['ms'] / r['singles_ms']:.3f}",
+              flush=True)
+        if calls and not shared:
+            s = sums.setdefault(name, [0.0, 0.0])
+            s[0] += r["ms"]
+            s[1] += r["singles_ms"]
+    for name, (ms, singles) in sums.items():
+        print(f"{name}: pair launches {ms:.4f} ms against two single launches "
+              f"{singles:.4f} ms, summed over its batch-8 training shapes (bf16)")
+    return sums
+
+
 def _sums(rows, weight):
     """Time, plain, bound and library sums over bf16 case rows, each row
     counted ``weight(row)`` times; and what bounds the sum."""
@@ -714,13 +890,15 @@ def per_layer_lines(results) -> None:
               f"{total['library_ms']:.4f}, bound {total['bound_ms']:.4f} ({by})")
 
 
-def kernel_summary(results, launches):
+def kernel_summary(results, launches, pair_ms):
     """Per kernel, in bf16 (the card's default): for the serving kernels,
     the times summed over the calls of one 512px batch-4 forward (and the
     kernel ms of one batch-1 forward); for the training-only kernels (K1,
     K4, K5b), summed over the calls of one 512px batch-8 G step. Every
     kernel also carries its G-step sums (train_step_*). With the largest
-    bf16 and f32 errors, and the launches of every path run."""
+    bf16 and f32 errors, the launches of every path run, and its pair
+    launches' ms beside two single launches' over its training shapes
+    (pair_ms, two_singles_ms)."""
     out = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rows = {k: v for k, v in results.items() if k[0] == name}
@@ -742,7 +920,8 @@ def kernel_summary(results, launches):
             entry.update(train, bound_by=by_train)
         entry.update({f"train_step_{k}": v for k, v in train.items()},
                      train_step_bound_by=by_train,
-                     calls_per_g_step=PER_STEP["gen"][name])
+                     calls_per_g_step=PER_STEP["gen"][name],
+                     pair_ms=pair_ms[name][0], two_singles_ms=pair_ms[name][1])
         out.append(entry)
     return out
 
@@ -1031,12 +1210,13 @@ def check_k5b_route(by_kernel: dict, what: str) -> None:
           "under its split sums, none under halo_dw_kernel")
 
 
-def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> dict:
+def profile_call(fn, what: str, top: int = 12, ops: int = 0, out: dict | None = None) -> dict:
     """Device time of ``fn()`` by kernel (torch.profiler), the share of the
     window in which no kernel ran, and the split into the port's kernels,
     library kernels and the rest; with ``ops``, also the PyTorch operators
     that launched the most device time. Returns us by kernel name (empty
-    where the profiler recorded no device kernels)."""
+    where the profiler recorded no device kernels); ``out`` receives the
+    device busy and window ms and the count of device kernels."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1055,6 +1235,8 @@ def profile_call(fn, what: str, top: int = 12, ops: int = 0) -> dict:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     window = spans[-1][1] - spans[0][0]
+    if out is not None:
+        out.update(busy_ms=busy / 1e3, window_ms=window / 1e3, device_kernels=len(kernels))
     by_name, by_kernel = defaultdict(float), defaultdict(float)
     for e in kernels:
         by_name[kernel_label(e.name)] += e.time_range.elapsed_us()
@@ -1269,6 +1451,9 @@ def check_equivalence() -> None:
 
 # -- phase 7: the trainer ----------------------------------------------------
 
+STEP_NAMES = {"dis": "D", "lean": "lean D", "gen": "G"}
+
+
 class StepObserver:
     """Around each trainer step: CUDA events, and the launches the step made,
     which ``report`` holds against ``per_step``."""
@@ -1294,7 +1479,7 @@ class StepObserver:
     def report(self) -> dict:
         """Check every step's launches and losses; print and return times."""
         torch.cuda.synchronize()
-        times = {"dis": [], "gen": []}
+        times = {k: [] for k in self.per_step}
         for iters, kind, start, end, delta, losses in self.steps:
             if delta != self.per_step[kind]:
                 raise AssertionError(f"iteration {iters} ({kind}): launches {delta}, "
@@ -1305,12 +1490,14 @@ class StepObserver:
             if iters >= 2:
                 times[kind].append(start.elapsed_time(end))
         counts = {k: sum(1 for s in self.steps if s[1] == k) for k in times}
-        print(f"launches checked for {counts['dis']} D and {counts['gen']} G steps: "
-              f"D {self.per_step['dis']}, G {self.per_step['gen']}; all losses finite")
-        out = {k: statistics.median(v) for k, v in times.items()}
+        print("launches checked for " + ", ".join(
+            f"{n} {STEP_NAMES[k]} steps ({self.per_step[k]})" for k, n in counts.items() if n)
+            + "; all losses finite")
+        out = {k: statistics.median(v) for k, v in times.items() if v}
         for k, v in times.items():
-            print(f"{k} step: median {out[k]:.3f} ms over {len(v)} steps after the "
-                  f"first two (min {min(v):.3f}, max {max(v):.3f}; CUDA events)")
+            if v:
+                print(f"{k} step: median {out[k]:.3f} ms over {len(v)} steps after the "
+                      f"first two (min {min(v):.3f}, max {max(v):.3f}; CUDA events)")
         return out
 
 
@@ -1330,7 +1517,7 @@ def drive_trainer(work: Path):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    _, model_path = run_training(args, observer=observer)
+    result, model_path = run_training(args, observer=observer)
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1340,7 +1527,8 @@ def drive_trainer(work: Path):
           f"data, sample forwards and saves included); {steady:.1f} img/s at the "
           f"median step times; peak memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
-    return model_path, launches, {"step_ms": step_ms, "img_s": steady, "peak": peak}
+    return model_path, launches, {"step_ms": step_ms, "img_s": steady, "peak": peak,
+                                  "result": result}
 
 
 def steady_img_s(observer, step_ms) -> float:
@@ -1378,6 +1566,258 @@ def profile_g_step() -> None:
     del ts
     torch.cuda.empty_cache()
 
+
+
+# -- phase 7, the train step's graph variants -----------------------------------
+
+# Launches of one pass of each network at 512px (a pair's pass launches
+# once), of the weight gradients of a pass that trains, and of a stem's
+# input gradient (K6).
+GEN_PASS = {"conv_k4s2p1": 6, "halo_conv_k4s2p1": 1, "batch_stats": 9, "bn_act": 14,
+            "head_convt": 1}
+DIS_PASS = {"conv_k4s2p1": 6, "halo_conv_k4s2p1": 1, "batch_stats": 1, "bn_act": 6}
+TRAINED_PASS = {"conv_k4s2p1_dw": 6, "halo_conv_k4s2p1_dw": 1}
+STEM_DX = {"head_convt": 1}
+# The variants phase: one seeded state, each variant's TrainConfig fields.
+VARIANTS = {
+    "plain": {},
+    "remat full": {"remat": True, "remat_policy": "full", "remat_dis": True},
+    "remat latent": {"remat": True, "remat_policy": "latent", "remat_dis": True},
+    "remat conv": {"remat": True, "remat_policy": "conv", "remat_dis": True},
+    "lean_dis": {"lean_dis": True},
+    "concat_dis": {"concat_dis": True},
+    "paired": {"paired": True},
+}
+VARIANT_ROUNDS = 3  # timed rounds of D, G, G after the first D and G steps
+TRAIN_LINE = re.compile(r"Iter \[(\d+)/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, "
+                        r"FM: \d+\.\d{4}/\d+\.\d{4}, RECON: (\d+\.\d{4})/(\d+\.\d{4}), "
+                        r"DIS: \d+\.\d{4}/\d+\.\d{4}")
+
+
+def variant_per_step(paired: bool = False, concat_dis: bool = False,
+                     remat: str | None = None, remat_dis: bool = True) -> dict:
+    """Launches of a D, a lean D and a G step, from the passes the graph
+    makes: 4 generator passes (2 as pairs; a lean D step makes half of
+    them), 4 discriminator passes (2 as pairs or under concat_dis); every
+    pass of the networks a step trains takes its weight gradients, and on
+    a G step the passes whose input takes a gradient (the generators'
+    second passes, the discriminators' fake ones) take their stems' input
+    gradients: 2 + 2 singly, 1 + 1 as pairs, 2 + 2 under concat_dis (each
+    discriminator's pass holds its fake half). Under ``remat`` the backward
+    rebuilds every pass whose graph it walks: on a D step the
+    discriminators', on a G step the generators' and the fake
+    discriminator passes (the discriminators' only with ``remat_dis``);
+    "full" and "latent" rebuild a whole pass, "conv" its BatchNorm chains
+    alone (K1 and K2)."""
+    g = 2 if paired else 4
+    d = 2 if paired or concat_dis else 4
+    dx = 2 if paired else 4
+    d_fake = 1 if paired else 2
+
+    def rebuilt(counts, dis=False):
+        if remat is None or (dis and not remat_dis):
+            return {}
+        if remat == "conv":
+            return {k: v for k, v in counts.items() if k in ("batch_stats", "bn_act")}
+        return counts
+
+    def total(*terms):
+        out = {}
+        for times, counts in terms:
+            for k, v in counts.items():
+                out[k] = out.get(k, 0) + times * v
+        return out
+
+    d_step = ((d, DIS_PASS), (d, TRAINED_PASS), (d, rebuilt(DIS_PASS, True)))
+    return {"dis": total((g, GEN_PASS), *d_step),
+            "lean": total((g // 2, GEN_PASS), *d_step),
+            "gen": total((g, GEN_PASS), (d, DIS_PASS), (g, TRAINED_PASS), (dx, STEM_DX),
+                         (g, rebuilt(GEN_PASS)), (d_fake, rebuilt(DIS_PASS, True)))}
+
+
+def _snapshot(ts) -> dict:
+    """Every parameter, running statistic and Adam moment, on the host."""
+    out = {f"{k}.{n}": t.detach().cpu()
+           for k, m in ts.models.items() for n, t in m.state_dict().items()}
+    for key, opt in (("opt_gen", ts.opt_gen), ("opt_dis", ts.opt_dis)):
+        for which in ("m", "v"):
+            out.update({f"{key}.{which}{i}": t.cpu()
+                        for i, t in enumerate(getattr(opt, which))})
+    return out
+
+
+def drive_variants() -> dict:
+    """Each variant of VARIANTS from one seeded 512px bf16 state at batch 8,
+    slim_state=mv, under deterministic algorithms: the first D (lean D) and
+    G step's parameters, moments and running statistics against the plain
+    graph's, bit for bit (lean: parameters, moments and the discriminators'
+    statistics); every step's launches against ``variant_per_step``; then
+    VARIANT_ROUNDS rounds of D, G, G timed (CUDA events), one G step under
+    the profiler, and the peak memory. Then the auto-remat decision at batch
+    8 and 64, and two steps at batch 64 as it decides."""
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train.step import (TrainConfig, init_train_state,
+                                                      make_lean_dis_step, make_optimizers,
+                                                      make_train_steps, resolve_remat)
+
+    plain_table = variant_per_step()
+    if {k: plain_table[k] for k in ("dis", "gen")} != PER_STEP:
+        raise AssertionError(f"the derived launch table {plain_table} is not PER_STEP")
+    half = {k: {n: v // 2 for n, v in PER_STEP[k].items()} for k in PER_STEP}
+    if {k: variant_per_step(paired=True)[k] for k in ("dis", "gen")} != half:
+        raise AssertionError("the paired launch table is not half of PER_STEP")
+
+    configure(BF16)
+    base = TrainConfig(image_size=SIZE, precision="bf16", slim_state="mv")
+    ts = init_train_state(3, base, "cuda")
+    init = {k: {n: t.detach().cpu() for n, t in m.state_dict().items()}
+            for k, m in ts.models.items()}
+    rng = torch.Generator(device="cuda").manual_seed(11)
+    A, B = (torch.rand(TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=rng)
+            for _ in range(2))
+    out, ref = {}, None
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, fields in VARIANTS.items():
+            cfg = dataclasses.replace(base, **fields)
+            for k, m in ts.models.items():
+                m.load_state_dict(init[k])
+            ts.opt_gen, ts.opt_dis = make_optimizers(ts.models, cfg)
+            gen_step, dis_step = make_train_steps(cfg, BF16)
+            steps = {"gen": gen_step, "dis": dis_step,
+                     "lean": make_lean_dis_step(cfg, BF16) if cfg.lean_dis else None}
+            table = variant_per_step(cfg.paired, cfg.concat_dis and not cfg.paired,
+                                     cfg.remat_policy if cfg.use_remat else None)
+            d_kind = "lean" if cfg.lean_dis else "dis"
+            times = {"dis": [], "gen": []}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for i, kind in enumerate([d_kind, "gen"] + [d_kind, "gen", "gen"] * VARIANT_ROUNDS):
+                before = dict(_build.launches)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                losses = steps[kind](ts, A, B, 0.01)
+                end.record()
+                delta = {k: v - before[k] for k, v in _build.launches.items() if v != before[k]}
+                if delta != table[kind]:
+                    raise AssertionError(f"{name}, step {i} ({kind}): launches {delta}, "
+                                         f"want {table[kind]}")
+                bad = [k for k, v in losses.items() if not torch.isfinite(v).item()]
+                if bad:
+                    raise AssertionError(f"{name}: non-finite losses {bad}")
+                if i >= 2:
+                    end.synchronize()
+                    times["gen" if kind == "gen" else "dis"].append(start.elapsed_time(end))
+                if i == 1:
+                    snap = _snapshot(ts)
+                    if ref is None:
+                        ref = snap
+                    else:
+                        # under lean the generators' running statistics take
+                        # 2 updates a D step instead of 4
+                        stat = lambda k: "running" in k or "num_batches" in k  # noqa: E731
+                        skip = ("gen_A.", "gen_B.") if cfg.lean_dis else ()
+                        differ = [k for k in ref if not (k.startswith(skip) and stat(k))
+                                  and not torch.equal(ref[k], snap[k])]
+                        print(f"{name}: after one D and one G step, {len(differ)} of "
+                              f"{len(ref)} tensors differ from the plain graph's"
+                              + (" (the generators' running statistics not compared)"
+                                 if cfg.lean_dis else ""))
+                        if differ:
+                            raise AssertionError(f"{name} differs from the plain graph: "
+                                                 f"{differ[:6]}")
+                    del snap
+            peak = torch.cuda.max_memory_allocated()
+            profile = {}
+            profile_call(lambda: gen_step(ts, A, B, 0.01), f"one G step, {name}", top=0,
+                         out=profile)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            out[name] = dict(med, peak=peak, launches=sum(table["gen"].values()),
+                             **profile)
+            print(f"{name}: D {med['dis']:.3f} ms, G {med['gen']:.3f} ms (medians of "
+                  f"{len(times['dis'])} / {len(times['gen'])}, CUDA events); port kernel "
+                  f"launches a G step {out[name]['launches']}; peak memory "
+                  f"{peak / 2**30:.2f} GiB", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del ref
+    for batch in (TRAIN_BATCH, 64):
+        cfg, line = resolve_remat(base, batch, "cuda")
+        print(f"auto-remat at batch {batch} (this state resident): {line}")
+    A64, B64 = (torch.rand(64, SIZE, SIZE, 3, device="cuda", generator=rng) for _ in range(2))
+    gen_step, dis_step = make_train_steps(cfg, BF16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in (dis_step, gen_step):
+        losses = step(ts, A64, B64, 0.01)
+        if not all(torch.isfinite(v).item() for v in losses.values()):
+            raise AssertionError("batch 64: non-finite losses")
+    torch.cuda.synchronize()
+    print(f"batch 64 under auto (remat {'on' if cfg.use_remat else 'off'}): one D and one G "
+          f"step, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ts, A64, B64
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) -> None:
+    """The trainer CLI as phase 7 runs it, with --paired --lean_dis
+    --remat=on --remat_policy=conv and --log_interval=4: every step's
+    launches against ``variant_per_step(paired=True)``, every loss finite;
+    each logged line in the log's format with nonzero RECON (the logged D
+    iterations take the full graph), iteration 0's line the same as phase
+    7's; the final parameters and moments the same, bit for bit, as phase
+    7's run's (the generators' running statistics differ under lean)."""
+    from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
+    from discogan_modernized_torch.train.loop import config_from_args, run_training
+    from discogan_modernized_torch.train.step import resolve_remat
+
+    args = parse_with_config(translation_parser(), [
+        "--task_name=synthetic", f"--image_size={SIZE}",
+        f"--batch_size={TRAIN_BATCH}", "--epochs=1", "--precision=bf16",
+        "--slim_state=mv", "--model_save_interval=1000", "--log_interval=4",
+        "--paired", "--lean_dis", "--remat=on", "--remat_policy=conv",
+        f"--results_dir={work / 'variant_results'}", f"--models_dir={work / 'variant_models'}"])
+    # the trainer decides remat_dis as this does (the estimate is far from
+    # the card's free memory at batch 8)
+    cfg, _ = resolve_remat(config_from_args(args), TRAIN_BATCH, "cuda")
+    observer = StepObserver(variant_per_step(paired=True, remat="conv",
+                                             remat_dis=cfg.remat_dis))
+    torch.cuda.reset_peak_memory_stats()
+    result, model_path = run_training(args, observer=observer)
+    step_ms = observer.report()
+    log = (result / "training_log.txt").read_text()
+    lines = TRAIN_LINE.findall(log)
+    want = [i for i in range(len(observer.steps)) if i % 4 == 0]
+    if [int(i) for i, _, _ in lines] != want or any(
+            float(a) == 0 or float(b) == 0 for _, a, b in lines):
+        raise AssertionError(f"variant CLI log: logged iterations {lines}, want {want} "
+                             "with nonzero RECON")
+    first = next(l for l in (plain_result / "training_log.txt").read_text().splitlines()
+                 if l.startswith("Iter [0/"))
+    if first not in log.splitlines():
+        raise AssertionError(f"variant CLI: iteration 0's line differs from phase 7's: {first}")
+    a = torch.load(plain_model_path / "train_state.pt", map_location="cpu", weights_only=True)
+    b = torch.load(model_path / "train_state.pt", map_location="cpu", weights_only=True)
+    differ = []
+    for name in a["models"]:
+        for k, t in a["models"][name].items():
+            lean_stat = name.startswith("gen") and ("running" in k or "num_batches" in k)
+            if not lean_stat and not torch.equal(t, b["models"][name][k]):
+                differ.append(f"{name}.{k}")
+    for key in ("opt_gen", "opt_dis"):
+        for which in ("m", "v"):
+            differ += [f"{key}.{which}{i}" for i, (x, y) in
+                       enumerate(zip(a[key][which], b[key][which])) if not torch.equal(x, y)]
+    print(f"variant CLI: {len(observer.steps)} iterations, {len(lines)} logged lines with "
+          f"nonzero RECON, iteration 0's line as phase 7's; final parameters and moments: "
+          f"{len(differ)} tensors differ from phase 7's; D {step_ms.get('dis', 0):.3f} / lean "
+          f"D {step_ms.get('lean', 0):.3f} / G {step_ms['gen']:.3f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if differ:
+        raise AssertionError(f"variant CLI's final state differs from phase 7's: {differ[:6]}")
+    shutil.rmtree(model_path)
 
 
 # -- phase 8: a real-data task at 512px, slim_state=all, SIGTERM and resume --
@@ -1760,6 +2200,7 @@ def main() -> int:
     phase("kernels against their plain versions")
     timer = Timer()
     results = check_kernels(timer)
+    pair_ms = check_pair_launches(timer)
 
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
@@ -1805,8 +2246,16 @@ def main() -> int:
         _build.reset_launches()
         forwards = drive_cli(train_model_path, work / "trained", images)
         per_forward_check(dict(_build.launches), forwards, "CLI on trained weights")
-        shutil.rmtree(train_model_path)
         profile_g_step()
+
+        phase("train: the step's graph variants at 512px, batch 8, bf16")
+        _build.reset_launches()
+        variants = drive_variants()
+        variant_counts = dict(_build.launches)
+        _build.reset_launches()
+        drive_variant_cli(work, train_model_path, synthetic["result"])
+        variant_cli_counts = dict(_build.launches)
+        shutil.rmtree(train_model_path)
 
         phase("train: a real-data task at 512px, slim_state=all, SIGTERM and resume")
         real_counts = drive_real_data(work, synthetic)
@@ -1820,10 +2269,16 @@ def main() -> int:
 
     phase("report")
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
-                    "train": train_counts[k], "real_data": real_counts[k],
+                    "train": train_counts[k], "variants": variant_counts[k],
+                    "variant_cli": variant_cli_counts[k], "real_data": real_counts[k],
                     "angle": angle_counts[k]} for k in train_counts}
     per_layer_lines(results)
-    summary = kernel_summary(results, launches)
+    summary = kernel_summary(results, launches, pair_ms)
+    for name, v in variants.items():
+        print(f"variant {name}: D {v['dis']:.3f} ms, G {v['gen']:.3f} ms, G step device busy "
+              f"{v.get('busy_ms', float('nan')):.3f} ms of {v.get('window_ms', float('nan')):.3f} "
+              f"({v.get('device_kernels', 0)} device kernels, {v['launches']} port launches), "
+              f"peak {v['peak'] / 2**30:.2f} GiB")
     serving = [k for k in summary if k["name"] in SERVING_KERNELS]
     print(f"forward {forward_ms:.3f} ms; the four serving kernels' phase-3 medians "
           f"(each with L2 evicted) sum to {sum(k['ms'] for k in serving):.3f} ms")

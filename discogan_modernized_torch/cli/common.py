@@ -108,11 +108,10 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
                    celebA_flags: bool) -> argparse.ArgumentParser:
     """The flags both trainers take (the JAX package's ``add_common_flags``,
     ``cli/common.py:81-235``), as far as the port has them. Not ported
-    yet, and so refused: --paired, --lean_dis, --remat, --remat_policy,
-    --steps_per_call, --no_device_cache, --bn_sync, --xla_copts,
-    --profile; and --ckpt_backend, since the port writes its train state
-    with torch.save only (the JAX package's orbax backend has no
-    counterpart here)."""
+    yet, and so refused: --steps_per_call, --no_device_cache, --bn_sync,
+    --xla_copts, --profile; and --ckpt_backend, since the port writes its
+    train state with torch.save only (the JAX package's orbax backend has
+    no counterpart here)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
@@ -188,6 +187,32 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
     p.add_argument('--debug', action='store_true',
                    help='(extension) autograd anomaly detection: a NaN in '
                         'the backward raises with the forward op that made it')
+    p.add_argument('--paired', action='store_true',
+                   help='(extension) run each A-side/B-side pair of network '
+                        'forwards as one pass on a pair axis: one kernel '
+                        'launch a layer for both networks, the same weight '
+                        'trajectory bit for bit')
+    p.add_argument('--lean_dis', action='store_true',
+                   help='(extension) skip the ABA/BAB reconstruction '
+                        'forwards on discriminator iterations that are not '
+                        'logged. The weight trajectory is the same bit for '
+                        'bit (train-mode BatchNorm uses batch statistics); '
+                        'only the generators\' running statistics take fewer '
+                        'updates. Logged iterations run the full graph, so '
+                        'training_log.txt is exact.')
+    p.add_argument('--remat', type=str, default=None, choices=['on', 'off'],
+                   help='(extension) rematerialize the network forwards in '
+                        'the backward (the same bits, less memory, more '
+                        'work); default auto: on where the step\'s estimated '
+                        'peak exceeds the card\'s free memory (one line says '
+                        'why), off on the CPU')
+    p.add_argument('--remat_policy', type=str, default=None,
+                   choices=['full', 'latent', 'conv'],
+                   help='(extension) remat granularity: full = keep only '
+                        'each network\'s input and output, latent = also the '
+                        'generators\' 1x1 latents, conv = every conv output '
+                        '(the backward rebuilds only the BatchNorm and '
+                        'activation chains)')
     return p
 
 

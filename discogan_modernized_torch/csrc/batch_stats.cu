@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     batch_stats_kernel(const T* __restrict__ x, long long rows, int c, int lanes,
                        long long rows_per_split, float* __restrict__ part,
                        unsigned* __restrict__ tickets, float* __restrict__ mean,
-                       float* __restrict__ var) {
+                       float* __restrict__ var, PairStrides ps) {
   constexpr int FV = V == 1 ? 1 : 4;  // floats of a partial load (C % 4 == 0 where V > 1)
   constexpr int SQ = MAX_THREADS * V; // the squares' half of sh
   __shared__ __align__(16) float sh[2 * SQ];
@@ -144,6 +144,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int c0 = blockIdx.y * width;  // the tile's first channel
   const int w = min(width, c - c0);   // its channels in x
   const int ch = c0 + lane * V;
+  const int pair = blockIdx.z;  // each pair its partials, tickets and statistics
+  x += pair * ps.x;
+  part += pair * ps.ws;
+  tickets += pair * gridDim.y;
+  mean += pair * ps.st;
+  var += pair * ps.st;
 
   float s[V], q[V];
 #pragma unroll
@@ -236,10 +242,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
 template <typename T, int V>
 int launch(const void* x, long long rows, int c, int lanes, int ctiles, int splits,
            long long rows_per_split, int threads, float* part, unsigned* tickets, float* mean,
-           float* var, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(ctiles));
+           float* var, int pairs, const PairStrides& ps, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(ctiles),
+                  static_cast<unsigned>(pairs));
   batch_stats_kernel<T, V><<<grid, threads, 0, s>>>(static_cast<const T*>(x), rows, c, lanes,
-                                                    rows_per_split, part, tickets, mean, var);
+                                                    rows_per_split, part, tickets, mean, var, ps);
   return launch_status();
 }
 
@@ -248,21 +255,26 @@ int launch(const void* x, long long rows, int c, int lanes, int ctiles, int spli
 // The plan (width, threads, lanes, row_lanes, ctiles, splits,
 // rows_per_split, unroll, shuffle) is ops/fused.py::stats_plan's; one the
 // kernel cannot run, or whose splits do not cover the rows exactly once, is
-// refused. `part` holds 2 * splits * C floats (16-byte aligned); `tickets`
-// MAX_TILES counters that are 0 between calls.
+// refused. `part` holds 2 * splits * C floats (16-byte aligned) a pair;
+// `tickets` MAX_TILES counters that are 0 between calls, ctiles a pair.
+// pairs, x_ps: the pair axis (common.cuh); pair p's x starts x_ps values
+// after pair 0's, its mean and var C floats after pair 0's.
 extern "C" int discogan_batch_stats(const void* x, void* part, void* tickets, void* mean,
                                     void* var, long long rows, int c, int dtype, int width,
                                     int threads, int lanes, int row_lanes, int ctiles,
                                     int splits, long long rows_per_split, int unroll,
-                                    int shuffle, void* stream) {
+                                    int shuffle, int pairs, long long x_ps, void* stream) {
   constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 0 || c <= 0) return 0;
+  if (rows <= 0 || c <= 0 || pairs == 0) return 0;
   const int v = dtype == DT_F32 ? Vec16<float>::N : Vec16<__nv_bfloat16>::N;
   if ((width != v && width != 1) || c % width != 0) return BAD;
   if (threads % 32 != 0 || threads < 2 * MAX_LANES || threads > MAX_THREADS) return BAD;
   if (lanes < 1 || lanes > MAX_LANES || row_lanes != threads / lanes) return BAD;
   const int groups = c / width;
-  if (lanes > groups || ctiles != (groups + lanes - 1) / lanes || ctiles > MAX_TILES) return BAD;
+  if (lanes > groups || ctiles != (groups + lanes - 1) / lanes) return BAD;
+  if (pairs < 1 || static_cast<long long>(pairs) * ctiles > MAX_TILES || x_ps < rows * c ||
+      !pair_aligned(pairs, x_ps, dtype == DT_F32 ? 4 : 2))
+    return BAD;
   if (splits < 1 || rows_per_split < 1 || static_cast<long long>(splits) * rows_per_split < rows ||
       static_cast<long long>(splits - 1) * rows_per_split >= rows) {
     return BAD;
@@ -273,14 +285,15 @@ extern "C" int discogan_batch_stats(const void* x, void* part, void* tickets, vo
   unsigned* t = static_cast<unsigned*>(tickets);
   float* m = static_cast<float*>(mean);
   float* vr = static_cast<float*>(var);
+  const PairStrides ps{x_ps, 0, 0, 0, 2LL * splits * c, c};
   if (dtype == DT_F32) {
     return width == 1 ? launch<float, 1>(x, rows, c, lanes, ctiles, splits, rows_per_split,
-                                         threads, p, t, m, vr, s)
+                                         threads, p, t, m, vr, pairs, ps, s)
                       : launch<float, 4>(x, rows, c, lanes, ctiles, splits, rows_per_split,
-                                         threads, p, t, m, vr, s);
+                                         threads, p, t, m, vr, pairs, ps, s);
   }
   return width == 1 ? launch<__nv_bfloat16, 1>(x, rows, c, lanes, ctiles, splits,
-                                               rows_per_split, threads, p, t, m, vr, s)
+                                               rows_per_split, threads, p, t, m, vr, pairs, ps, s)
                     : launch<__nv_bfloat16, 8>(x, rows, c, lanes, ctiles, splits,
-                                               rows_per_split, threads, p, t, m, vr, s);
+                                               rows_per_split, threads, p, t, m, vr, pairs, ps, s);
 }

@@ -33,8 +33,13 @@ template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS)
     bn_act_vec_kernel(const uint4* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ offset, uint4* __restrict__ y,
-                      long long vectors, int c, int act) {
+                      long long vectors, int c, int act, PairStrides ps) {
   constexpr int V = Vec16<T>::N;
+  const int pair = blockIdx.y;  // strides of 16-byte multiples (the entry checks)
+  x += pair * ps.x / V;
+  y += pair * ps.y / V;
+  scale += pair * ps.aff;
+  offset += pair * ps.aff;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   // The plan makes stride * V a multiple of c: these are the thread's
@@ -71,8 +76,13 @@ template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS)
     bn_act_any_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ offset, T* __restrict__ y, long long vectors,
-                      int tail, int c, int act) {
+                      int tail, int c, int act, PairStrides ps) {
   constexpr int V = Vec16<T>::N;
+  const int pair = blockIdx.y;
+  x += pair * ps.x;
+  y += pair * ps.y;
+  scale += pair * ps.aff;
+  offset += pair * ps.aff;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   // Channel of the vector's first value, stepped by the stride's remainder:
@@ -104,16 +114,18 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 template <typename T>
 int launch(const void* x, const float* scale, const float* offset, void* y, long long n, int c,
-           int act, int fixed, int threads, int blocks, cudaStream_t s) {
+           int act, int fixed, int threads, int blocks, int pairs, const PairStrides& ps,
+           cudaStream_t s) {
   constexpr int V = Vec16<T>::N;
   const long long vectors = n / V;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(pairs));
   if (fixed) {
-    bn_act_vec_kernel<T><<<blocks, threads, 0, s>>>(static_cast<const uint4*>(x), scale, offset,
-                                                    static_cast<uint4*>(y), vectors, c, act);
+    bn_act_vec_kernel<T><<<grid, threads, 0, s>>>(static_cast<const uint4*>(x), scale, offset,
+                                                   static_cast<uint4*>(y), vectors, c, act, ps);
   } else {
-    bn_act_any_kernel<T><<<blocks, threads, 0, s>>>(static_cast<const T*>(x), scale, offset,
-                                                    static_cast<T*>(y), vectors,
-                                                    static_cast<int>(n % V), c, act);
+    bn_act_any_kernel<T><<<grid, threads, 0, s>>>(static_cast<const T*>(x), scale, offset,
+                                                   static_cast<T*>(y), vectors,
+                                                   static_cast<int>(n % V), c, act, ps);
   }
   return launch_status();
 }
@@ -122,11 +134,19 @@ int launch(const void* x, const float* scale, const float* offset, void* y, long
 
 // The plan (width, fixed, threads, blocks, unroll) is
 // ops/fused.py::bn_act_plan's; one that the kernels cannot run is refused.
+// n counts the values of one pair; pairs, x_ps, y_ps, aff_ps: the pair
+// axis (common.cuh), aff_ps 0 where the pairs share scale and offset.
 extern "C" int discogan_bn_act(const void* x, const void* scale, const void* offset, void* y,
                                long long n, int c, int act, int dtype, int width, int fixed,
-                               int threads, int blocks, int unroll, void* stream) {
+                               int threads, int blocks, int unroll, int pairs, long long x_ps,
+                               long long y_ps, long long aff_ps, void* stream) {
   constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
+  if (n <= 0 || pairs == 0) return 0;
+  const int itemsize = dtype == DT_F32 ? 4 : 2;
+  if (pairs < 1 || (pairs > 1 && (x_ps < n || y_ps < n)) ||
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, y_ps, itemsize) ||
+      !pair_aligned(pairs, aff_ps, 4))
+    return BAD;
   const int v = dtype == DT_F32 ? Vec16<float>::N : Vec16<__nv_bfloat16>::N;
   if (c <= 0 || n % c != 0 || width != v || threads < 32 || threads > MAX_THREADS ||
       threads % 32 != 0 || blocks < 1) {
@@ -140,7 +160,9 @@ extern "C" int discogan_bn_act(const void* x, const void* scale, const void* off
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
+  const PairStrides ps{x_ps, 0, y_ps, aff_ps, 0, 0};
   return dtype == DT_F32
-             ? launch<float>(x, sc, of, y, n, c, act, fixed, threads, blocks, s)
-             : launch<__nv_bfloat16>(x, sc, of, y, n, c, act, fixed, threads, blocks, s);
+             ? launch<float>(x, sc, of, y, n, c, act, fixed, threads, blocks, pairs, ps, s)
+             : launch<__nv_bfloat16>(x, sc, of, y, n, c, act, fixed, threads, blocks, pairs, ps,
+                                     s);
 }

@@ -84,3 +84,30 @@ inline bool covers_once(long long units, int parts, int per_part) {
   return parts >= 1 && per_part >= 1 && static_cast<long long>(parts) * per_part >= units &&
          static_cast<long long>(parts - 1) * per_part < units;
 }
+
+// The pair axis: one launch computes P problems of one shape, the pair
+// index folded into a grid axis (one the kernel leaves free, or the one
+// that holds its batch or its split). Pair p's operands start p times their
+// pair stride, in elements, past pair 0's; a stride of 0 shares an operand
+// (the weight of a discriminator's real and fake halves). Each pair runs
+// the tile plan of a single call on its own operands, so a pair launch
+// writes the bits of P single launches.
+struct PairStrides {
+  long long x;    // the input
+  long long w;    // the weight (K3, K5f, K6), or dy (K4, K5b)
+  long long y;    // the output: y, or dw
+  long long aff;  // scale and offset (K2, K3, K5f)
+  long long ws;   // the f32 workspace: split and statistics partials
+  long long st;   // the statistics (K1's mean and var, K3's two means)
+};
+
+// p advanced to pair `pair`'s operand; a null operand stays null.
+template <typename T>
+__device__ __forceinline__ T* at_pair(T* p, long long stride, int pair) {
+  return p == nullptr ? p : p + pair * stride;
+}
+
+// Whether every pair's operand keeps the 16-byte alignment of pair 0's.
+inline bool pair_aligned(int pairs, long long stride, int itemsize) {
+  return pairs == 1 || (stride * itemsize) % 16 == 0;
+}

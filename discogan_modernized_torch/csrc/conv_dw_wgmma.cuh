@@ -279,7 +279,7 @@ __device__ __forceinline__ void body(const bf16* __restrict__ x, const bf16* __r
 
 // A __global__ entry around body<PLANES>.
 using Kernel = void (*)(const bf16*, const bf16*, bf16*, float*, int, int, int, int, int, int,
-                        int);
+                        int, PairStrides);
 
 // Launches `kernel` under the wrapper's plan after checking it: the shape is
 // the kernel's (CI and CO multiples of 8, WO % 8 == 0 for the planes, M
@@ -290,7 +290,7 @@ using Kernel = void (*)(const bf16*, const bf16*, bf16*, float*, int, int, int, 
 template <bool PLANES>
 int launch(Kernel kernel, int blocks, int smem, cudaStream_t s, const void* x, const void* dy,
            void* dw, float* partial, int n, int h, int wd, int ci, int co, int splits,
-           int steps_per_split) {
+           int steps_per_split, int pairs, const PairStrides& ps) {
   const long long m = static_cast<long long>(n) * (h / 2) * (wd / 2);
   const int tiles = (co + BN - 1) / BN * ((ci + CH - 1) / CH * 4) * splits;
   if (ci % 8 || co % 8 || (PLANES && (wd / 2) % 8) || m >= (1LL << 31) ||
@@ -301,9 +301,10 @@ int launch(Kernel kernel, int blocks, int smem, cudaStream_t s, const void* x, c
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, THREADS, smem, s>>>(static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-                                       static_cast<bf16*>(dw), partial, n, h, wd, ci, co, splits,
-                                       steps_per_split);
+  // The pair is the grid's y; each pair walks its tiles as a single call.
+  kernel<<<dim3(blocks, pairs), THREADS, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<bf16*>(dw), partial,
+      n, h, wd, ci, co, splits, steps_per_split, ps);
   return launch_status();
 }
 

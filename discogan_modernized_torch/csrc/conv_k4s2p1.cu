@@ -85,9 +85,16 @@ __global__ void __launch_bounds__(THREADS)
     conv_k4s2p1_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const float* __restrict__ scale, const float* __restrict__ offset,
                        T* __restrict__ y, float* __restrict__ stat_part, int n, int h, int wd,
-                       int ci, int co, int act) {
+                       int ci, int co, int act, PairStrides ps) {
   __shared__ float As[BK][BM + 1];  // +1: the transposed store is conflict-free
   __shared__ float Bs[BK][BN];
+  const int pair = blockIdx.z;
+  x = at_pair(x, ps.x, pair);
+  w = at_pair(w, ps.w, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
+  stat_part = at_pair(stat_part, ps.ws, pair);
 
   const int ho = h / 2, wo = wd / 2;
   const long long m_total = static_cast<long long>(n) * ho * wo;
@@ -231,7 +238,7 @@ __host__ __device__ constexpr int epilogue_bytes() {
 // 16 * CI / 64. Warpgroup g takes rows 64g .. 64g+63 of all BN columns
 // (BM 128) or all 64 rows of columns (BN/2) g .. (BN/2) (g+1) - 1 (BM 64).
 // With `partial` (a split), it writes its f32 sums to
-// partial[blockIdx.z][m][co]; otherwise y and, with `stat_part`, one partial
+// partial[split][m][co]; otherwise y and, with `stat_part`, one partial
 // row of the statistics. Run by THREADS threads, one block an SM, with
 // STAGES * stage_bytes<BM, BN>() of dynamic shared memory.
 template <int BM, int BN, int STAGES>
@@ -240,7 +247,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                       const float* __restrict__ scale, const float* __restrict__ offset,
                       bf16* __restrict__ y, float* __restrict__ partial,
                       float* __restrict__ stat_part, int n, int h, int wd, int ci, int co,
-                      int act, int steps_per_split) {
+                      int act, int splits, int steps_per_split, PairStrides ps) {
   constexpr int A_BYTES = BM * 128, STAGE = stage_bytes<BM, BN>();
   constexpr int A_COPIES = BM / 32;            // A rows a thread copies a step
   constexpr int WN = BM == 128 ? BN : BN / 2;  // a warpgroup's columns
@@ -255,7 +262,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wo = wd / 2, hw = (h / 2) * wo, m_total = n * hw;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int cpt = ci / BK;  // steps of a tap
-  const int s_begin = blockIdx.z * steps_per_split;
+  const int split = blockIdx.z % splits;  // z = pair * splits + split
+  const int pair = blockIdx.z / splits;
+  x = at_pair(x, ps.x, pair);
+  w = at_pair(w, ps.w, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
+  partial = at_pair(partial, ps.ws, pair);
+  stat_part = at_pair(stat_part, ps.ws, pair);
+  const int s_begin = split * steps_per_split;
   const int nsteps = min(steps_per_split, 16 * cpt - s_begin);
   const int tid = threadIdx.x, g = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
 
@@ -360,7 +376,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int rb = (BM == 128 ? 64 * g : 0) + 16 * warp + (lane >> 2);
   const int cb = (BM == 128 ? 0 : WN * g) + 2 * (lane & 3);
   if (partial != nullptr) {  // a split: f32 pairs, summed by the split pass
-    float* part = partial + static_cast<long long>(blockIdx.z) * m_total * co;
+    float* part = partial + static_cast<long long>(split) * m_total * co;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int m = m0 + rb + 8 * hf;
@@ -439,14 +455,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 template <int BM, int BN, int STAGES>
 int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, const float* scale,
            const float* offset, void* y, float* partial, float* stat_part, int n, int h, int wd,
-           int ci, int co, int act, int steps_per_split) {
+           int ci, int co, int act, int splits, int steps_per_split, const PairStrides& ps) {
   if (smem < STAGES * stage_bytes<BM, BN>()) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       conv_wgmma_kernel<BM, BN, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   conv_wgmma_kernel<BM, BN, STAGES><<<grid, THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, offset,
-      static_cast<bf16*>(y), partial, stat_part, n, h, wd, ci, co, act, steps_per_split);
+      static_cast<bf16*>(y), partial, stat_part, n, h, wd, ci, co, act, splits, steps_per_split,
+      ps);
   return launch_status();
 }
 
@@ -454,7 +471,12 @@ int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, co
 __global__ void splitk_epilogue_kernel(const float* __restrict__ partial, int splits,
                                        long long mco, int co, const float* __restrict__ scale,
                                        const float* __restrict__ offset, bf16* __restrict__ y,
-                                       int act) {
+                                       int act, PairStrides ps) {
+  const int pair = blockIdx.y;
+  partial = at_pair(partial, ps.ws, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < mco;
        i += stride) {
@@ -477,8 +499,14 @@ __global__ void __launch_bounds__(SR_COLS * SR_LANES)
     splitk_stats_epilogue_kernel(const float* __restrict__ partial, int splits,
                                  long long m_total, int co, const float* __restrict__ scale,
                                  const float* __restrict__ offset, bf16* __restrict__ y, int act,
-                                 float* __restrict__ stat_part) {
+                                 float* __restrict__ stat_part, PairStrides ps) {
   __shared__ float red[2][SR_LANES][SR_COLS];
+  const int pair = blockIdx.z;
+  partial = at_pair(partial, ps.ws, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
+  stat_part = at_pair(stat_part, ps.ws, pair);
   const int lc = threadIdx.x % SR_COLS, lr = threadIdx.x / SR_COLS;
   const int col = blockIdx.y * SR_COLS + lc;
   const long long m0 = static_cast<long long>(blockIdx.x) * SR_ROWS;
@@ -540,8 +568,15 @@ __global__ void __launch_bounds__(THREADS)
     conv_stem_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                            const float* __restrict__ scale, const float* __restrict__ offset,
                            bf16* __restrict__ y, float* __restrict__ stat_part, int n, int h,
-                           int wd, int co, int act, int chunks_per_block) {
+                           int wd, int co, int act, int chunks_per_block, PairStrides ps) {
   constexpr int V = 4 * CI;  // values of one window row
+  const int pair = blockIdx.z;
+  x = at_pair(x, ps.x, pair);
+  w = at_pair(w, ps.w, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
+  stat_part = at_pair(stat_part, ps.ws, pair);
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t b_tile = sbase + 2 * TILE;
@@ -689,13 +724,13 @@ __global__ void __launch_bounds__(THREADS)
 template <int CI>
 int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, const float* scale,
            const float* offset, void* y, float* stat_part, int n, int h, int wd, int co, int act,
-           int chunks_per_block) {
+           int chunks_per_block, const PairStrides& ps) {
   const cudaError_t err = cudaFuncSetAttribute(
       conv_stem_wgmma_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   conv_stem_wgmma_kernel<CI><<<grid, THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, offset,
-      static_cast<bf16*>(y), stat_part, n, h, wd, co, act, chunks_per_block);
+      static_cast<bf16*>(y), stat_part, n, h, wd, co, act, chunks_per_block, ps);
   return launch_status();
 }
 
@@ -703,7 +738,10 @@ int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, co
 
 // Per-channel sums of the partial rows, in order, divided by the count.
 __global__ void conv_stats_finalize_kernel(const float* __restrict__ stat_part, int parts,
-                                           int co, long long count, float* __restrict__ out) {
+                                           int co, long long count, float* __restrict__ out,
+                                           PairStrides ps) {
+  stat_part += blockIdx.y * ps.ws;
+  out += blockIdx.y * ps.st;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= co) return;
   float s = 0.f, q = 0.f;
@@ -726,16 +764,27 @@ __global__ void conv_stats_finalize_kernel(const float* __restrict__ stat_part, 
 // splits > 1 on the wgmma path), then 2 * CO floats per partial row of the
 // statistics where `stats` is given. stats: null, or 2 * CO floats that
 // receive the per-channel means of the raw accumulator and of its square.
+// pairs, x_ps, w_ps, aff_ps: the pair axis (common.cuh), w_ps 0 for a
+// shared weight, aff_ps 0 for a shared scale and offset; pair p's y starts
+// M * CO values, its workspace the floats above and its stats 2 * CO floats
+// after pair 0's (the grid's z is pair * splits + split).
 extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* scale,
                                     const void* offset, void* y, void* workspace, void* stats,
                                     int n, int h, int wd, int ci, int co, int act, int dtype,
                                     int path, int bm, int bn, int stages, int splits,
                                     int steps_per_split,
                                     int grid_x, int grid_y, int smem, int stat_rows,
+                                    int pairs, long long x_ps, long long w_ps, long long aff_ps,
                                     void* stream) {
   const long long m_total = static_cast<long long>(n) * (h / 2) * (wd / 2);
-  if (m_total == 0 || co == 0) return 0;
+  if (m_total == 0 || co == 0 || pairs == 0) return 0;
   constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
+  const int itemsize = dtype == DT_F32 ? 4 : 2;
+  if (pairs < 1 || pairs > 65535 / (splits > 0 ? splits : 1) ||
+      (pairs > 1 && x_ps < static_cast<long long>(n) * h * wd * ci) ||
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, w_ps, itemsize) ||
+      !pair_aligned(pairs, aff_ps, 4))
+    return BAD;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
@@ -746,6 +795,8 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
   if (m_total >= (1LL << 31) || smem < 0 || smem > MAX_SMEM || grid_x < 1 || grid_y < 1)
     return BAD;
   float* stat_part = stats != nullptr ? ws + split_ws : nullptr;
+  const PairStrides ps{x_ps, w_ps, m_total * co, aff_ps,
+                       split_ws + (stats != nullptr ? 2LL * stat_rows * co : 0), 2LL * co};
   const long long tiles_m = (m_total + bm - 1) / (bm > 0 ? bm : 1);
   int err;
   if (path == CONV_WGMMA) {
@@ -754,12 +805,12 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
         grid_y != (co + bn - 1) / (bn > 0 ? bn : 1) ||
         stat_rows != (split ? (m_total + wg::SR_ROWS - 1) / wg::SR_ROWS : tiles_m))
       return BAD;
-    const dim3 grid(grid_x, grid_y, splits);
+    const dim3 grid(grid_x, grid_y, splits * pairs);
     float* partial = split ? ws : nullptr;
     float* tile_stats = split ? nullptr : stat_part;
     auto run = [&](auto launch) {
       return launch(grid, smem, s, x, w, sc, of, y, partial, tile_stats, n, h, wd, ci, co, act,
-                    steps_per_split);
+                    splits, steps_per_split, ps);
     };
     if (bm == 128 && bn == 256 && stages == 4) {
       err = run(wg::launch<128, 256, 4>);
@@ -773,15 +824,16 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
     if (err != 0) return err;
     if (split && stats != nullptr) {
       const dim3 rgrid(static_cast<unsigned>(stat_rows),
-                       static_cast<unsigned>((co + wg::SR_COLS - 1) / wg::SR_COLS));
+                       static_cast<unsigned>((co + wg::SR_COLS - 1) / wg::SR_COLS),
+                       static_cast<unsigned>(pairs));
       wg::splitk_stats_epilogue_kernel<<<rgrid, wg::SR_COLS * wg::SR_LANES, 0, s>>>(
-          partial, splits, m_total, co, sc, of, static_cast<wg::bf16*>(y), act, stat_part);
+          partial, splits, m_total, co, sc, of, static_cast<wg::bf16*>(y), act, stat_part, ps);
     } else if (split) {
       const long long mco = m_total * co;
       const long long want = (mco + 255) / 256;
       const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
-      wg::splitk_epilogue_kernel<<<blocks, 256, 0, s>>>(partial, splits, mco, co, sc, of,
-                                                        static_cast<wg::bf16*>(y), act);
+      wg::splitk_epilogue_kernel<<<dim3(blocks, pairs), 256, 0, s>>>(
+          partial, splits, mco, co, sc, of, static_cast<wg::bf16*>(y), act, ps);
     }
     err = launch_status();
   } else if (path == CONV_STEM) {
@@ -790,9 +842,10 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
         splits != grid_y || !covers_once(chunks, grid_y, steps_per_split) ||
         stat_rows != grid_y || smem < stem::SMEM)
       return BAD;
-    const dim3 grid(grid_x, grid_y);
+    const dim3 grid(grid_x, grid_y, pairs);
     auto run = [&](auto launch) {
-      return launch(grid, smem, s, x, w, sc, of, y, stat_part, n, h, wd, co, act, steps_per_split);
+      return launch(grid, smem, s, x, w, sc, of, y, stat_part, n, h, wd, co, act, steps_per_split,
+                    ps);
     };
     switch (ci) {
       case 1: err = run(stem::launch<1>); break;
@@ -804,22 +857,22 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
     if (bm != BM || splits != 1 || grid_x != tiles_m || grid_y != (co + BN - 1) / BN ||
         stat_rows != tiles_m)
       return BAD;
-    const dim3 grid(grid_x, grid_y);
+    const dim3 grid(grid_x, grid_y, pairs);
     if (dtype == DT_F32) {
       conv_k4s2p1_kernel<float><<<grid, THREADS, 0, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(w), sc, of,
-          static_cast<float*>(y), stat_part, n, h, wd, ci, co, act);
+          static_cast<float*>(y), stat_part, n, h, wd, ci, co, act, ps);
     } else {
       conv_k4s2p1_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
           static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), sc, of,
-          static_cast<__nv_bfloat16*>(y), stat_part, n, h, wd, ci, co, act);
+          static_cast<__nv_bfloat16*>(y), stat_part, n, h, wd, ci, co, act, ps);
     }
     err = launch_status();
   } else {
     return BAD;
   }
   if (err != 0 || stats == nullptr) return err;
-  conv_stats_finalize_kernel<<<(co + 255) / 256, 256, 0, s>>>(
-      stat_part, stat_rows, co, m_total, static_cast<float*>(stats));
+  conv_stats_finalize_kernel<<<dim3((co + 255) / 256, pairs), 256, 0, s>>>(
+      stat_part, stat_rows, co, m_total, static_cast<float*>(stats), ps);
   return launch_status();
 }

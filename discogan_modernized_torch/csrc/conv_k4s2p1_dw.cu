@@ -50,14 +50,19 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     conv_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dw,
                    float* __restrict__ partial, int n, int h, int wd, int ci, int co,
-                   int steps_per_split) {
+                   int splits, int steps_per_split, PairStrides ps) {
   __shared__ float As[BM][BK + 1];
   __shared__ float Bs[BM][BN];
+  const int split = blockIdx.z % splits, pair = blockIdx.z / splits;
+  x += pair * ps.x;
+  dy += pair * ps.w;
+  dw += pair * ps.y;
+  partial = at_pair(partial, ps.ws, pair);
   const int ho = h / 2, wo = wd / 2;
   const long long m_total = static_cast<long long>(n) * ho * wo;
   const int k_total = 16 * ci;
   const int k0 = blockIdx.x * BK, o0 = blockIdx.y * BN;
-  const long long step_begin = static_cast<long long>(blockIdx.z) * steps_per_split;
+  const long long step_begin = static_cast<long long>(split) * steps_per_split;
   const long long m_begin = step_begin * BM;
   const long long m_end = min(m_total, (step_begin + steps_per_split) * BM);
   const int tid = threadIdx.x;
@@ -125,7 +130,7 @@ __global__ void __launch_bounds__(THREADS)
       if (col >= co) continue;
       const long long idx = static_cast<long long>(kr) * co + col;
       if (partial != nullptr) {
-        partial[blockIdx.z * ko + idx] = acc[i][j];
+        partial[split * ko + idx] = acc[i][j];
       } else {
         dw[idx] = from_f32<T>(acc[i][j]);
       }
@@ -140,8 +145,11 @@ template <bool PLANES>
 __global__ void __launch_bounds__(dw_wgmma::THREADS, 1)
     conv_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
                          __nv_bfloat16* __restrict__ dw, float* __restrict__ partial, int n, int h,
-                         int wd, int ci, int co, int splits, int steps_per_split) {
-  dw_wgmma::body<PLANES>(x, dy, dw, partial, n, h, wd, ci, co, splits, steps_per_split);
+                         int wd, int ci, int co, int splits, int steps_per_split,
+                         PairStrides ps) {
+  const int pair = blockIdx.y;
+  dw_wgmma::body<PLANES>(x + pair * ps.x, dy + pair * ps.w, dw + pair * ps.y,
+                         at_pair(partial, ps.ws, pair), n, h, wd, ci, co, splits, steps_per_split);
 }
 
 // ---- the stem (bf16, CI <= 4, CO % 8 == 0): wgmma over an im2col tile ---
@@ -169,8 +177,11 @@ template <int CI>
 __global__ void __launch_bounds__(THREADS)
     conv_dw_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                         float* __restrict__ partial, int n, int h, int wd, int co,
-                        int steps_per_split) {
+                        int steps_per_split, PairStrides ps) {
   constexpr int V = 4 * CI;  // values of one window row
+  x += blockIdx.z * ps.x;  // z: the pair
+  dy += blockIdx.z * ps.w;
+  partial += blockIdx.z * ps.ws;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int ho = h / 2, wo = wd / 2, hw = ho * wo, m_total = n * hw;
@@ -274,14 +285,15 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int CI>
 int launch(int splits, cudaStream_t s, const void* x, const void* dy, float* partial, int n,
-           int h, int wd, int co, int steps_per_split) {
+           int h, int wd, int co, int steps_per_split, int pairs, const PairStrides& ps) {
   const cudaError_t err = cudaFuncSetAttribute(
       conv_dw_stem_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((co + BO - 1) / BO), static_cast<unsigned>(splits));
+  const dim3 grid(static_cast<unsigned>((co + BO - 1) / BO), static_cast<unsigned>(splits),
+                  static_cast<unsigned>(pairs));
   conv_dw_stem_kernel<CI><<<grid, THREADS, SMEM, s>>>(static_cast<const bf16*>(x),
                                                       static_cast<const bf16*>(dy), partial, n, h,
-                                                      wd, co, steps_per_split);
+                                                      wd, co, steps_per_split, ps);
   return launch_status();
 }
 
@@ -294,8 +306,10 @@ int launch(int splits, cudaStream_t s, const void* x, const void* dy, float* par
 template <typename T, int SLICES>
 __global__ void __launch_bounds__(256)
     conv_dw_reduce_kernel(const float* __restrict__ partial, int splits, long long ko,
-                          T* __restrict__ dw) {
+                          T* __restrict__ dw, PairStrides ps) {
   constexpr int E = 256 / SLICES;
+  partial += blockIdx.y * ps.ws;  // y: the pair
+  dw += blockIdx.y * ps.y;
   __shared__ float sums[SLICES][E];
   const int e = threadIdx.x % E, sl = threadIdx.x / E;
   const long long i = static_cast<long long>(blockIdx.x) * E + e;
@@ -314,13 +328,15 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T>
-int reduce(const float* partial, int splits, long long ko, void* dw, cudaStream_t s) {
+int reduce(const float* partial, int splits, long long ko, void* dw, int pairs,
+           const PairStrides& ps, cudaStream_t s) {
+  const unsigned p = static_cast<unsigned>(pairs);
   if (splits >= 16) {
-    conv_dw_reduce_kernel<T, 8><<<static_cast<unsigned>((ko + 31) / 32), 256, 0, s>>>(
-        partial, splits, ko, static_cast<T*>(dw));
+    conv_dw_reduce_kernel<T, 8><<<dim3(static_cast<unsigned>((ko + 31) / 32), p), 256, 0, s>>>(
+        partial, splits, ko, static_cast<T*>(dw), ps);
   } else {
-    conv_dw_reduce_kernel<T, 1><<<static_cast<unsigned>((ko + 255) / 256), 256, 0, s>>>(
-        partial, splits, ko, static_cast<T*>(dw));
+    conv_dw_reduce_kernel<T, 1><<<dim3(static_cast<unsigned>((ko + 255) / 256), p), 256, 0, s>>>(
+        partial, splits, ko, static_cast<T*>(dw), ps);
   }
   return launch_status();
 }
@@ -331,18 +347,25 @@ int reduce(const float* partial, int splits, long long ko, void* dw, cudaStream_
 // windows (PATH_WINDOWS); splits > 1: `workspace` holds splits x 16*CI*CO
 // f32 partials; steps_per_split counts 16-pixel steps (FMA) or 64-pixel
 // chunks (wgmma); blocks, smem: the wgmma kernel's grid and dynamic shared
-// memory.
+// memory. pairs, x_ps, dy_ps: the pair axis (common.cuh); pair p's dw
+// starts 16*CI*CO values, its workspace part splits x 16*CI*CO floats
+// after pair 0's.
 extern "C" int discogan_conv_k4s2p1_dw(const void* x, const void* dy, void* dw, void* workspace,
                                        int n, int h, int wd, int ci, int co, int dtype, int path,
                                        int splits, int steps_per_split, int blocks, int smem,
+                                       int pairs, long long x_ps, long long dy_ps,
                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ko = 16LL * ci * co;
-  if (ko == 0) return 0;
+  if (ko == 0 || pairs == 0) return 0;
+  const int itemsize = dtype == DT_F32 ? 4 : 2;
+  if (pairs < 1 || pairs > 65535 / (splits > 0 ? splits : 1) ||
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, dy_ps, itemsize))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || h < 2 || wd < 2) {  // no pixels: dw is zero
-    return static_cast<int>(
-        cudaMemsetAsync(dw, 0, ko * (dtype == DT_F32 ? 4 : 2), s));
+    return static_cast<int>(cudaMemsetAsync(dw, 0, pairs * ko * itemsize, s));
   }
+  const PairStrides ps{x_ps, dy_ps, ko, 0, splits * ko, 0};
   // The stem always writes partials (its reduce pass casts).
   float* partial = splits > 1 || path == PATH_STEM ? static_cast<float*>(workspace) : nullptr;
   if (splits < 1 || steps_per_split < 1 || ((splits > 1 || path == PATH_STEM) && !partial))
@@ -350,37 +373,44 @@ extern "C" int discogan_conv_k4s2p1_dw(const void* x, const void* dy, void* dw, 
   int err;
   if (path == PATH_FMA) {
     const dim3 grid(static_cast<unsigned>((16 * ci + BK - 1) / BK),
-                    static_cast<unsigned>((co + BN - 1) / BN), static_cast<unsigned>(splits));
+                    static_cast<unsigned>((co + BN - 1) / BN),
+                    static_cast<unsigned>(splits * pairs));
     if (dtype == DT_F32) {
       conv_dw_kernel<float><<<grid, THREADS, 0, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(dw),
-          partial, n, h, wd, ci, co, steps_per_split);
+          partial, n, h, wd, ci, co, splits, steps_per_split, ps);
     } else {
       conv_dw_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
           static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-          static_cast<__nv_bfloat16*>(dw), partial, n, h, wd, ci, co, steps_per_split);
+          static_cast<__nv_bfloat16*>(dw), partial, n, h, wd, ci, co, splits, steps_per_split,
+          ps);
     }
     err = launch_status();
   } else if (path == PATH_STEM) {
     if (dtype != DT_BF16 || ci < 1 || ci > 4 || co % 8 ||
         static_cast<long long>(n) * (h / 2) * (wd / 2) >= (1LL << 31))
       return static_cast<int>(cudaErrorInvalidValue);
+    auto run = [&](auto launch) {
+      return launch(splits, s, x, dy, partial, n, h, wd, co, steps_per_split, pairs, ps);
+    };
     switch (ci) {
-      case 1: err = stem::launch<1>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split); break;
-      case 2: err = stem::launch<2>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split); break;
-      case 3: err = stem::launch<3>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split); break;
-      default: err = stem::launch<4>(splits, s, x, dy, partial, n, h, wd, co, steps_per_split);
+      case 1: err = run(stem::launch<1>); break;
+      case 2: err = run(stem::launch<2>); break;
+      case 3: err = run(stem::launch<3>); break;
+      default: err = run(stem::launch<4>);
     }
   } else {
     if (dtype != DT_BF16) return static_cast<int>(cudaErrorInvalidValue);
     // One tile a block where M is split; else `blocks` persistent blocks.
     err = path == PATH_PLANES
               ? dw_wgmma::launch<true>(conv_dw_wgmma_kernel<true>, blocks, smem, s, x, dy, dw,
-                                       partial, n, h, wd, ci, co, splits, steps_per_split)
+                                       partial, n, h, wd, ci, co, splits, steps_per_split,
+                                       pairs, ps)
               : dw_wgmma::launch<false>(conv_dw_wgmma_kernel<false>, blocks, smem, s, x, dy, dw,
-                                        partial, n, h, wd, ci, co, splits, steps_per_split);
+                                        partial, n, h, wd, ci, co, splits, steps_per_split,
+                                        pairs, ps);
   }
   if (err != 0 || partial == nullptr) return err;
-  return dtype == DT_F32 ? reduce<float>(partial, splits, ko, dw, s)
-                         : reduce<__nv_bfloat16>(partial, splits, ko, dw, s);
+  return dtype == DT_F32 ? reduce<float>(partial, splits, ko, dw, pairs, ps, s)
+                         : reduce<__nv_bfloat16>(partial, splits, ko, dw, pairs, ps, s);
 }

@@ -80,7 +80,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     halo_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const float* __restrict__ scale, const float* __restrict__ offset,
-                     T* __restrict__ y, int h, int wd, int ci, int co, int to, int act) {
+                     T* __restrict__ y, int n, int h, int wd, int ci, int co, int to, int act,
+                     PairStrides ps) {
   extern __shared__ float smem[];
   const int ho = h / 2, wo = wd / 2;
   const int rows = 2 * to + 2;
@@ -90,7 +91,12 @@ __global__ void __launch_bounds__(THREADS)
 
   const int band = blockIdx.x;
   const int cot = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z % n, pair = blockIdx.z / n;  // z = pair * N + image
+  x += pair * ps.x;
+  w += pair * ps.w;
+  y += pair * ps.y;
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
   const int tid = threadIdx.x;
   const int cg = tid % (CO_TILE / CH_PER_THREAD);
   const int pg = tid / (CO_TILE / CH_PER_THREAD);
@@ -299,7 +305,8 @@ template <int KS>  // CI = 16 * KS
 __global__ void __launch_bounds__(THREADS, 1)
     halo_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       const float* __restrict__ scale, const float* __restrict__ offset,
-                      bf16* __restrict__ y, int h, int wd, int co, int rows, int act) {
+                      bf16* __restrict__ y, int n, int h, int wd, int co, int rows, int act,
+                      PairStrides ps) {
   constexpr int CI = 16 * KS;
   constexpr int W_UNITS = 16 * CI * CO_TILE / 8;  // the weights; the ring follows
   // Swizzled positions come from shared-memory address bits, as wgmma takes
@@ -314,7 +321,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int ox0 = (blockIdx.y % strips) * STRIP;
   const int oy0 = (blockIdx.y / strips) * rows;
   const int nrows = min(rows, ho - oy0);
-  const int b = blockIdx.z;
+  const int b = blockIdx.z % n, pair = blockIdx.z / n;  // z = pair * N + image
+  x += pair * ps.x;
+  w += pair * ps.w;
+  y += pair * ps.y;
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
   const int ix0 = 2 * ox0 - 1;  // input column of staged column 0
   const int iy0 = 2 * oy0 - 1;  // input row of ring row 0
   const bf16* xb = x + static_cast<long long>(b) * h * wd * CI;
@@ -426,14 +438,15 @@ long long smem_bytes(int ci) {
 
 template <int KS>
 int launch(dim3 grid, cudaStream_t s, const void* x, const void* w, const float* sc,
-           const float* of, void* y, int h, int wd, int co, int rows, int act) {
+           const float* of, void* y, int n, int h, int wd, int co, int rows, int act,
+           const PairStrides& ps) {
   const long long smem = smem_bytes(16 * KS);
   const cudaError_t err = cudaFuncSetAttribute(
       halo_wgmma_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   halo_wgmma_kernel<KS><<<grid, THREADS, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), sc, of, static_cast<bf16*>(y), h,
-      wd, co, rows, act);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), sc, of, static_cast<bf16*>(y), n,
+      h, wd, co, rows, act, ps);
   return launch_status();
 }
 
@@ -442,12 +455,23 @@ int launch(dim3 grid, cudaStream_t s, const void* x, const void* w, const float*
 }  // namespace
 
 // rows > 0: the tensor-core path with `rows` output rows per block (the
-// wrapper's tile plan); rows == 0: the FMA path.
+// wrapper's tile plan); rows == 0: the FMA path. pairs, x_ps, w_ps, aff_ps:
+// the pair axis (common.cuh), w_ps 0 for a shared weight; pair p's y
+// starts N*HO*WO*CO values after pair 0's (the grid's z is pair * N +
+// image).
 extern "C" int discogan_halo_conv_k4s2p1(const void* x, const void* w, const void* scale,
                                          const void* offset, void* y, int n, int h, int wd,
-                                         int ci, int co, int act, int dtype, int rows,
+                                         int ci, int co, int act, int dtype, int rows, int pairs,
+                                         long long x_ps, long long w_ps, long long aff_ps,
                                          void* stream) {
   const int ho = h / 2, wo = wd / 2;
+  if (pairs == 0) return 0;
+  const int itemsize = dtype == DT_F32 ? 4 : 2;
+  if (pairs < 1 || static_cast<long long>(pairs) * n > 65535 ||
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, w_ps, itemsize) ||
+      !pair_aligned(pairs, aff_ps, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairStrides ps{x_ps, w_ps, static_cast<long long>(n) * ho * wo * co, aff_ps, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
@@ -457,19 +481,20 @@ extern "C" int discogan_halo_conv_k4s2p1(const void* x, const void* w, const voi
     const dim3 grid(static_cast<unsigned>((co + tc::CO_TILE - 1) / tc::CO_TILE),
                     static_cast<unsigned>((wo + tc::STRIP - 1) / tc::STRIP *
                                           ((ho + rows - 1) / rows)),
-                    static_cast<unsigned>(n));
+                    static_cast<unsigned>(n * pairs));
     switch (ci / 16) {
-      case 1: return tc::launch<1>(grid, s, x, w, sc, of, y, h, wd, co, rows, act);
-      case 2: return tc::launch<2>(grid, s, x, w, sc, of, y, h, wd, co, rows, act);
-      case 3: return tc::launch<3>(grid, s, x, w, sc, of, y, h, wd, co, rows, act);
-      default: return tc::launch<4>(grid, s, x, w, sc, of, y, h, wd, co, rows, act);
+      case 1: return tc::launch<1>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
+      case 2: return tc::launch<2>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
+      case 3: return tc::launch<3>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
+      default: return tc::launch<4>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
     }
   }
   const int to = band_rows(ho, wo);
   if (to <= 0 || ci % CI_CHUNK != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || co == 0) return 0;
   const dim3 grid(static_cast<unsigned>((ho + to - 1) / to),
-                  static_cast<unsigned>((co + CO_TILE - 1) / CO_TILE), static_cast<unsigned>(n));
+                  static_cast<unsigned>((co + CO_TILE - 1) / CO_TILE),
+                  static_cast<unsigned>(n * pairs));
   const long long smem = smem_bytes(wd, to);
   cudaError_t err;
   if (dtype == DT_F32) {
@@ -478,14 +503,14 @@ extern "C" int discogan_halo_conv_k4s2p1(const void* x, const void* w, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
     halo_conv_kernel<float><<<grid, THREADS, smem, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), sc, of,
-        static_cast<float*>(y), h, wd, ci, co, to, act);
+        static_cast<float*>(y), n, h, wd, ci, co, to, act, ps);
   } else {
     err = cudaFuncSetAttribute(halo_conv_kernel<__nv_bfloat16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     halo_conv_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), sc, of,
-        static_cast<__nv_bfloat16*>(y), h, wd, ci, co, to, act);
+        static_cast<__nv_bfloat16*>(y), n, h, wd, ci, co, to, act, ps);
   }
   return launch_status();
 }

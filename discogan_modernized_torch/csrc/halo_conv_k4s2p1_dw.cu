@@ -50,13 +50,19 @@ struct Geo {
 
 __global__ void __launch_bounds__(THREADS)
     halo_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                   float* __restrict__ dw, float* __restrict__ partial, Geo g) {
+                   float* __restrict__ dw, float* __restrict__ partial, Geo g, int splits,
+                   PairStrides ps) {
   __shared__ float xs[SEG_COLS][CT];
   __shared__ float ds[PX][CT];
   const int kh = blockIdx.x & 3;
   const int co_t = blockIdx.x >> 2;
   const int ci0 = blockIdx.y * CT, co0 = co_t * CT;
-  const long long row_begin = static_cast<long long>(blockIdx.z) * g.rows_per_split;
+  const int split = blockIdx.z % splits, pair = blockIdx.z / splits;  // z = pair * splits + split
+  x += pair * ps.x;
+  dy += pair * ps.w;
+  dw += pair * ps.y;
+  partial = at_pair(partial, ps.ws, pair);
+  const long long row_begin = static_cast<long long>(split) * g.rows_per_split;
   const long long row_end = min(static_cast<long long>(g.n) * g.ho, row_begin + g.rows_per_split);
   const int tid = threadIdx.x;
   const int tc = (tid % 16) * 4, tcc = (tid / 16) * 4;  // this thread's co and ci offsets
@@ -116,7 +122,7 @@ __global__ void __launch_bounds__(THREADS)
         if (o >= g.co) continue;
         const long long idx = (static_cast<long long>(kh * 4 + a) * g.ci + c) * g.co + o;
         if (partial != nullptr) {
-          partial[blockIdx.z * ko + idx] = acc[a][i][j];
+          partial[split * ko + idx] = acc[a][i][j];
         } else {
           dw[idx] = acc[a][i][j];
         }
@@ -131,14 +137,19 @@ template <bool PLANES>
 __global__ void __launch_bounds__(dw_wgmma::THREADS, 1)
     halo_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
                          __nv_bfloat16* __restrict__ dw, float* __restrict__ partial, int n, int h,
-                         int wd, int ci, int co, int splits, int steps_per_split) {
-  dw_wgmma::body<PLANES>(x, dy, dw, partial, n, h, wd, ci, co, splits, steps_per_split);
+                         int wd, int ci, int co, int splits, int steps_per_split,
+                         PairStrides ps) {
+  const int pair = blockIdx.y;
+  dw_wgmma::body<PLANES>(x + pair * ps.x, dy + pair * ps.w, dw + pair * ps.y,
+                         at_pair(partial, ps.ws, pair), n, h, wd, ci, co, splits, steps_per_split);
 }
 
 // Sum of the split parts, in order, cast once.
 template <typename T>
 __global__ void halo_dw_reduce_kernel(const float* __restrict__ partial, int splits,
-                                      long long ko, T* __restrict__ dw) {
+                                      long long ko, T* __restrict__ dw, PairStrides ps) {
+  partial += blockIdx.y * ps.ws;  // y: the pair
+  dw += blockIdx.y * ps.y;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < ko;
        i += stride) {
@@ -156,18 +167,26 @@ __global__ void halo_dw_reduce_kernel(const float* __restrict__ partial, int spl
 // windows (PATH_WINDOWS) (bf16; steps_per_split counts 64-pixel chunks;
 // blocks and smem its grid and dynamic shared memory). splits > 1:
 // `workspace` holds splits x 16*CI*CO f32 partials. A plan whose parts do
-// not cover M exactly once is refused.
+// not cover M exactly once is refused. pairs, x_ps, dy_ps: the pair axis
+// (common.cuh); pair p's dw starts 16*CI*CO values, its workspace part
+// splits x 16*CI*CO floats after pair 0's.
 extern "C" int discogan_halo_conv_k4s2p1_dw(const void* x, const void* dy, void* dw,
                                             void* workspace, int n, int h, int wd, int ci,
                                             int co, int dtype, int path, int splits,
                                             int steps_per_split, int blocks, int smem,
+                                            int pairs, long long x_ps, long long dy_ps,
                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long ko = 16LL * ci * co;
-  if (ko == 0) return 0;
+  if (ko == 0 || pairs == 0) return 0;
+  const int itemsize = dtype == DT_F32 ? 4 : 2;
+  if (pairs < 1 || pairs > 65535 / (splits > 0 ? splits : 1) ||
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, dy_ps, itemsize))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || h < 2 || wd < 2) {
-    return static_cast<int>(cudaMemsetAsync(dw, 0, ko * (dtype == DT_F32 ? 4 : 2), s));
+    return static_cast<int>(cudaMemsetAsync(dw, 0, pairs * ko * itemsize, s));
   }
+  const PairStrides ps{x_ps, dy_ps, ko, 0, splits * ko, 0};
   float* partial = splits > 1 ? static_cast<float*>(workspace) : nullptr;
   if (splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int err;
@@ -179,16 +198,18 @@ extern "C" int discogan_halo_conv_k4s2p1_dw(const void* x, const void* dy, void*
       return static_cast<int>(cudaErrorInvalidValue);
     const Geo g{n, h, wd, ci, co, h / 2, wd / 2, steps_per_split};
     halo_dw_kernel<<<dim3(static_cast<unsigned>(4 * co_tiles), static_cast<unsigned>(ci_tiles),
-                          static_cast<unsigned>(splits)),
+                          static_cast<unsigned>(splits * pairs)),
                      THREADS, 0, s>>>(static_cast<const float*>(x), static_cast<const float*>(dy),
-                                      static_cast<float*>(dw), partial, g);
+                                      static_cast<float*>(dw), partial, g, splits, ps);
     err = launch_status();
   } else if (dtype == DT_BF16 && (path == PATH_PLANES || path == PATH_WINDOWS)) {
     err = path == PATH_PLANES
               ? dw_wgmma::launch<true>(halo_dw_wgmma_kernel<true>, blocks, smem, s, x, dy, dw,
-                                       partial, n, h, wd, ci, co, splits, steps_per_split)
+                                       partial, n, h, wd, ci, co, splits, steps_per_split,
+                                       pairs, ps)
               : dw_wgmma::launch<false>(halo_dw_wgmma_kernel<false>, blocks, smem, s, x, dy, dw,
-                                        partial, n, h, wd, ci, co, splits, steps_per_split);
+                                        partial, n, h, wd, ci, co, splits, steps_per_split,
+                                        pairs, ps);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -196,11 +217,11 @@ extern "C" int discogan_halo_conv_k4s2p1_dw(const void* x, const void* dy, void*
   const long long want = (ko + 255) / 256;
   const int rblocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
   if (dtype == DT_F32) {
-    halo_dw_reduce_kernel<float><<<rblocks, 256, 0, s>>>(partial, splits, ko,
-                                                    static_cast<float*>(dw));
+    halo_dw_reduce_kernel<float><<<dim3(rblocks, pairs), 256, 0, s>>>(
+        partial, splits, ko, static_cast<float*>(dw), ps);
   } else {
-    halo_dw_reduce_kernel<__nv_bfloat16><<<rblocks, 256, 0, s>>>(
-        partial, splits, ko, static_cast<__nv_bfloat16*>(dw));
+    halo_dw_reduce_kernel<__nv_bfloat16><<<dim3(rblocks, pairs), 256, 0, s>>>(
+        partial, splits, ko, static_cast<__nv_bfloat16*>(dw), ps);
   }
   return launch_status();
 }

@@ -82,12 +82,15 @@ constexpr int COLS = THREADS + 2;
 
 template <typename T, int CO>
 __global__ void __launch_bounds__(THREADS)
-    head_convt_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int h,
-                      int wd, int ci) {
+    head_convt_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int n,
+                      int h, int wd, int ci, PairStrides ps) {
   extern __shared__ float smem[];
   float* ws = smem;                 // [4][4][ci][CO], the HWIO weight as f32
   float* xs = smem + 16 * ci * CO;  // [3][COLS][PITCH]
-  const int i = blockIdx.y, b = blockIdx.z;
+  const int i = blockIdx.y, b = blockIdx.z % n, pair = blockIdx.z / n;  // z = pair * N + image
+  x += pair * ps.x;
+  w += pair * ps.w;
+  y += pair * ps.y;
   const int j0 = blockIdx.x * THREADS;
   const int j = j0 + threadIdx.x;
   for (int e = threadIdx.x; e < 16 * ci * CO; e += THREADS) ws[e] = to_f32(w[e]);
@@ -153,10 +156,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T, int CO>
-int launch(const void* x, const void* w, void* y, int n, int h, int wd, int ci,
-           cudaStream_t s) {
+int launch(const void* x, const void* w, void* y, int n, int h, int wd, int ci, int pairs,
+           const PairStrides& ps, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((wd + THREADS - 1) / THREADS), static_cast<unsigned>(h),
-                  static_cast<unsigned>(n));
+                  static_cast<unsigned>(n * pairs));
   const int smem = (16 * ci * CO + 3 * COLS * PITCH) * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -164,22 +167,22 @@ int launch(const void* x, const void* w, void* y, int n, int h, int wd, int ci,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   head_convt_kernel<T, CO><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), h, wd, ci);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), n, h, wd, ci, ps);
   return launch_status();
 }
 
 template <typename T>
 int dispatch(const void* x, const void* w, void* y, int n, int h, int wd, int ci, int co,
-             cudaStream_t s) {
+             int pairs, const PairStrides& ps, cudaStream_t s) {
   switch (co) {
-    case 1: return launch<T, 1>(x, w, y, n, h, wd, ci, s);
-    case 2: return launch<T, 2>(x, w, y, n, h, wd, ci, s);
-    case 3: return launch<T, 3>(x, w, y, n, h, wd, ci, s);
-    case 4: return launch<T, 4>(x, w, y, n, h, wd, ci, s);
-    case 5: return launch<T, 5>(x, w, y, n, h, wd, ci, s);
-    case 6: return launch<T, 6>(x, w, y, n, h, wd, ci, s);
-    case 7: return launch<T, 7>(x, w, y, n, h, wd, ci, s);
-    case 8: return launch<T, 8>(x, w, y, n, h, wd, ci, s);
+    case 1: return launch<T, 1>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 2: return launch<T, 2>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 3: return launch<T, 3>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 4: return launch<T, 4>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 5: return launch<T, 5>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 6: return launch<T, 6>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 7: return launch<T, 7>(x, w, y, n, h, wd, ci, pairs, ps, s);
+    case 8: return launch<T, 8>(x, w, y, n, h, wd, ci, pairs, ps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -216,7 +219,8 @@ long long smem_bytes(int ci, int co, int slots) {
 template <int KS, int NP, int AHEAD>  // CI = 16 KS; copies AHEAD rows ahead
 __global__ void __launch_bounds__(THREADS, KS <= 4 ? 2 : 1)
     head_convt_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                          bf16* __restrict__ y, int h, int wd, int co, int rows) {
+                          bf16* __restrict__ y, int h, int wd, int co, int rows,
+                          PairStrides ps) {
   constexpr int CI = 16 * KS;
   constexpr int PLANES = (CI + 63) / 64;
   constexpr int CPP = CI / 8;                   // 16-byte chunks per pixel
@@ -237,6 +241,9 @@ __global__ void __launch_bounds__(THREADS, KS <= 4 ? 2 : 1)
   const int r0 = (blockIdx.x / strips) * rows;
   const int nrows = min(rows, h - r0);
   const int b = blockIdx.y;
+  x += blockIdx.z * ps.x;  // z: the pair
+  w += blockIdx.z * ps.w;
+  y += blockIdx.z * ps.y;
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = tid >> 7, gtid = tid & 127, warp = (tid >> 5) & 3;
   const bf16* xb = x + static_cast<long long>(b) * h * wd * CI;
@@ -415,25 +422,25 @@ __global__ void __launch_bounds__(THREADS, KS <= 4 ? 2 : 1)
 
 template <int KS, int NP, int AHEAD>
 int launch(dim3 grid, long long smem, cudaStream_t s, const void* x, const void* w, void* y,
-           int h, int wd, int co, int rows) {
+           int h, int wd, int co, int rows, const PairStrides& ps) {
   const cudaError_t err =
       cudaFuncSetAttribute(head_convt_mma_kernel<KS, NP, AHEAD>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   head_convt_mma_kernel<KS, NP, AHEAD><<<grid, THREADS, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y), h, wd, co,
-      rows);
+      rows, ps);
   return launch_status();
 }
 
 template <int KS>
 int launch_ks(int np, int slots, dim3 grid, long long smem, cudaStream_t s, const void* x,
-              const void* w, void* y, int h, int wd, int co, int rows) {
+              const void* w, void* y, int h, int wd, int co, int rows, const PairStrides& ps) {
   if (np == 16)
-    return slots == 5 ? launch<KS, 16, 2>(grid, smem, s, x, w, y, h, wd, co, rows)
-                      : launch<KS, 16, 1>(grid, smem, s, x, w, y, h, wd, co, rows);
-  return slots == 5 ? launch<KS, 32, 2>(grid, smem, s, x, w, y, h, wd, co, rows)
-                    : launch<KS, 32, 1>(grid, smem, s, x, w, y, h, wd, co, rows);
+    return slots == 5 ? launch<KS, 16, 2>(grid, smem, s, x, w, y, h, wd, co, rows, ps)
+                      : launch<KS, 16, 1>(grid, smem, s, x, w, y, h, wd, co, rows, ps);
+  return slots == 5 ? launch<KS, 32, 2>(grid, smem, s, x, w, y, h, wd, co, rows, ps)
+                    : launch<KS, 32, 1>(grid, smem, s, x, w, y, h, wd, co, rows, ps);
 }
 
 }  // namespace tc
@@ -443,11 +450,20 @@ int launch_ks(int np, int slots, dim3 grid, long long smem, cudaStream_t s, cons
 // rows > 0: the tensor-core path with the wrapper's plan (bands of `rows`
 // input rows, `strips` strips of 128 columns, a ring of `slots` rows,
 // `smem` bytes), refused unless it covers every input row and column once
-// and matches the kernel's own layout; rows == 0: the FMA path.
+// and matches the kernel's own layout; rows == 0: the FMA path. pairs,
+// x_ps, w_ps: the pair axis (common.cuh); pair p's y starts N*2H*2W*CO
+// values after pair 0's.
 extern "C" int discogan_head_convt(const void* x, const void* w, void* y, int n, int h, int wd,
                                    int ci, int co, int dtype, int rows, int bands, int strips,
-                                   int slots, long long smem, void* stream) {
+                                   int slots, long long smem, int pairs, long long x_ps,
+                                   long long w_ps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs == 0) return 0;
+  const int itemsize = dtype == DT_F32 ? 4 : 2;
+  if (pairs < 1 || static_cast<long long>(pairs) * n > 65535 ||
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, w_ps, itemsize))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PairStrides ps{x_ps, w_ps, 4LL * n * h * wd * co, 0, 0, 0};
   if (rows > 0) {
     if (dtype != DT_BF16 || ci % 16 != 0 || ci < 16 || ci > tc::MAX_CI || co < 1 ||
         co > tc::MAX_CO || (slots != 4 && slots != 5) ||
@@ -458,20 +474,21 @@ extern "C" int discogan_head_convt(const void* x, const void* w, void* y, int n,
                            static_cast<long long>(bands - 1) * rows < h;
     if (!rows_once || strips != (wd + tc::STRIP - 1) / tc::STRIP)
       return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(static_cast<unsigned>(strips * bands), static_cast<unsigned>(n));
+    const dim3 grid(static_cast<unsigned>(strips * bands), static_cast<unsigned>(n),
+                    static_cast<unsigned>(pairs));
     const int np = tc::np_of(co);
     switch (ci / 16) {
-      case 1: return tc::launch_ks<1>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      case 2: return tc::launch_ks<2>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      case 3: return tc::launch_ks<3>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      case 4: return tc::launch_ks<4>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      case 5: return tc::launch_ks<5>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      case 6: return tc::launch_ks<6>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      case 7: return tc::launch_ks<7>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
-      default: return tc::launch_ks<8>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows);
+      case 1: return tc::launch_ks<1>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      case 2: return tc::launch_ks<2>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      case 3: return tc::launch_ks<3>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      case 4: return tc::launch_ks<4>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      case 5: return tc::launch_ks<5>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      case 6: return tc::launch_ks<6>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      case 7: return tc::launch_ks<7>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
+      default: return tc::launch_ks<8>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
     }
   }
   if (static_cast<long long>(n) * h * wd == 0) return 0;
-  if (dtype == DT_F32) return dispatch<float>(x, w, y, n, h, wd, ci, co, s);
-  return dispatch<__nv_bfloat16>(x, w, y, n, h, wd, ci, co, s);
+  if (dtype == DT_F32) return dispatch<float>(x, w, y, n, h, wd, ci, co, pairs, ps, s);
+  return dispatch<__nv_bfloat16>(x, w, y, n, h, wd, ci, co, pairs, ps, s);
 }

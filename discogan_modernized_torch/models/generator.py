@@ -23,7 +23,13 @@ NHWC, as in the JAX package. Both forms run through the kernels (ops/):
 
 The train form runs under autograd (ops/autograd.py: K4 / K5b weight
 gradients, K6 for the stem's input gradient) and advances the BN running
-statistics in place. The eval form runs without a graph, on operand
+statistics in place. ``generator_train`` runs it for one generator, or for
+two at once on a pair axis ((2,N,H,W,3): one kernel launch a layer for
+both, each member with its own weights and BatchNorm); ``remat`` splits it
+into rematerialized regions (train/graph.py's policies): "full" one region,
+"latent" the encoder to the latent and the decoder, "conv" one region that
+keeps every convolution's output and rebuilds only the BatchNorm and
+activation chains (ops/recompute.py). The eval form runs without a graph, on operand
 copies (HWIO weights in the compute dtype, folded BN scale/offset in f32)
 derived once per dtype and device and re-derived whenever a parameter or
 buffer has changed since (their ``_version`` counters, which every
@@ -39,12 +45,15 @@ from torch import nn
 from ..core.precision import F32, Policy
 from ..ops.activations import sigmoid
 from ..ops.autograd import (KERNEL_OPS, PLAIN_OPS, batch_stats_fn, conv,
-                            conv_batch_stats, head_fn, train_bn_act)
+                            conv_batch_stats, conv_transpose_fn, head_fn, mm_fn,
+                            train_bn_act)
 from ..ops.batchnorm import batchnorm, fold_bn
 from ..ops.conv import (conv_transpose2d, init_conv_, latent_conv,
                         latent_conv_transpose)
 from ..ops.halo_conv import takes_halo
 from .geometry import KERNEL, LATENT_CH, encoder_channels
+from .regions import materialize, run_regions
+
 
 def enc_conv_index(i: int) -> int:
     """encoder Sequential: [conv, lrelu], then (conv, bn, lrelu) groups."""
@@ -103,28 +112,31 @@ class Generator(nn.Module):
         dec = [self.decoder[3 * j + 1] for j in range(n)]
         return enc, self.encoder[enc_bn_index(n)], dec
 
-    def _weights(self, dtype: torch.dtype) -> dict:
+    def _weight_views(self, part: str | None = None) -> dict:
+        """The layers' weights as views of the parameters in the order the
+        kernels and products store them: the encoder and the latent conv
+        (O,I,kh,kw) -> HWIO, dec0 and the wide convTs (I,O,kh,kw) ->
+        (I,kh,kw,O), the head -> HWIO. ``part``: "enc" (the encoder and the
+        latent conv), "dec" (the rest) or None (all)."""
+        n = self.n_halvings
+        views = {}
+        if part in (None, "enc"):
+            views["enc"] = [self.encoder[enc_conv_index(i)].weight.permute(2, 3, 1, 0)
+                            for i in range(n)]
+            views["latent"] = self.encoder[enc_conv_index(n)].weight.permute(2, 3, 1, 0)
+        if part in (None, "dec"):
+            views["dec0"] = self.decoder[0].weight.permute(0, 2, 3, 1)
+            views["dec"] = [self.decoder[3 * j].weight.permute(0, 2, 3, 1)
+                            for j in range(1, n)]
+            views["head"] = self.decoder[3 * n].weight.permute(2, 3, 0, 1)
+        return views
+
+    def _weights(self, dtype: torch.dtype, part: str | None = None) -> dict:
         """The layers' weights in the forms the kernels and products take,
         in ``dtype``: encoder HWIO, the latent conv as (16*C, 100), dec0 as
         (100, 16*C), the wide convTs channels-last (as cuDNN takes them),
         the head HWIO."""
-        def hwio(conv_):  # (O,I,kh,kw) -> (kh,kw,I,O)
-            return conv_.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
-
-        n = self.n_halvings
-        latent = hwio(self.encoder[enc_conv_index(n)])
-        dec0 = self.decoder[0].weight  # (I, O, 4, 4) -> (I, 4*4*O)
-        head = self.decoder[3 * n].weight  # (I,O,kh,kw) -> HWIO
-        return {
-            "enc": [hwio(self.encoder[enc_conv_index(i)]) for i in range(n)],
-            "latent": latent.reshape(-1, latent.shape[-1]),
-            "dec0": dec0.permute(0, 2, 3, 1).reshape(dec0.shape[0], -1)
-                        .to(dtype).contiguous(),
-            "dec": [self.decoder[3 * j].weight.to(dtype).contiguous(
-                        memory_format=torch.channels_last)
-                    for j in range(1, n)],
-            "head": head.permute(2, 3, 0, 1).to(dtype).contiguous(),
-        }
+        return generator_weights((self,), dtype, part)
 
     @torch.no_grad()
     def _operands(self, dtype: torch.dtype) -> dict:
@@ -151,17 +163,18 @@ class Generator(nn.Module):
     # -- forward ----------------------------------------------------------
 
     def forward(self, x: torch.Tensor, *, policy: Policy = F32,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, remat: str | None = None) -> torch.Tensor:
         """x: (N,H,W,3) in [0,1] -> (N,H,W,3) float32 in [0,1].
 
         The train form (``.train()``) normalizes with batch statistics,
-        advances the running statistics and keeps the autograd graph; the
+        advances the running statistics and keeps the autograd graph, in the
+        regions of ``remat`` ("full", "latent", "conv"; None: none); the
         eval form runs without a graph. plain=True runs the kernels' plain
         PyTorch versions instead, for holding the kernels' path against
         them on the card."""
         ops = PLAIN_OPS if plain else KERNEL_OPS
         if self.training:
-            return self._train_forward(x, policy, ops)
+            return generator_train((self,), x, policy, ops, remat)
         with torch.no_grad():
             return self._eval_forward(x, policy, ops)
 
@@ -180,20 +193,67 @@ class Generator(nn.Module):
         h = ops["head"](h, p["head"])
         return sigmoid(h.float())
 
-    def _train_forward(self, x, policy, ops):
-        w = self._weights(policy.compute_dtype)
-        enc_bn, latent_bn, dec_bn = self._bn_layers()
-        h = conv(x.to(policy.compute_dtype).contiguous(), w["enc"][0], ops,
-                 act="leaky")
-        for wi, bn in zip(w["enc"][1:], enc_bn):
-            h = train_bn_act(bn, *conv_batch_stats(h, wi, ops), "leaky", ops)
-        y = latent_conv(h, w["latent"])
-        h = train_bn_act(latent_bn, y, *batch_stats_fn(y, ops), "leaky", ops)
-        for j, bn in enumerate(dec_bn):
-            y = (latent_conv_transpose(h, w["dec0"]) if j == 0
-                 else conv_transpose2d(h, w["dec"][j - 1]))
-            h = train_bn_act(bn, y, *batch_stats_fn(y, ops), "relu", ops)
-        return sigmoid(head_fn(h, w["head"], ops).float())
+
+
+def generator_weights(gens, dtype: torch.dtype, part: str | None = None) -> dict:
+    """``Generator._weights`` of one generator, or of two on a pair axis,
+    each member's permuted, cast weight written straight into its slice."""
+    views = [g._weight_views(part) for g in gens]
+    w = {k: materialize([v[k] for v in views], dtype) for k in views[0]}
+    if "latent" in w:  # HWIO -> (16*C, O)
+        w["latent"] = w["latent"].reshape(*w["latent"].shape[:-4], -1, LATENT_CH)
+    if "dec0" in w:  # (I,4,4,O) -> (I, 16*O)
+        w["dec0"] = w["dec0"].reshape(*w["dec0"].shape[:-3], -1)
+    if "dec" in w:  # (I,4,4,O) -> (I,O,4,4), channels-last
+        w["dec"] = [t.movedim(-1, -3) for t in w["dec"]]
+    return w
+
+
+def _encode(h, w, bns, ops):
+    """The encoder and the latent conv: x in the compute dtype -> the
+    latent after its BatchNorm and LeakyReLU."""
+    enc_bn, latent_bn, _ = bns
+    h = conv(h, w["enc"][0], ops, act="leaky")
+    for wi, bn in zip(w["enc"][1:], enc_bn):
+        h = train_bn_act(bn, *conv_batch_stats(h, wi, ops), "leaky", ops)
+    lead = h.shape[:-3]
+    y = mm_fn(h.reshape(*lead, -1), w["latent"]).reshape(*lead, 1, 1, -1)
+    return train_bn_act(latent_bn, y, *batch_stats_fn(y, ops), "leaky", ops)
+
+
+def _decode(h, w, bns, ops):
+    """The decoder and the head: the latent -> the image in [0, 1], f32."""
+    for j, bn in enumerate(bns[2]):
+        if j == 0:  # 1 -> 4: one product
+            lead = h.shape[:-3]
+            y = mm_fn(h.reshape(*lead, -1), w["dec0"]).reshape(*lead, 4, 4, -1)
+        else:
+            y = conv_transpose_fn(h, w["dec"][j - 1])
+        h = train_bn_act(bn, y, *batch_stats_fn(y, ops), "relu", ops)
+    return sigmoid(head_fn(h, w["head"], ops).float())
+
+
+def generator_train(gens, x, policy: Policy, ops, remat: str | None = None):
+    """The train form of one generator (``gens`` = (g,), NHWC x), or of
+    two on a pair axis (x (2,N,H,W,3), pair p through ``gens[p]``), in the
+    regions of ``remat``."""
+    cd = policy.compute_dtype
+    if len(gens) == 1:
+        bns = gens[0]._bn_layers()
+    else:
+        enc, lat, dec = zip(*(g._bn_layers() for g in gens))
+        bns = (list(zip(*enc)), lat, list(zip(*dec)))
+
+    def weights(part=None):
+        return generator_weights(gens, cd, part)
+
+    def whole(x, w=None):
+        w = weights() if w is None else w
+        return _decode(_encode(x, w, bns, ops), w, bns, ops)
+
+    return run_regions(remat, x.to(cd).contiguous(), whole, weights,
+                       lambda x: _encode(x, weights("enc"), bns, ops),
+                       lambda z: _decode(z, weights("dec"), bns, ops))
 
 
 def weights_version(module: nn.Module) -> tuple:

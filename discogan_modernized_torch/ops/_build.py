@@ -42,15 +42,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+# Each entry ends in the pair axis (pairs, then each operand's pair stride)
+# and the stream.
 _SIGNATURES = {
-    "discogan_batch_stats": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [_LL, _I, _I, _P]),
-    "discogan_bn_act": (_I, [_P, _P, _P, _P, _LL] + [_I] * 8 + [_P]),
-    "discogan_conv_k4s2p1": (_I, [_P] * 7 + [_I] * 17 + [_P]),
-    "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
-    "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
+    "discogan_batch_stats": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [_LL, _I, _I]
+                             + [_I, _LL, _P]),
+    "discogan_bn_act": (_I, [_P, _P, _P, _P, _LL] + [_I] * 8 + [_I] + [_LL] * 3 + [_P]),
+    "discogan_conv_k4s2p1": (_I, [_P] * 7 + [_I] * 17 + [_I] + [_LL] * 3 + [_P]),
+    "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11 + [_I, _LL, _LL, _P]),
+    "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11
+                                     + [_I, _LL, _LL, _P]),
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _I, _I, _P]),
-    "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 10 + [_LL, _P]),
+                                       _I, _I, _I, _I] + [_I] + [_LL] * 3 + [_P]),
+    "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 10 + [_LL] + [_I, _LL, _LL, _P]),
 }
 
 _lock = threading.Lock()

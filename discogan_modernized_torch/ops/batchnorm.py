@@ -13,13 +13,16 @@ ops/halo_conv.py) or as one elementwise pass (ops/fused.py):
   inside the autograd graph so gamma and beta get gradients, and advances
   the running statistics in place: running = (1 - m) * running + m * batch
   with the unbiased var * n / (n - 1), and num_batches_tracked += 1 (the
-  JAX package's ``count``).
+  JAX package's ``count``); not while a rematerialized region rebuilds its
+  forward (ops/recompute.py), which would advance them twice.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from . import recompute
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -41,10 +44,13 @@ def batchnorm_train(bn: nn.BatchNorm2d, mean, var, count: int):
     """Train form: advance ``bn``'s running statistics in place with the
     batch statistics (mean, biased var) of ``count`` values per channel,
     and return the (scale, offset) that normalizes with them. Like
-    nn.BatchNorm2d, it refuses one value per channel."""
+    nn.BatchNorm2d, it refuses one value per channel. A region's
+    rebuilt forward only returns the (scale, offset)."""
     if count <= 1:
         raise ValueError("Expected more than 1 value per channel when "
                          f"training, got {count}")
+    if recompute.recomputing():
+        return fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
     with torch.no_grad():
         m = bn.momentum
         unbiased = var * (count / max(count - 1, 1))

@@ -18,7 +18,9 @@ dy[b,r,c,o], f32 accumulation, in x's dtype; ``dw_plan`` picks its path
 most 4, else the f32 FMA kernel), its split over the M = N*Ho*Wo pixels
 and its shared memory.
 A CPU tensor takes the ``_plain`` version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. Both functions take a leading pair axis on x (and dy)
+(ops/pairs.py): w (P,4,4,I,O) per pair or (4,4,I,O) shared, scale and
+offset (P,O) or (O,); the statistics and dw come out per pair.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, pairs as pr
 from .activations import act_code, apply_act
 
 
@@ -44,16 +46,30 @@ def check_conv_args(fn: str, x: torch.Tensor, w: torch.Tensor, scale, offset):
         raise ValueError(f"{fn}: scale and offset go together")
 
 
-def affine_pointers(fn: str, scale, offset, co: int):
-    """Device pointers of the epilogue's f32 (CO,) scale and offset, or
-    (None, None) without an affine; raises on anything else."""
+def affine_pointers(fn: str, scale, offset, co: int, pairs: int = 0):
+    """(scale, offset, pair stride): device pointers of the epilogue's f32
+    (CO,) scale and offset, or of (P,CO) ones per pair, or (None, None, 0)
+    without an affine; raises on anything else."""
     if scale is None:
-        return None, None
+        return None, None, 0
+    nd = 2 if pairs and scale.dim() == 2 else 1
     for name, t in (("scale", scale), ("offset", offset)):
-        _build.check_cuda_tensor(f"{fn} {name}", t, dtype=torch.float32, ndim=1)
-        if t.shape[0] != co:
+        _build.check_cuda_tensor(f"{fn} {name}", t, dtype=torch.float32, ndim=nd)
+        if t.shape[-1] != co or (nd == 2 and t.shape[0] != pairs):
             raise ValueError(f"{fn} {name}: {tuple(t.shape)} for {co} channels")
-    return scale.data_ptr(), offset.data_ptr()
+    return scale.data_ptr(), offset.data_ptr(), co if nd == 2 else 0
+
+
+def pair_operands(fn: str, x, w):
+    """(pairs, x's member, w's member, w's pair stride) of a conv's x with
+    an optional pair axis and w per pair or shared (pairs 0: a single
+    call)."""
+    pairs = pr.pairs_of(x, 4)
+    if not pairs:
+        return 0, x, w, 0
+    if w.dim() == 5:
+        pr.check_members(fn, pairs, w)
+    return pairs, x[0], pr.member(w, 0, 4), pr.pair_stride(w, 4)
 
 
 H100_SMS = 132
@@ -67,7 +83,13 @@ def _sm_count(index: int) -> int:
 def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
                         with_stats: bool = False):
     """The 16 per-tap products sum_{kh,kw} x_pad[:, kh::2, kw::2, :] @ w[kh, kw]
-    in f32, then the epilogue, cast to x's dtype."""
+    in f32, then the epilogue, cast to x's dtype; a loop over the pairs where
+    x has a pair axis."""
+    if pr.pairs_of(x, 4):
+        return pr.stack([conv2d_k4s2p1_plain(
+            xp, pr.member(w, p, 4), scale=pr.member(scale, p, 1),
+            offset=pr.member(offset, p, 1), act=act, with_stats=with_stats)
+            for p, xp in enumerate(x)])
     check_conv_args("conv2d_k4s2p1_plain", x, w, scale, offset)
     n, h, wd, _ = x.shape
     ho, wo = h // 2, wd // 2
@@ -124,15 +146,18 @@ class ConvPlan(NamedTuple):
     steps_per_split: int  # K steps (wgmma) or 64-pixel chunks (stem) of a part
     grid: tuple           # (x, y, z)
     smem_bytes: int       # dynamic shared memory of a block
-    partial_floats: int   # f32 split partials in the workspace
+    partial_floats: int   # f32 split partials in the workspace, a pair
     stat_rows: int        # partial rows of the statistics (2 x O floats each)
+    pairs: int = 1        # problems of the launch (folded into the grid's z)
 
     def workspace_floats(self, co: int, with_stats: bool) -> int:
-        return self.partial_floats + (2 * self.stat_rows * co if with_stats else 0)
+        """The workspace of every pair."""
+        return self.pairs * (self.partial_floats
+                             + (2 * self.stat_rows * co if with_stats else 0))
 
 
 def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
-              sms: int = H100_SMS) -> ConvPlan:
+              sms: int = H100_SMS, pairs: int = 1) -> ConvPlan:
     """K3's plan for x (n,h,w,ci) and CO output channels. The wgmma path
     takes 64-row tiles where M fits in one, 256 columns where CO is a
     multiple of them and those tiles fill most of a wave without a split
@@ -140,7 +165,9 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     partials), and splits K only while its tiles fill less than one wave
     of ``sms`` blocks (one fits an SM), into as many parts as fit in that
     wave; the grid walks M fastest. The stem spreads M over
-    CONV_STEM_BLOCKS_PER_SM blocks an SM."""
+    CONV_STEM_BLOCKS_PER_SM blocks an SM. ``pairs`` multiplies the grid's z
+    and the workspace and changes nothing else: each pair runs the plan of
+    a single call."""
     m = n * (h // 2) * (w // 2)
     if dtype == torch.bfloat16 and 1 <= ci <= 4 and co % CONV_STEM_BO == 0 and co > 0:
         chunks = -(-m // CONV_STEM_CHUNK)
@@ -150,8 +177,8 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
         per_block = max(1, -(-chunks // blocks))
         blocks = max(1, -(-chunks // per_block))
         return ConvPlan("wgmma_stem", (CONV_STEM_CHUNK, CONV_STEM_BO, 16 * ci), 2,
-                        blocks, per_block, (out_tiles, blocks, 1), CONV_STEM_SMEM, 0,
-                        blocks)
+                        blocks, per_block, (out_tiles, blocks, pairs), CONV_STEM_SMEM, 0,
+                        blocks, pairs)
     if dtype == torch.bfloat16 and ci % CONV_BK == 0 and ci > 0 and co % 8 == 0:
         bm = 64 if m <= 64 else CONV_BM
         wide = (bm == CONV_BM and co % CONV_BN_WIDE == 0
@@ -165,33 +192,37 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
         splits = -(-steps // sps)
         stages = CONV_STAGES[(bm, bn)]
         return ConvPlan("wgmma", (bm, bn, CONV_BK), stages, splits, sps,
-                        (m_tiles, n_tiles, splits),
+                        (m_tiles, n_tiles, splits * pairs),
                         stages * (bm * 128 + CONV_BK * bn * 2),
                         splits * m * co if splits > 1 else 0,
-                        -(-m // CONV_SPLIT_STAT_ROWS) if splits > 1 else m_tiles)
+                        -(-m // CONV_SPLIT_STAT_ROWS) if splits > 1 else m_tiles, pairs)
     m_tiles = -(-m // CONV_FMA_TILE)
     return ConvPlan("fma", (CONV_FMA_TILE, CONV_FMA_TILE, 16), 0, 1, ci,
-                    (m_tiles, -(-co // CONV_FMA_TILE), 1), 0, 0, m_tiles)
+                    (m_tiles, -(-co // CONV_FMA_TILE), pairs), 0, 0, m_tiles, pairs)
 
 
 def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,
                   with_stats: bool = False):
     """y = act(conv(x, w, k=4, s=2, p=1) * scale + offset), NHWC/HWIO;
-    (y, (mean, mean_sq)) of the raw conv with ``with_stats``."""
-    check_conv_args("conv2d_k4s2p1", x, w, scale, offset)
+    (y, (mean, mean_sq)) of the raw conv with ``with_stats``; per pair
+    where x has a pair axis."""
+    pairs, x1, w1, w_ps = pair_operands("conv2d_k4s2p1", x, w)
+    check_conv_args("conv2d_k4s2p1", x1, w1, scale, offset)
     code = act_code(act)
     w = w.to(x.dtype)
     if x.device.type == "cpu":
         return conv2d_k4s2p1_plain(x, w, scale=scale, offset=offset, act=act,
                                    with_stats=with_stats)
-    n, h, wd, ci = x.shape
-    co = w.shape[3]
+    n, h, wd, ci = x1.shape
+    co = w1.shape[3]
     _build.check_cuda_tensor("conv2d_k4s2p1 x", x)
     _build.check_cuda_tensor("conv2d_k4s2p1 w", w, dtype=x.dtype)
-    sp, op = affine_pointers("conv2d_k4s2p1", scale, offset, co)
-    plan = conv_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
-    y = torch.empty(n, h // 2, wd // 2, co, dtype=x.dtype, device=x.device)
-    stats = (torch.empty(2, co, dtype=torch.float32, device=x.device)
+    sp, op, aff_ps = affine_pointers("conv2d_k4s2p1", scale, offset, co, pairs)
+    plan = conv_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index),
+                     max(pairs, 1))
+    lead = (pairs,) if pairs else ()
+    y = torch.empty(*lead, n, h // 2, wd // 2, co, dtype=x.dtype, device=x.device)
+    stats = (torch.empty(*lead, 2, co, dtype=torch.float32, device=x.device)
              if with_stats else None)
     ws = _build.workspace(plan.workspace_floats(co, with_stats), x)
     lib = _build.library()
@@ -201,9 +232,11 @@ def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,
                   _build.DTYPE_CODES[x.dtype], CONV_PATH_CODES[plan.path],
                   plan.tile[0], plan.tile[1], plan.stages, plan.splits,
                   plan.steps_per_split, plan.grid[0], plan.grid[1],
-                  plan.smem_bytes, plan.stat_rows,
-                  _build.stream_of(x))
-    return (y, (stats[0], stats[1])) if with_stats else y
+                  plan.smem_bytes, plan.stat_rows, max(pairs, 1), x1.numel(), w_ps,
+                  aff_ps, _build.stream_of(x))
+    if not with_stats:
+        return y
+    return y, (stats[..., 0, :], stats[..., 1, :])
 
 
 def check_dw_args(fn: str, x: torch.Tensor, dy: torch.Tensor):
@@ -216,7 +249,11 @@ def check_dw_args(fn: str, x: torch.Tensor, dy: torch.Tensor):
 
 def conv2d_k4s2p1_dw_plain(x, dy):
     """Per tap, x_pad[:, kh::2, kw::2, :] flattened to (M, I), transposed,
-    times dy flattened to (M, O), in f32; cast to x's dtype."""
+    times dy flattened to (M, O), in f32; cast to x's dtype. A loop over the
+    pairs where x and dy have a pair axis."""
+    if pr.pairs_of(x, 4):
+        pr.check_members("conv2d_k4s2p1_dw_plain", x.shape[0], dy)
+        return pr.stack([conv2d_k4s2p1_dw_plain(xp, dp) for xp, dp in zip(x, dy)])
     check_dw_args("conv2d_k4s2p1_dw_plain", x, dy)
     n, h, wd, ci = x.shape
     ho, wo, co = h // 2, wd // 2, dy.shape[3]
@@ -259,10 +296,16 @@ class DwPlan(NamedTuple):
     tiles: int            # output tiles times splits
     blocks: int           # blocks launched (wgmma: each walks tiles b, b + blocks, ...)
     smem_bytes: int       # dynamic shared memory of a block
+    pairs: int = 1        # problems of the launch (the grid's y, or folded into z)
+
+    def workspace_floats(self, ci: int, co: int) -> int:
+        """The split partials of every pair (the stem always writes them)."""
+        parts = self.splits > 1 or self.path == "wgmma_stem"
+        return self.pairs * self.splits * 16 * ci * co if parts else 0
 
 
 def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
-            sms: int = H100_SMS) -> DwPlan:
+            sms: int = H100_SMS, pairs: int = 1) -> DwPlan:
     """K4's plan for x (n,h,w,ci) and dy with CO channels. The wgmma path
     splits M only while its tiles fill less than one wave of ``sms`` blocks
     (one fits an SM), into as many parts as fit in that wave, each of at
@@ -272,7 +315,8 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     its split while its tiles fill fewer than two waves and each part keeps
     8 steps. The stem splits M over STEM_BLOCKS_PER_SM blocks an SM, each
     part of at least DW_MIN_CHUNKS_PER_SPLIT chunks, and always sums its
-    parts in the second pass."""
+    parts in the second pass. ``pairs`` sizes the grid and the workspace
+    alone: each pair runs the plan of a single call."""
     m = n * (h // 2) * (w // 2)
     chunks = -(-m // DW_CHUNK)
     if dtype == torch.bfloat16 and 1 <= ci <= 4 and co % 8 == 0:
@@ -282,7 +326,7 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
         sps = max(1, -(-chunks // splits))
         splits = max(1, -(-chunks // sps))
         return DwPlan("wgmma_stem", (16 * ci, STEM_BO, DW_CHUNK), 16, splits,
-                      sps, out_tiles * splits, out_tiles * splits, STEM_SMEM)
+                      sps, out_tiles * splits, out_tiles * splits, STEM_SMEM, pairs)
     if dtype == torch.bfloat16 and ci % 8 == 0 and co % 8 == 0 and ci > 0:
         planes = (w // 2) % 8 == 0
         out_tiles = -(-co // DW_BN) * -(-ci // DW_CH) * 4
@@ -299,7 +343,7 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
                   max(min(tiles, sms), -(-tiles // DW_MAX_TILES_PER_BLOCK)))
         return DwPlan("wgmma_planes" if planes else "wgmma_windows",
                       (4 * DW_CH, DW_BN, DW_CHUNK), 4, splits, sps, tiles,
-                      blocks, ring + epilogue + 16 * DW_MAX_TILES_PER_BLOCK)
+                      blocks, ring + epilogue + 16 * DW_MAX_TILES_PER_BLOCK, pairs)
     out_tiles = -(-16 * ci // FMA_TILE) * -(-co // FMA_TILE)
     steps = -(-m // FMA_STEP)
     s = 1
@@ -309,27 +353,42 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     sps = max(1, -(-steps // s))
     splits = max(1, -(-steps // sps))
     return DwPlan("fma", (FMA_TILE, FMA_TILE, FMA_STEP), 0, splits, sps,
-                  out_tiles * splits, out_tiles * splits, 0)
+                  out_tiles * splits, out_tiles * splits, 0, pairs)
 
 
 def conv2d_k4s2p1_dw(x, dy):
-    """Weight gradient of ``conv2d_k4s2p1``: (4,4,I,O) in x's dtype."""
-    check_dw_args("conv2d_k4s2p1_dw", x, dy)
+    """Weight gradient of ``conv2d_k4s2p1``: (4,4,I,O) in x's dtype;
+    (P,4,4,I,O) where x and dy have a pair axis."""
+    pairs, x1, dy1 = dw_operands("conv2d_k4s2p1_dw", x, dy)
     dy = dy.to(x.dtype)
     if x.device.type == "cpu":
         return conv2d_k4s2p1_dw_plain(x, dy)
-    n, h, wd, ci = x.shape
-    co = dy.shape[3]
+    n, h, wd, ci = x1.shape
+    co = dy1.shape[3]
     _build.check_cuda_tensor("conv_k4s2p1_dw x", x)
     _build.check_cuda_tensor("conv_k4s2p1_dw dy", dy, dtype=x.dtype)
-    plan = dw_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
-    dw = torch.empty(4, 4, ci, co, dtype=x.dtype, device=x.device)
-    parts = plan.splits > 1 or plan.path == "wgmma_stem"
-    ws = _build.workspace(plan.splits * 16 * ci * co if parts else 0, x)
+    plan = dw_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index), max(pairs, 1))
+    dw = torch.empty(*((pairs,) if pairs else ()), 4, 4, ci, co, dtype=x.dtype,
+                     device=x.device)
+    ws = _build.workspace(plan.workspace_floats(ci, co), x)
     lib = _build.library()
     _build.launch("conv_k4s2p1_dw", lib.discogan_conv_k4s2p1_dw, x.data_ptr(),
                   dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n, h, wd, ci,
                   co, _build.DTYPE_CODES[x.dtype], DW_PATH_CODES[plan.path],
                   plan.splits, plan.steps_per_split, plan.blocks,
-                  plan.smem_bytes, _build.stream_of(x))
+                  plan.smem_bytes, max(pairs, 1), x1.numel(), dy1.numel(),
+                  _build.stream_of(x))
     return dw
+
+
+def dw_operands(fn: str, x, dy):
+    """(pairs, x's member, dy's member) of a weight gradient's operands
+    with an optional pair axis (pairs 0: a single call), checked."""
+    pairs = pr.pairs_of(x, 4)
+    if pairs:
+        pr.check_members(fn, pairs, dy)
+        x1, dy1 = x[0], dy[0]
+    else:
+        x1, dy1 = x, dy
+    check_dw_args(fn, x1, dy1)
+    return pairs, x1, dy1

@@ -30,8 +30,8 @@ import torch
 from . import _build
 from .activations import act_code
 from .conv_k4s2p1 import (DW_PATH_CODES, H100_SMS, DwPlan, _sm_count,
-                          affine_pointers, check_conv_args, check_dw_args,
-                          dw_plan)
+                          affine_pointers, check_conv_args, dw_operands,
+                          dw_plan, pair_operands)
 from .conv_k4s2p1 import MAX_SMEM_BYTES as SMEM_PER_BLOCK
 from .conv_k4s2p1 import conv2d_k4s2p1_dw_plain as halo_conv2d_k4s2p1_dw_plain
 from .conv_k4s2p1 import conv2d_k4s2p1_plain as halo_conv2d_k4s2p1_plain
@@ -68,6 +68,7 @@ class TilePlan(NamedTuple):
     strips: int     # blocks across the map
     co_tiles: int   # blocks across the output channels
     smem_bytes: int
+    pairs: int = 1  # problems of the launch (folded into the grid's z)
 
     @property
     def blocks_per_image(self) -> int:
@@ -75,13 +76,14 @@ class TilePlan(NamedTuple):
 
 
 def tc_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
-            sms: int = H100_SMS) -> TilePlan | None:
+            sms: int = H100_SMS, pairs: int = 1) -> TilePlan | None:
     """The tensor-core path's tile plan for x (n,h,w,ci) and CO channels, or
     None where that path does not take the shape (f32, CI % 16 != 0,
     CI > 64, CO % 8 != 0). Rows per block are as few as keep the grid
     within one wave of ``sms`` blocks (one block fits an SM): each block
     pays its weights' copy and two halo rows once, so fewer, longer runs
-    cost less, and one wave of equal blocks ends together."""
+    cost less, and one wave of equal blocks ends together. ``pairs``
+    multiplies the grid alone: each pair runs the plan of a single call."""
     if dtype != torch.bfloat16 or ci % 16 or not 0 < ci <= TC_MAX_CI or co % 8:
         return None
     ho, wo = h // 2, w // 2
@@ -92,7 +94,7 @@ def tc_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     bands = -(-ho // rows)
     smem = (TC_SLOTS * 2 * (TC_STRIP + 1) * TC_PIXEL_BYTES
             + 16 * ci * TC_CO_TILE * 2)
-    return TilePlan(rows, bands, strips, co_tiles, smem)
+    return TilePlan(rows, bands, strips, co_tiles, smem, pairs)
 
 
 def _check_preconditions(x, w):
@@ -107,47 +109,53 @@ def _check_preconditions(x, w):
 
 
 def takes_halo(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether the generator routes this k4/s2/p1 conv to K5f."""
-    h, wd, ci = x.shape[1:]
-    co = w.shape[3]
+    """Whether the generator routes this k4/s2/p1 conv to K5f: by the shape
+    of one problem, the same for each pair of a pair axis."""
+    h, wd, ci = x.shape[-3:]
+    co = w.shape[-1]
     return (min(h, wd) >= MIN_WIDTH and wd // 2 <= MAX_BAND_WIDTH
             and ci <= MAX_ROUTED_CI and ci % 8 == 0 and co % 8 == 0)
 
 
 def halo_conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None):
-    """y = act(conv(x, w, k=4, s=2, p=1) * scale + offset), NHWC/HWIO."""
-    check_conv_args("halo_conv2d_k4s2p1", x, w, scale, offset)
-    _check_preconditions(x, w)
+    """y = act(conv(x, w, k=4, s=2, p=1) * scale + offset), NHWC/HWIO; per
+    pair where x has a pair axis (w per pair or shared)."""
+    pairs, x1, w1, w_ps = pair_operands("halo_conv2d_k4s2p1", x, w)
+    check_conv_args("halo_conv2d_k4s2p1", x1, w1, scale, offset)
+    _check_preconditions(x1, w1)
     code = act_code(act)
     w = w.to(x.dtype)
     if x.device.type == "cpu":
         return halo_conv2d_k4s2p1_plain(x, w, scale=scale, offset=offset,
                                         act=act)
-    n, h, wd, ci = x.shape
-    co = w.shape[3]
+    n, h, wd, ci = x1.shape
+    co = w1.shape[3]
     _build.check_cuda_tensor("halo_conv2d_k4s2p1 x", x)
     _build.check_cuda_tensor("halo_conv2d_k4s2p1 w", w, dtype=x.dtype)
-    sp, op = affine_pointers("halo_conv2d_k4s2p1", scale, offset, co)
-    plan = tc_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
-    y = torch.empty(n, h // 2, wd // 2, co, dtype=x.dtype, device=x.device)
+    sp, op, aff_ps = affine_pointers("halo_conv2d_k4s2p1", scale, offset, co, pairs)
+    plan = tc_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index), max(pairs, 1))
+    y = torch.empty(*((pairs,) if pairs else ()), n, h // 2, wd // 2, co,
+                    dtype=x.dtype, device=x.device)
     lib = _build.library()
     _build.launch("halo_conv_k4s2p1", lib.discogan_halo_conv_k4s2p1,
                   x.data_ptr(), w.data_ptr(), sp, op, y.data_ptr(), n, h, wd,
                   ci, co, code, _build.DTYPE_CODES[x.dtype],
-                  plan.rows if plan else 0, _build.stream_of(x))
+                  plan.rows if plan else 0, max(pairs, 1), x1.numel(), w_ps, aff_ps,
+                  _build.stream_of(x))
     return y
 
 
 def halo_dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
-                 sms: int = H100_SMS) -> DwPlan:
+                 sms: int = H100_SMS, pairs: int = 1) -> DwPlan:
     """K5b's plan for x (n,h,w,ci) and dy with CO channels (both multiples
     of 8). bf16: K4's ``dw_plan``, whose wgmma path takes every such shape
     (parity planes where W/2 % 8 == 0, else per-tap windows). f32: the FMA
     kernel's tiles of one kernel row x FMA_TILE channels of CI and CO, its
     steps whole output rows (``tile[2]`` = W/2 pixels), split while the
-    blocks fill fewer than two waves of ``sms``."""
+    blocks fill fewer than two waves of ``sms``. ``pairs`` sizes the grid
+    and the workspace alone."""
     if dtype == torch.bfloat16:
-        return dw_plan(n, h, w, ci, co, dtype, sms)
+        return dw_plan(n, h, w, ci, co, dtype, sms, pairs)
     rows = n * (h // 2)
     out_tiles = 4 * -(-ci // FMA_TILE) * -(-co // FMA_TILE)
     s = 1
@@ -156,27 +164,31 @@ def halo_dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     rows_per_split = max(1, -(-rows // s))
     splits = max(1, -(-rows // rows_per_split))
     return DwPlan("fma", (4 * FMA_TILE, FMA_TILE, w // 2), 4, splits,
-                  rows_per_split, out_tiles * splits, out_tiles * splits, 0)
+                  rows_per_split, out_tiles * splits, out_tiles * splits, 0, pairs)
 
 
 def halo_conv2d_k4s2p1_dw(x, dy):
-    """Weight gradient of ``halo_conv2d_k4s2p1``: (4,4,CI,CO) in x's dtype."""
-    check_dw_args("halo_conv2d_k4s2p1_dw", x, dy)
-    _check_preconditions(x, dy)
+    """Weight gradient of ``halo_conv2d_k4s2p1``: (4,4,CI,CO) in x's dtype;
+    (P,4,4,CI,CO) where x and dy have a pair axis."""
+    pairs, x1, dy1 = dw_operands("halo_conv2d_k4s2p1_dw", x, dy)
+    _check_preconditions(x1, dy1)
     dy = dy.to(x.dtype)
     if x.device.type == "cpu":
         return halo_conv2d_k4s2p1_dw_plain(x, dy)
-    n, h, wd, ci = x.shape
-    co = dy.shape[3]
+    n, h, wd, ci = x1.shape
+    co = dy1.shape[3]
     _build.check_cuda_tensor("halo_conv_k4s2p1_dw x", x)
     _build.check_cuda_tensor("halo_conv_k4s2p1_dw dy", dy, dtype=x.dtype)
-    plan = halo_dw_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
-    dw = torch.empty(4, 4, ci, co, dtype=x.dtype, device=x.device)
-    ws = _build.workspace(plan.splits * 16 * ci * co if plan.splits > 1 else 0, x)
+    plan = halo_dw_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index),
+                        max(pairs, 1))
+    dw = torch.empty(*((pairs,) if pairs else ()), 4, 4, ci, co, dtype=x.dtype,
+                     device=x.device)
+    ws = _build.workspace(plan.workspace_floats(ci, co), x)
     lib = _build.library()
     _build.launch("halo_conv_k4s2p1_dw", lib.discogan_halo_conv_k4s2p1_dw,
                   x.data_ptr(), dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n,
                   h, wd, ci, co, _build.DTYPE_CODES[x.dtype],
                   DW_PATH_CODES[plan.path], plan.splits, plan.steps_per_split,
-                  plan.blocks, plan.smem_bytes, _build.stream_of(x))
+                  plan.blocks, plan.smem_bytes, max(pairs, 1), x1.numel(), dy1.numel(),
+                  _build.stream_of(x))
     return dw

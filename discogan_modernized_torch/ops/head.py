@@ -19,8 +19,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from .conv_k4s2p1 import H100_SMS, MAX_SMEM_BYTES, _sm_count
+from . import _build, pairs as pr
+from .conv_k4s2p1 import H100_SMS, MAX_SMEM_BYTES, _sm_count, pair_operands
 
 MAX_CO = 8
 STAGED_FLOATS = 3 * 258 * 17  # the FMA kernel's staged input rows
@@ -49,7 +49,8 @@ class HeadPlan(NamedTuple):
     strips: int      # blocks across the map
     slots: int       # input rows in the ring
     smem_bytes: int
-    blocks: int      # the grid: images x bands x strips
+    blocks: int      # the grid: pairs x images x bands x strips
+    pairs: int = 1   # problems of the launch (the grid's z)
 
 
 def tc_np(co: int) -> int:
@@ -65,7 +66,7 @@ def tc_smem_bytes(ci: int, co: int, slots: int) -> int:
 
 
 def head_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
-              sms: int = H100_SMS) -> HeadPlan | None:
+              sms: int = H100_SMS, pairs: int = 1) -> HeadPlan | None:
     """The tensor-core path's tile plan for x (n,h,w,ci) and CO output
     channels, or None where that path does not take the shape (f32,
     CI % 16 != 0, CI outside 16..128, CO outside 1..8). The ring holds 5
@@ -73,7 +74,8 @@ def head_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     as few as keep the grid within one wave of ``sms`` SMs holding as many
     blocks each as fit (two at most): each band pays B's build and two halo
     rows once, so fewer, longer bands cost less, and one wave of equal
-    blocks ends together."""
+    blocks ends together. ``pairs`` multiplies the grid alone: each pair
+    runs the plan of a single call."""
     if (dtype != torch.bfloat16 or ci % 16 or not 0 < ci <= TC_MAX_CI
             or not 1 <= co <= MAX_CO):
         return None
@@ -86,7 +88,7 @@ def head_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     bands_wanted = max(1, min(h, per_sm * sms // max(1, n * strips)))
     rows = max(1, -(-h // bands_wanted))
     bands = -(-h // rows)
-    return HeadPlan(rows, bands, strips, slots, smem, n * bands * strips)
+    return HeadPlan(rows, bands, strips, slots, smem, pairs * n * bands * strips, pairs)
 
 
 def _check_args(fn, x, w):
@@ -97,7 +99,11 @@ def _check_args(fn, x, w):
 
 def head_convt_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Four-class subpixel form: with wf = w flipped spatially, output
-    (2i+a, 2j+b) = sum_{u,v} x_pad[i+a+u, j+b+v] @ wf[a+2u, b+2v]."""
+    (2i+a, 2j+b) = sum_{u,v} x_pad[i+a+u, j+b+v] @ wf[a+2u, b+2v]; a loop
+    over the pairs where x has a pair axis."""
+    if pr.pairs_of(x, 4):
+        return pr.stack([head_convt_plain(xp, pr.member(w, p, 4))
+                         for p, xp in enumerate(x)])
     _check_args("head_convt_plain", x, w)
     n, h, wd, _ = x.shape
     co = w.shape[3]
@@ -117,26 +123,29 @@ def head_convt_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def head_convt(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y = conv_transpose(x, w, k=4, s=2, p=1) for thin out_ch, NHWC/HWIO."""
-    _check_args("head_convt", x, w)
+    """y = conv_transpose(x, w, k=4, s=2, p=1) for thin out_ch, NHWC/HWIO;
+    per pair where x has a pair axis (w per pair or shared)."""
+    pairs, x1, w1, w_ps = pair_operands("head_convt", x, w)
+    _check_args("head_convt", x1, w1)
     w = w.to(x.dtype)
     if x.device.type == "cpu":
         return head_convt_plain(x, w)
-    n, h, wd, ci = x.shape
-    co = w.shape[3]
+    n, h, wd, ci = x1.shape
+    co = w1.shape[3]
     if not 1 <= co <= MAX_CO:
         raise ValueError(f"head_convt: out channels {co} not in 1..{MAX_CO}")
-    plan = head_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index))
+    plan = head_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index), max(pairs, 1))
     if plan is None and (16 * ci * co + STAGED_FLOATS) * 4 > MAX_SMEM_BYTES:
         raise ValueError(f"head_convt: weight of {ci}x{co} does not fit in "
                          "shared memory")
     _build.check_cuda_tensor("head_convt x", x)
     _build.check_cuda_tensor("head_convt w", w, dtype=x.dtype)
-    y = torch.empty(n, 2 * h, 2 * wd, co, dtype=x.dtype, device=x.device)
-    rows, bands, strips, slots, smem, _ = plan or (0, 0, 0, 0, 0, 0)
+    y = torch.empty(*((pairs,) if pairs else ()), n, 2 * h, 2 * wd, co, dtype=x.dtype,
+                    device=x.device)
+    rows, bands, strips, slots, smem = plan[:5] if plan else (0, 0, 0, 0, 0)
     lib = _build.library()
     _build.launch("head_convt", lib.discogan_head_convt, x.data_ptr(),
                   w.data_ptr(), y.data_ptr(), n, h, wd, ci, co,
                   _build.DTYPE_CODES[x.dtype], rows, bands, strips, slots,
-                  smem, _build.stream_of(x))
+                  smem, max(pairs, 1), x1.numel(), w_ps, _build.stream_of(x))
     return y

@@ -78,12 +78,27 @@ def save_train_state(model_path, ts, iters: int, meta: dict | None = None) -> No
     os.replace(tmp_meta, model_path / "train_state_meta.json")
 
 
+# The meta keys that fix the state's layout: a resume must match them.
+LAYOUT_KEYS = ("arch", "image_size", "slim_state")
+
+
+def train_variants(cfg) -> dict:
+    """The train step's graph variants (train/graph.py), which leave the
+    state's layout as it is."""
+    return {"paired": cfg.paired, "lean_dis": cfg.lean_dis,
+            "concat_dis": cfg.concat_dis and not cfg.paired, "remat": cfg.use_remat,
+            "remat_policy": cfg.remat_policy or "full",
+            "remat_dis": bool(cfg.use_remat and cfg.remat_dis)}
+
+
 def train_state_meta(cfg, **extra) -> dict:
-    """What a train state was trained as; ``load_train_state`` checks it."""
+    """What a train state was trained as; ``load_train_state`` checks its
+    layout keys and says where the variants differ."""
     from .step import resolve_slim_state
 
     return {"arch": cfg.model_arch, "image_size": cfg.image_size,
-            "slim_state": resolve_slim_state(cfg), **extra}
+            "slim_state": resolve_slim_state(cfg), "variants": train_variants(cfg),
+            **extra}
 
 
 def load_train_state(model_path, ts, cfg) -> int:
@@ -91,7 +106,9 @@ def load_train_state(model_path, ts, cfg) -> int:
     networks, their running statistics and both Adam states) and return
     the saved iteration count. ``ts`` is a fresh state of the same
     configuration: a state whose slim state, architecture or image size
-    differs from ``cfg`` is refused."""
+    differs from ``cfg`` is refused. Other graph variants (paired, lean_dis,
+    remat, concat_dis) leave the layout as it is: a resume under them is
+    taken, and one line says what changed."""
     model_path = Path(model_path)
     meta_file = model_path / "train_state_meta.json"
     if not meta_file.is_file():
@@ -100,13 +117,19 @@ def load_train_state(model_path, ts, cfg) -> int:
             "(train_state_meta.json and train_state.pt)")
     meta = json.loads(meta_file.read_text())
     want = train_state_meta(cfg)
-    differ = {k: (meta.get(k), v) for k, v in want.items() if meta.get(k) != v}
+    differ = {k: (meta.get(k), want[k]) for k in LAYOUT_KEYS if meta.get(k) != want[k]}
     if differ:
         raise ValueError(
             f"--resume {model_path}: the train state was saved as "
             + ", ".join(f"{k}={saved!r}" for k, (saved, _) in differ.items())
             + "; this run has "
             + ", ".join(f"{k}={now!r}" for k, (_, now) in differ.items()))
+    saved_variants = meta.get("variants")
+    if saved_variants is not None and saved_variants != want["variants"]:
+        print(f"--resume {model_path}: graph variants change (same state layout): "
+              + ", ".join(f"{k} {saved_variants.get(k)!r} -> {v!r}"
+                          for k, v in want["variants"].items()
+                          if saved_variants.get(k) != v))
     state = torch.load(model_path / "train_state.pt", map_location="cpu",
                        weights_only=True)
     with torch.no_grad():

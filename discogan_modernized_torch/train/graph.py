@@ -1,6 +1,14 @@
 """The DiscoGAN loss graph: forwards, losses, curriculum mixing (the port
-of the JAX package's ``train/graph.py``, with its defaults: the
-discriminator's real and fake forwards run one after the other).
+of the JAX package's ``train/graph.py``). Its variants, each the same
+losses and weight gradients bit for bit:
+
+- ``dis_only`` (the lean D step) skips the ABA/BAB forwards;
+- ``remat`` runs each network forward in rematerialized regions
+  (``_checkpoint_policies``; models/regions.py);
+- ``concat_dis`` runs each discriminator's real and fake forwards as one
+  pass (``Discriminator.forward_pair``);
+- ``discogan_losses_paired`` runs each A-side/B-side pair of forwards as
+  one pass on a pair axis.
 
 The reference per-iteration graph (ref image_translation.py:342-382), in
 its exact call order, which matters because every train-mode forward
@@ -27,31 +35,52 @@ from __future__ import annotations
 import torch
 
 from ..core.precision import F32, Policy
+from ..models.discriminator import discriminator_train
+from ..models.generator import generator_train
+from ..ops.autograd import KERNEL_OPS, PLAIN_OPS
 from ..ops.losses import feature_matching_loss, gan_losses, mse_loss
 
 ARCH_MODES = ("discogan", "recongan", "gan")
 
 
-def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
-                    policy: Policy = F32, plain: bool = False,
-                    skip_first_fm: bool = False) -> dict:
-    """Run the full forward graph with the models in their current mode.
-    models: gen_A, gen_B, dis_A, dis_B. Returns the eight raw loss
-    components the reference logs. ``skip_first_fm`` leaves the first
-    discriminator feature out of the feature-matching losses (the angle
-    trainer, ref angle_pairing.py:114-115)."""
-    kw = dict(policy=policy, plain=plain)
-    AB = models["gen_B"](A, **kw)
-    BA = models["gen_A"](B, **kw)
-    ABA = models["gen_A"](AB, **kw)
-    BAB = models["gen_B"](BA, **kw)
-    recon_A = mse_loss(ABA, A)
-    recon_B = mse_loss(BAB, B)
+def _checkpoint_policies(remat_policy: str | None):
+    """(generator, discriminator) region policies for a remat granularity
+    (models/regions.py):
 
-    A_real, A_feats_real = models["dis_A"](A, **kw)
-    A_fake, A_feats_fake = models["dis_A"](BA, **kw)
-    B_real, B_feats_real = models["dis_B"](B, **kw)
-    B_fake, B_feats_fake = models["dis_B"](AB, **kw)
+    None / "full" -- each network forward is one region: only its input
+                     and output are kept, the backward runs it again;
+    "latent"      -- the generator's encoder (to the latent, which is kept)
+                     and its decoder are two regions; a discriminator one;
+    "conv"        -- every convolution's output is kept, and the backward
+                     rebuilds only the BatchNorm and activation chains.
+    """
+    if remat_policy == "conv":
+        return "conv", "conv"
+    if remat_policy == "latent":
+        return "latent", "full"
+    if remat_policy not in (None, "full"):
+        raise ValueError("remat_policy must be one of None/'full'/'latent'/'conv', "
+                         f"got {remat_policy!r}")
+    return "full", "full"
+
+
+def _regions(remat: bool, remat_policy: str | None, remat_dis: bool | None):
+    """(generator regions, discriminator regions): None where a forward
+    keeps all its activations. remat_dis=False keeps the discriminators'
+    (their forwards are encoder-only, so their activations are small);
+    None follows ``remat``."""
+    if not remat:
+        return None, None
+    g, d = _checkpoint_policies(remat_policy)
+    return g, (d if remat_dis is None or remat_dis else None)
+
+
+def _zero(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=like.device)
+
+
+def _losses(A_real, A_feats_real, A_fake, A_feats_fake, B_real, B_feats_real,
+            B_fake, B_feats_fake, recon_A, recon_B, skip_first_fm: bool) -> dict:
     dis_loss_A, gen_loss_A = gan_losses(A_real, A_fake)
     fm_loss_A = feature_matching_loss(A_feats_real, A_feats_fake,
                                       skip_first=skip_first_fm)
@@ -61,6 +90,86 @@ def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
     return {"gen_A": gen_loss_A, "gen_B": gen_loss_B, "fm_A": fm_loss_A,
             "fm_B": fm_loss_B, "recon_A": recon_A, "recon_B": recon_B,
             "dis_A": dis_loss_A, "dis_B": dis_loss_B}
+
+
+def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
+                    policy: Policy = F32, plain: bool = False,
+                    skip_first_fm: bool = False, remat: bool = False,
+                    remat_policy: str | None = None, remat_dis: bool | None = None,
+                    dis_only: bool = False, concat_dis: bool = False) -> dict:
+    """Run the full forward graph with the models in their current mode.
+    models: gen_A, gen_B, dis_A, dis_B. Returns the eight raw loss
+    components the reference logs. ``skip_first_fm`` leaves the first
+    discriminator feature out of the feature-matching losses (the angle
+    trainer, ref angle_pairing.py:114-115).
+
+    dis_only=True (the lean D step, TrainConfig.lean_dis) skips the ABA/BAB
+    forwards: the discriminator loss never reads them, and train-mode
+    BatchNorm normalizes with batch statistics, so the weight trajectory is
+    the same bit for bit; only the generators' running statistics take 2
+    updates a D step instead of 4. recon_A and recon_B report 0, so logged
+    iterations take the full graph (train/loop.py).
+
+    remat / remat_policy / remat_dis: rematerialized regions
+    (``_checkpoint_policies``); concat_dis: each discriminator's real and
+    fake forwards as one pass."""
+    g_remat, d_remat = _regions(remat, remat_policy, remat_dis)
+    kw = dict(policy=policy, plain=plain)
+    AB = models["gen_B"](A, remat=g_remat, **kw)
+    BA = models["gen_A"](B, remat=g_remat, **kw)
+    if dis_only:
+        recon_A = recon_B = _zero(A)
+    else:
+        ABA = models["gen_A"](AB, remat=g_remat, **kw)
+        BAB = models["gen_B"](BA, remat=g_remat, **kw)
+        recon_A = mse_loss(ABA, A)
+        recon_B = mse_loss(BAB, B)
+
+    if concat_dis:
+        (A_real, A_feats_real), (A_fake, A_feats_fake) = models["dis_A"].forward_pair(
+            A, BA, remat=d_remat, **kw)
+        (B_real, B_feats_real), (B_fake, B_feats_fake) = models["dis_B"].forward_pair(
+            B, AB, remat=d_remat, **kw)
+    else:
+        A_real, A_feats_real = models["dis_A"](A, remat=d_remat, **kw)
+        A_fake, A_feats_fake = models["dis_A"](BA, remat=d_remat, **kw)
+        B_real, B_feats_real = models["dis_B"](B, remat=d_remat, **kw)
+        B_fake, B_feats_fake = models["dis_B"](AB, remat=d_remat, **kw)
+    return _losses(A_real, A_feats_real, A_fake, A_feats_fake, B_real, B_feats_real,
+                   B_fake, B_feats_fake, recon_A, recon_B, skip_first_fm)
+
+
+def discogan_losses_paired(models: dict, A: torch.Tensor, B: torch.Tensor, *,
+                           policy: Policy = F32, plain: bool = False,
+                           skip_first_fm: bool = False, remat: bool = False,
+                           remat_policy: str | None = None,
+                           remat_dis: bool | None = None,
+                           dis_only: bool = False) -> dict:
+    """The same loss graph with every A-side/B-side pair of forwards as
+    one pass on a pair axis (JAX ``discogan_losses_paired``, there a vmap
+    over stacked parameters): each port kernel launches once for both
+    networks of a pair. The pair schedule keeps the reference call order
+    that the running statistics see: (G_B, G_A) on (A, B), then (G_A, G_B)
+    on (AB, BA), then (D_A, D_B) on (A, B) and on (BA, AB); each member's
+    BatchNorm takes its own statistics."""
+    g_remat, d_remat = _regions(remat, remat_policy, remat_dis)
+    ops = PLAIN_OPS if plain else KERNEL_OPS
+    gen_A, gen_B, dis_A, dis_B = (models[k] for k in ("gen_A", "gen_B", "dis_A", "dis_B"))
+    AB_in = torch.stack([A, B])
+    out1 = generator_train((gen_B, gen_A), AB_in, policy, ops, g_remat)
+    AB, BA = out1[0], out1[1]
+    if dis_only:
+        recon_A = recon_B = _zero(A)
+    else:
+        out2 = generator_train((gen_A, gen_B), out1, policy, ops, g_remat)
+        recon_A = mse_loss(out2[0], A)
+        recon_B = mse_loss(out2[1], B)
+    real, real_feats = discriminator_train((dis_A, dis_B), AB_in, policy, ops, d_remat)
+    fake, fake_feats = discriminator_train((dis_A, dis_B), torch.stack([BA, AB]), policy,
+                                           ops, d_remat)
+    return _losses(real[0], [f[0] for f in real_feats], fake[0], [f[0] for f in fake_feats],
+                   real[1], [f[1] for f in real_feats], fake[1], [f[1] for f in fake_feats],
+                   recon_A, recon_B, skip_first_fm)
 
 
 def mix_losses(losses: dict, rate, arch: str):

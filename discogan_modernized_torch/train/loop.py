@@ -19,10 +19,17 @@ The angle variant (``angle_variant=True``) has no style level in its
 paths, leaves the first discriminator feature out of the feature-matching
 loss, logs without the FM field and dumps each test image's views.
 
+The train step's graph variants come from the flags: ``--paired``,
+``--lean_dis`` (D iterations that are not logged take the lean D step; a
+logged one the full graph), ``--remat {on,off}`` and ``--remat_policy``;
+with ``--remat`` unset, ``resolve_remat`` decides from the card's free
+memory and prints its line.
+
 ``run_training`` takes an optional ``observer`` with ``begin(iters, kind)``
-and ``end(iters, kind, losses)`` (kind "dis" or "gen", losses the step's
-device tensors), called around each step and nothing else: a caller can
-time the steps, count their kernel launches or check their losses.
+and ``end(iters, kind, losses)`` (kind "dis", "lean" (a lean D step) or
+"gen", losses the step's device tensors), called around each step and
+nothing else: a caller can time the steps, count their kernel launches or
+check their losses.
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from .checkpoint import (load_train_state, save_reference_layout,
 from .graph import ARCH_MODES
 from .logging_ import TrainingLogger
 from .samples import save_individual_images, save_sample_grid
-from .step import (TrainConfig, init_train_state, make_sample_fn,
-                   make_train_steps, resolve_slim_state)
+from .step import (TrainConfig, init_train_state, make_lean_dis_step,
+                   make_sample_fn, make_train_steps, resolve_remat,
+                   resolve_slim_state)
 
 
 def build_paths(args, timestamp: str, angle_variant: bool = False):
@@ -87,7 +95,9 @@ def config_from_args(args, angle_variant: bool = False) -> TrainConfig:
         gan_curriculum=args.gan_curriculum, starting_rate=args.starting_rate,
         default_rate=args.default_rate, update_interval=args.update_interval,
         skip_first_fm=angle_variant, precision=args.precision,
-        slim_state=args.slim_state)
+        slim_state=args.slim_state, paired=args.paired, lean_dis=args.lean_dis,
+        remat={"on": True, "off": False, None: None}[args.remat],
+        remat_policy=args.remat_policy, log_interval=args.log_interval)
     resolve_slim_state(cfg)  # fail before any data or weights
     return cfg
 
@@ -132,6 +142,9 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
             f"batch_size={args.batch_size} exceeds the usable dataset size "
             f"({min(len(data_A), len(data_B))} pairs): no batches to train on")
     total_iterations = args.epochs * nb
+    cfg, remat_line = resolve_remat(cfg, args.batch_size, device,
+                                    compute_itemsize=policy.compute_dtype.itemsize)
+    print(remat_line)
 
     ts = init_train_state(args.seed, cfg, device)
     start_iters = 0
@@ -142,6 +155,7 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
     model_path.mkdir(parents=True, exist_ok=True)
 
     gen_step, dis_step = make_train_steps(cfg, policy)
+    lean_step = make_lean_dis_step(cfg, policy) if cfg.lean_dis else None
     sample_fn = make_sample_fn(cfg, policy)
     test_A_t = torch.from_numpy(test_A).to(device)
     test_B_t = torch.from_numpy(test_B).to(device)
@@ -176,10 +190,11 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
         for epoch in range(start_epoch, args.epochs):
             with contextlib.closing(loader.epoch(epoch, skip=skip)) as batches:
                 for A, B in batches:
-                    kind = "dis" if cfg.is_dis_iter(iters) else "gen"
+                    kind = ("lean" if cfg.use_lean_dis(iters) else
+                            "dis" if cfg.is_dis_iter(iters) else "gen")
                     if observer is not None:
                         observer.begin(iters, kind)
-                    step = dis_step if kind == "dis" else gen_step
+                    step = {"dis": dis_step, "lean": lean_step, "gen": gen_step}[kind]
                     losses = step(ts, A, B, cfg.rate_for(iters))
                     if observer is not None:
                         observer.end(iters, kind, losses)

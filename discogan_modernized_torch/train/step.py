@@ -13,6 +13,13 @@ keeps the discriminators' graph only for their inputs' gradients.
 The train state is updated in place: the parameters and the Adam moments,
 and the BatchNorm running statistics, which every train-mode forward
 advances.
+
+The graph variants of ``TrainConfig`` (train/graph.py) give the same
+weight trajectory bit for bit: ``lean_dis`` (``make_lean_dis_step`` on
+the D iterations that are not logged), ``remat`` / ``remat_policy`` /
+``remat_dis``, ``concat_dis`` and ``paired``. ``resolve_remat`` decides
+remat=None from the port's own model of a step's peak memory
+(``estimate_step_bytes``) and the card's free memory.
 """
 
 from __future__ import annotations
@@ -24,7 +31,10 @@ import torch
 from ..core.precision import Policy, default_policy
 from ..models.discriminator import Discriminator
 from ..models.generator import Generator
-from .graph import discogan_losses, mix_losses, trainable_subsets
+from ..models.geometry import LATENT_CH, encoder_channels
+from ..models.regions import REMAT_POLICIES
+from .graph import (_checkpoint_policies, discogan_losses, discogan_losses_paired,
+                    mix_losses, trainable_subsets)
 from .optim import Adam
 
 
@@ -47,6 +57,38 @@ class TrainConfig:
     # parameters in bf16, written back with stochastic rounding
     # (train/optim.py). BatchNorm running statistics stay f32 in every mode.
     slim_state: str | None = None
+    # Rematerialize the network forwards in the backward (models/regions.py).
+    # None = auto: ``resolve_remat`` turns it on where the step's estimated
+    # peak exceeds the card's free memory; off on the CPU.
+    remat: bool | None = None
+    # Granularity: None/"full", "latent" or "conv" (graph._checkpoint_policies).
+    remat_policy: str | None = None
+    # Rematerialize the discriminators too (under remat). None = auto: only
+    # where the step does not fit with their activations kept.
+    remat_dis: bool | None = None
+    # Each A-side/B-side pair of forwards as one pass on a pair axis
+    # (graph.discogan_losses_paired).
+    paired: bool = False
+    # Each discriminator's real and fake forwards as one pass (ignored
+    # under paired, as in the JAX package).
+    concat_dis: bool = False
+    # The lean D step on D iterations that are not logged (no ABA/BAB).
+    lean_dis: bool = False
+    # Logging cadence: logged iterations take the full graph.
+    log_interval: int = 50
+
+    @property
+    def use_remat(self) -> bool:
+        """Remat as set; an undecided auto (None) is off: the trainer
+        decides it first (``resolve_remat``)."""
+        return bool(self.remat)
+
+    def use_lean_dis(self, iters: int) -> bool:
+        """Whether iteration ``iters`` takes the lean D step: lean_dis is
+        on, it is a D iteration, and not a logged one (a logged line needs
+        the full graph's recon values)."""
+        return (self.lean_dis and self.is_dis_iter(iters)
+                and iters % self.log_interval != 0)
 
     def rate_for(self, iters: int) -> float:
         """Curriculum rate (ref image_translation.py:367)."""
@@ -114,16 +156,22 @@ def subset_params(models: dict, keys) -> list:
 
 
 def loss_and_grads(ts: TrainState, A, B, rate, cfg: TrainConfig,
-                   policy: Policy, which: str, *, plain: bool = False):
-    """The full forward graph and the gradients of the ``which`` ("gen" or
-    "dis") total over its trainable subset. Returns (losses, grads), the
-    losses detached (the eight components, gen_total and dis_total)."""
+                   policy: Policy, which: str, *, plain: bool = False,
+                   lean: bool = False):
+    """The forward graph of ``cfg``'s variant and the gradients of the
+    ``which`` ("gen" or "dis") total over its trainable subset; ``lean``:
+    the D step's graph without ABA/BAB. Returns (losses, grads), the losses
+    detached (the eight components, gen_total and dis_total)."""
     gen_keys, dis_keys = trainable_subsets(cfg.model_arch)
     keys = gen_keys if which == "gen" else dis_keys
     for name, m in ts.models.items():
         m.requires_grad_(name in keys)
-    losses = discogan_losses(ts.models, A, B, policy=policy, plain=plain,
-                             skip_first_fm=cfg.skip_first_fm)
+    graph, extra = ((discogan_losses_paired, {}) if cfg.paired
+                    else (discogan_losses, {"concat_dis": cfg.concat_dis}))
+    losses = graph(ts.models, A, B, policy=policy, plain=plain,
+                   skip_first_fm=cfg.skip_first_fm, remat=cfg.use_remat,
+                   remat_policy=cfg.remat_policy, remat_dis=cfg.remat_dis,
+                   dis_only=lean and which == "dis", **extra)
     gen_total, dis_total = mix_losses(losses, rate, cfg.model_arch)
     total = gen_total if which == "gen" else dis_total
     grads = torch.autograd.grad(total, subset_params(ts.models, keys),
@@ -132,19 +180,146 @@ def loss_and_grads(ts: TrainState, A, B, rate, cfg: TrainConfig,
     return {k: v.detach() for k, v in losses.items()}, grads
 
 
+def _branch(cfg: TrainConfig, policy: Policy, which: str, lean: bool = False):
+    _checkpoint_policies(cfg.remat_policy)  # refuse an unknown policy up front
+
+    def step(ts: TrainState, A, B, rate) -> dict:
+        losses, grads = loss_and_grads(ts, A, B, rate, cfg, policy, which, lean=lean)
+        (ts.opt_gen if which == "gen" else ts.opt_dis).update(grads)
+        return losses
+    return step
+
+
 def make_train_steps(cfg: TrainConfig, policy: Policy | None = None):
     """Returns (gen_step, dis_step): (ts, A, B, rate) -> losses, updating ts
     in place. A and B are NHWC images on the models' device."""
     policy = policy or default_policy(cfg.precision)
+    return _branch(cfg, policy, "gen"), _branch(cfg, policy, "dis")
 
-    def branch(which: str):
-        def step(ts: TrainState, A, B, rate) -> dict:
-            losses, grads = loss_and_grads(ts, A, B, rate, cfg, policy, which)
-            (ts.opt_gen if which == "gen" else ts.opt_dis).update(grads)
-            return losses
-        return step
 
-    return branch("gen"), branch("dis")
+def make_lean_dis_step(cfg: TrainConfig, policy: Policy | None = None):
+    """The lean D step (cfg.lean_dis): the D update of ``dis_step`` without
+    the ABA/BAB forwards, for D iterations that are not logged; its
+    recon_A and recon_B report 0 (graph.discogan_losses' dis_only)."""
+    return _branch(cfg, policy or default_policy(cfg.precision), "dis", lean=True)
+
+
+# The auto-remat rule's model of one train step's peak device memory, from
+# the shapes. What the step holds whatever the batch: parameters, Adam
+# moments, one subset's gradients, and each forward's weights written into
+# the kernels' layouts where the backward keeps them. What grows with the
+# batch: each forward's activations (a conv's output and its
+# BatchNorm/activation output a layer, in the compute dtype; the head's
+# output in it, in f32 and its sigmoid) where the backward keeps them, what
+# a remat region rebuilds at once, and the backward's f32 temporaries at
+# the widest layer; ACTIVATION_SHARE of those are alive at the peak, and
+# STEP_OVERHEAD_BYTES is what the counts miss. Both fitted by least squares
+# to the peaks of the plain 512px step under slim state "mv" at batch 8, 64
+# and 128 (12.69, 31.89 and 51.26 GiB; NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md), which the model then gives as 13.12, 31.14 and 51.72.
+ACTIVATION_SHARE = 0.72
+STEP_OVERHEAD_BYTES = 1_276_000_000
+# Remat turns on where the estimate exceeds the card's free memory less
+# REMAT_MARGIN of it (the allocator's fragmentation, other processes).
+REMAT_MARGIN = 0.10
+
+
+def _param_counts(image_size: int) -> tuple[int, int]:
+    """(one generator's, one discriminator's) parameters."""
+    chans = encoder_channels(image_size)
+    pairs = sum(a * b for a, b in zip(chans[:-1], chans[1:]))
+    bn = 2 * sum(chans[1:])
+    gen = (16 * (2 * 3 * chans[0] + 2 * pairs + 2 * chans[-1] * LATENT_CH)
+           + 2 * bn + 2 * chans[0] + 2 * LATENT_CH)
+    dis = 16 * (3 * chans[0] + pairs + chans[-1]) + bn
+    return gen, dis
+
+
+def _map_values(image_size: int) -> list:
+    """Values an image of each encoder layer's output (H*W*C)."""
+    out, size = [], image_size
+    for c in encoder_channels(image_size):
+        size //= 2
+        out.append(size * size * c)
+    return out
+
+
+def estimate_step_bytes(image_size: int, batch: int, compute_itemsize: int,
+                        slim_state: str = "mv", remat: bool = False,
+                        remat_policy: str | None = None,
+                        remat_dis: bool | None = None) -> int:
+    """The model's peak bytes of one G step of the DiscoGAN step (the D
+    step keeps less: its generator forwards take no gradient)."""
+    gen_p, dis_p = _param_counts(image_size)
+    p_bytes = 2 if slim_state == "all" else 4
+    m_bytes = 4 if slim_state == "off" else 2
+    total_p = 2 * (gen_p + dis_p)
+    fixed = total_p * p_bytes + 2 * total_p * m_bytes + 2 * gen_p * p_bytes
+
+    maps = _map_values(image_size)
+    img = image_size * image_size * 3
+    gen_act = batch * (4 * sum(maps) * compute_itemsize + img * (compute_itemsize + 8))
+    dis_act = batch * 2 * sum(maps) * compute_itemsize
+    io = batch * img * (compute_itemsize + 4)  # a region's input and output
+    g_reg, d_reg = _checkpoint_policies(remat_policy) if remat else (None, None)
+    if remat and remat_dis is False:
+        d_reg = None
+    grows = 3 * batch * max(maps) * 4  # the backward's f32 temporaries
+    rebuilt = 0
+    for act, casts, region in ((gen_act, gen_p * compute_itemsize, g_reg),
+                               (dis_act, dis_p * compute_itemsize, d_reg)):
+        # 4 forwards of each network; a region rebuilds one at a time
+        if region is None:
+            fixed, grows = fixed + 4 * casts, grows + 4 * act
+        elif region == "conv":  # the conv outputs kept, the weights cast outside
+            fixed, grows = fixed + 4 * casts, grows + 4 * (act // 2 + io)
+            rebuilt = max(rebuilt, act // 2)
+        else:
+            fixed, grows = fixed + casts, grows + 4 * io
+            rebuilt = max(rebuilt, act // 2 if region == "latent" else act)
+    return int(fixed + ACTIVATION_SHARE * (grows + rebuilt) + STEP_OVERHEAD_BYTES)
+
+
+def resolve_remat(cfg: TrainConfig, batch: int, device,
+                  free_bytes: int | None = None, compute_itemsize: int = 2):
+    """(cfg with remat and remat_dis decided, the decision's line). An
+    explicit cfg.remat / cfg.remat_dis stands. remat=None turns remat on
+    where the step's estimated peak passes ``free_bytes`` (on the card, its
+    free memory from ``torch.cuda.mem_get_info``) less REMAT_MARGIN of it,
+    and stays off on the CPU; remat_dis=None rematerializes the
+    discriminators only where the step does not fit with their activations
+    kept."""
+    if cfg.remat_policy is not None and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {cfg.remat_policy!r}")
+    device = torch.device(device)
+    if free_bytes is None and device.type == "cuda":
+        free_bytes = torch.cuda.mem_get_info(device)[0]
+    slim = resolve_slim_state(cfg)
+
+    def est(remat, remat_dis=None):
+        return estimate_step_bytes(cfg.image_size, batch, compute_itemsize, slim,
+                                   remat, cfg.remat_policy, remat_dis)
+
+    budget = None if free_bytes is None else int(free_bytes * (1 - REMAT_MARGIN))
+    remat, how = cfg.remat, "set"
+    if remat is None:
+        remat, how = budget is not None and est(False) > budget, "auto"
+    remat_dis = cfg.remat_dis
+    if remat and remat_dis is None:
+        remat_dis = budget is not None and est(True, False) > budget
+    remat_dis = bool(remat and remat_dis)
+    gib = 2 ** 30
+    line = (f"remat: {'on' if remat else 'off'} ({how}"
+            + (", no card" if budget is None else "")
+            + f"), policy {cfg.remat_policy or 'full'}, discriminators "
+            + f"{'on' if remat_dis else 'off'}; estimated step peak at "
+            + f"{cfg.image_size}px batch {batch}: {est(False) / gib:.2f} GiB without "
+            + f"remat, {est(True, remat_dis) / gib:.2f} GiB with it"
+            + ("" if budget is None else
+               f"; {free_bytes / gib:.2f} GiB free, budget {budget / gib:.2f} GiB "
+               f"({REMAT_MARGIN:.0%} margin)"))
+    return dataclasses.replace(cfg, remat=bool(remat), remat_dis=remat_dis), line
 
 
 def make_sample_fn(cfg: TrainConfig, policy: Policy | None = None):

@@ -372,3 +372,16 @@ def test_ab_variants_patch_the_source_once():
             for _, shape, _ in conv_ab.SHAPES[:-1]:
                 plan = conv_plan(*shape, torch.bfloat16)
                 assert plan.path == "wgmma" and plan.smem_bytes <= MAX_SMEM_BYTES, name
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_pairs_keep_the_single_plan(shape, dtype):
+    """P = 2 (the pair axis): the tile plan of a single call, the grid's z
+    (the split, or nothing) and the workspace twice over."""
+    one, two = conv_plan(*shape, dtype), conv_plan(*shape, dtype, pairs=2)
+    assert two._replace(pairs=1, grid=one.grid) == one
+    assert two.grid == (one.grid[0], one.grid[1], 2 * one.grid[2])
+    co = shape[-1]
+    for stats in (False, True):
+        assert two.workspace_floats(co, stats) == 2 * one.workspace_floats(co, stats)

@@ -13,7 +13,9 @@ column segment, split and unsplit reductions). Inputs are bf16 or f32;
 tolerance 1e-4 (f32) or 2e-2 (bf16, which the kernel and the plain version
 round at different places), relative to max(1, max|ref|); statistics, which
 both sides take from f32 sums of exact products, 1e-4 in either dtype. The
-reductions use no float atomics: two launches give the same bits.
+reductions use no float atomics: two launches give the same bits. With a
+pair axis (P = 2, ops/pairs.py) each kernel launches once, and each pair's
+outputs equal a single launch's on its operands bit for bit.
 """
 
 import pytest
@@ -344,3 +346,147 @@ def test_two_launches_give_the_same_bits(gen, dtype):
         for u, v in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):
             assert torch.equal(u, v)
+
+
+# ---- the pair axis (ops/pairs.py): one launch over P = 2 problems ---------
+
+def _members(t, p, nd=4):
+    return t if t is None or t.dim() == nd else t[p]
+
+
+def _flat(out):
+    """An output's tensors in order (y; y and the statistics; mean and var)."""
+    if isinstance(out, tuple):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _pair_check(kernel, fn, plain, operands, dtype, nd=None, **kw):
+    """One pair launch: one count of ``kernel``, each pair's outputs bit for
+    bit those of a single launch on its operands, and within the dtype's
+    tolerance of the plain pair version (the statistics within 1e-4)."""
+    from discogan_modernized_torch.ops import _build
+
+    nd = nd or (4,) * len(operands)
+    before = _build.launches[kernel]
+    got = fn(*operands, **kw)
+    assert _build.launches[kernel] == before + 1
+    for p in range(2):
+        single = fn(*(_members(t, p, d) for t, d in zip(operands, nd)), **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(_flat(got), _flat(single)):
+            assert torch.equal(a[p], b), (kernel, p)
+    for i, (a, b) in enumerate(zip(_flat(got), _flat(plain(*operands, **kw)))):
+        _close(a, b, dtype, 1e-4 if a.dtype == torch.float32 and i else None)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_pair", "shared"])
+@pytest.mark.parametrize("shape,act", [((8, 8, 8, 128), "leaky"), ((4, 5, 5, 100), "relu"),
+                                       ((8, 256, 256, 64), "relu"), ((1, 4, 4, 2048), None),
+                                       ((2, 5, 7, 24), "leaky")])
+def test_bn_act_pairs(gen, dtype, shape, act, shared):
+    c = shape[-1]
+    lead = () if shared else (2,)
+    x = _rand(gen, dtype, 2, *shape)
+    s = torch.rand(*lead, c, device="cuda", generator=gen) + 0.5
+    o = torch.randn(*lead, c, device="cuda", generator=gen)
+    _pair_check("bn_act", bn_act, bn_act_plain, (x, s, o), dtype, nd=(4, 1, 1), act=act)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 128, 128), (3, 5, 5, 128), (8, 1, 1, 100),
+                                   (3, 37, 41, 128), (1, 4, 4, 2048), (8, 4, 4, 2048)])
+def test_batch_stats_pairs(gen, dtype, shape):
+    x = _rand(gen, dtype, 2, *shape)
+    _pair_check("batch_stats", batch_stats, batch_stats_plain, (x,), dtype)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_pair", "shared"])
+@pytest.mark.parametrize("stats", [False, True], ids=["epilogue", "stats"])
+@pytest.mark.parametrize("dt,n,h,w,ci,co", [
+    (torch.bfloat16, 8, 512, 512, 3, 64),      # the stem
+    (torch.bfloat16, 8, 128, 128, 128, 256),   # enc2 at batch 8: unsplit
+    (torch.bfloat16, 8, 8, 8, 2048, 2048),     # enc6 at batch 8: split K
+    (torch.bfloat16, 1, 16, 16, 1024, 2048),   # a split that leaves a ragged part
+    (torch.bfloat16, 3, 10, 6, 64, 40),        # 64-row tiles, CO off the tile
+    (torch.float32, 3, 6, 10, 16, 72),         # the FMA kernel
+    (torch.float32, 2, 32, 32, 3, 64)])
+def test_conv_k4s2p1_pairs(gen, dt, n, h, w, ci, co, stats, shared):
+    configure(F32 if dt == torch.float32 else BF16)
+    x = _rand(gen, dt, 2, n, h, w, ci)
+    wt = _rand(gen, dt, *(() if shared else (2,)), 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+    kw = {"with_stats": True} if stats else {"act": "leaky"}
+    _pair_check("conv_k4s2p1", conv2d_k4s2p1, conv2d_k4s2p1_plain, (x, wt), dt, **kw)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_pair", "shared"])
+def test_conv_k4s2p1_pairs_affine(gen, shared):
+    """The serving epilogue with a scale and offset per pair or shared."""
+    configure(BF16)
+    x = _rand(gen, torch.bfloat16, 2, 4, 32, 32, 128)
+    wt = _rand(gen, torch.bfloat16, 2, 4, 4, 128, 256, scale=1 / 45)
+    lead = () if shared else (2,)
+    s = torch.rand(*lead, 256, device="cuda", generator=gen)
+    o = torch.randn(*lead, 256, device="cuda", generator=gen)
+    _pair_check("conv_k4s2p1", lambda x, w, s, o, **kw: conv2d_k4s2p1(x, w, scale=s, offset=o,
+                                                                        **kw),
+                lambda x, w, s, o, **kw: conv2d_k4s2p1_plain(x, w, scale=s, offset=o, **kw),
+                (x, wt, s, o), torch.bfloat16, nd=(4, 4, 1, 1), act="leaky")
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_pair", "shared"])
+@pytest.mark.parametrize("dt,n,h,w,ci,co", [
+    (torch.bfloat16, 8, 256, 256, 64, 128),    # enc1 at 512px, batch 8
+    (torch.bfloat16, 1, 200, 136, 32, 64),     # partial bands and strips
+    (torch.float32, 2, 128, 128, 16, 24)])     # the FMA kernel
+def test_halo_conv_pairs(gen, dt, n, h, w, ci, co, shared):
+    configure(F32 if dt == torch.float32 else BF16)
+    x = _rand(gen, dt, 2, n, h, w, ci)
+    wt = _rand(gen, dt, *(() if shared else (2,)), 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+    _pair_check("halo_conv_k4s2p1", halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_plain, (x, wt), dt,
+                act="leaky")
+
+
+@pytest.mark.parametrize("dt,n,h,w,ci,co", [
+    (torch.bfloat16, 8, 256, 256, 64, 3),      # the head at 512px, batch 8
+    (torch.bfloat16, 8, 256, 256, 64, 3),
+    (torch.bfloat16, 2, 37, 150, 128, 8),      # partial bands, two strips
+    (torch.float32, 2, 16, 16, 64, 3)])        # the FMA kernel
+def test_head_convt_pairs(gen, dt, n, h, w, ci, co):
+    configure(F32 if dt == torch.float32 else BF16)
+    x = _rand(gen, dt, 2, n, h, w, ci)
+    wt = _rand(gen, dt, 2, 4, 4, ci, co, scale=(4 * ci) ** -0.5)
+    _pair_check("head_convt", head_convt, head_convt_plain, (x, wt), dt)
+
+
+@pytest.mark.parametrize("dt,n,h,w,ci,co", [
+    (torch.bfloat16, 8, 512, 512, 3, 64),      # the stem's dw: its parts summed
+    (torch.bfloat16, 8, 128, 128, 128, 256),   # enc2: parity planes
+    (torch.bfloat16, 8, 8, 8, 1024, 2048),     # enc5: split over M
+    (torch.bfloat16, 2, 12, 20, 64, 72),       # per-tap windows (WO % 8 != 0)
+    (torch.float32, 2, 16, 16, 32, 64)])       # the FMA kernel
+def test_conv_k4s2p1_dw_pairs(gen, dt, n, h, w, ci, co):
+    configure(F32 if dt == torch.float32 else BF16)
+    x = _rand(gen, dt, 2, n, h, w, ci)
+    dy = _rand(gen, dt, 2, n, h // 2, w // 2, co, scale=0.1)
+    _pair_check("conv_k4s2p1_dw", conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain, (x, dy), dt)
+
+
+@pytest.mark.parametrize("dt,n,h,w,ci,co", [
+    (torch.bfloat16, 8, 256, 256, 64, 128),    # enc1's dw at 512px, batch 8
+    (torch.bfloat16, 1, 256, 200, 32, 64),
+    (torch.float32, 2, 128, 128, 16, 24)])     # the FMA kernel, split rows
+def test_halo_conv_k4s2p1_dw_pairs(gen, dt, n, h, w, ci, co):
+    configure(F32 if dt == torch.float32 else BF16)
+    x = _rand(gen, dt, 2, n, h, w, ci)
+    dy = _rand(gen, dt, 2, n, h // 2, w // 2, co, scale=0.1)
+    _pair_check("halo_conv_k4s2p1_dw", halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain,
+                (x, dy), dt)
+
+
+def test_pair_stride_off_16_bytes_raises(gen):
+    """A pair whose operand would start off a 16-byte boundary is refused,
+    as a misaligned view is: no slower path."""
+    x = _rand(gen, torch.bfloat16, 2, 3, 5, 7, 3)  # 315 values a pair: 630 bytes
+    s = torch.ones(2, 3, device="cuda")
+    with pytest.raises(RuntimeError):
+        bn_act(x, s, s, "relu")

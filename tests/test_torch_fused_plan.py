@@ -218,9 +218,10 @@ def test_stats_plan_reads_every_value_once(shape, dtype):
 
 
 def test_stats_splits_depend_on_the_shape_only(monkeypatch):
-    """No argument but the shape and the dtype, no query of the card; the
-    same rows and channels give the same plan however N, H, W make them."""
-    assert list(inspect.signature(stats_plan).parameters) == ["rows", "c", "dtype"]
+    """No argument but the shape, the dtype and the pairs of the launch, no
+    query of the card; the same rows and channels give the same plan
+    however N, H, W make them."""
+    assert list(inspect.signature(stats_plan).parameters) == ["rows", "c", "dtype", "pairs"]
 
     def refuse(*_):
         raise AssertionError("stats_plan asked the card")
@@ -315,3 +316,17 @@ def test_k1_order_of_sums_matches_jax(shape, tile_rows, dtype):
     x64 = x.reshape(rows, c).astype(np.float64)
     np.testing.assert_allclose(mean, x64.mean(0), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(var, x64.var(0), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("shape", STATS_SHAPES, ids=STATS_IDS)
+def test_pairs_keep_the_single_plans(shape, dtype):
+    """P = 2 (the pair axis): each kernel's plan of a single call, K1's
+    partials twice over and two pairs' tickets within the buffer."""
+    c, rows = shape[-1], _numel(shape) // shape[-1]
+    one, two = stats_plan(rows, c, dtype), stats_plan(rows, c, dtype, pairs=2)
+    assert two._replace(pairs=1) == one
+    assert two.partial_floats(c) == 2 * one.partial_floats(c)
+    assert 2 * two.ctiles <= STATS_MAX_TILES
+    assert bn_act_plan(_numel(shape), c, dtype, 2)._replace(pairs=1) == \
+        bn_act_plan(_numel(shape), c, dtype)

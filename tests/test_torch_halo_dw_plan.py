@@ -141,3 +141,14 @@ def test_emulated_staging_matches_the_plain_version(shape):
     assert plan.path == ("wgmma_planes" if (w // 2) % 8 == 0 else "wgmma_windows")
     want = halo_conv2d_k4s2p1_dw_plain(torch.from_numpy(x), torch.from_numpy(dy)).numpy()
     np.testing.assert_allclose(_emulate_wgmma(x, dy, plan), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_pairs_keep_the_single_plan(shape, dtype):
+    """P = 2 (the pair axis): the plan of a single call, its partials twice
+    over."""
+    one, two = halo_dw_plan(*shape, dtype), halo_dw_plan(*shape, dtype, pairs=2)
+    assert two._replace(pairs=1) == one
+    ci, co = shape[-2:]
+    assert two.workspace_floats(ci, co) == 2 * one.workspace_floats(ci, co)

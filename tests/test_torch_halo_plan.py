@@ -103,3 +103,11 @@ def test_plan_follows_the_card():
     """Fewer SMs, fewer bands: the grid stays one wave where it can."""
     small = tc_plan(4, *ENC1, torch.bfloat16, sms=66)
     assert small.rows == 32 and 4 * small.blocks_per_image <= 66
+
+
+@pytest.mark.parametrize("shape", MAIN + EDGE)
+def test_pairs_keep_the_single_plan(shape):
+    """P = 2 (the pair axis): each pair runs the tile plan of a single call."""
+    one = tc_plan(*shape, torch.bfloat16)
+    assert tc_plan(*shape, torch.bfloat16, pairs=2)._replace(pairs=1) == one
+    assert tc_plan(*shape, torch.float32, pairs=2) is None

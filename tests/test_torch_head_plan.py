@@ -147,3 +147,13 @@ def test_emulated_four_phase_gemm_matches_the_plain_version(n, h, w, ci, co):
     wt = rng.randn(4, 4, ci, co)
     want = head_convt_plain(torch.from_numpy(x), torch.from_numpy(wt)).numpy()
     np.testing.assert_allclose(_emulate_mma(x, wt), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_pairs_keep_the_single_plan(shape):
+    """P = 2 (the pair axis): each pair's bands and strips are a single
+    call's; the grid holds both pairs' blocks."""
+    one = head_plan(*shape, torch.bfloat16)
+    two = head_plan(*shape, torch.bfloat16, pairs=2)
+    assert two._replace(pairs=1, blocks=one.blocks) == one
+    assert two.blocks == 2 * one.blocks

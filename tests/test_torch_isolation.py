@@ -38,6 +38,21 @@ def test_every_module_imports_with_jax_blocked():
     assert r.stdout.strip() == "ok"
 
 
+# The modules the train step's graph variants added: the checks above and
+# below take every module of the port, these with them.
+VARIANT_MODULES = ["discogan_modernized_torch.tools.remat_bench",
+                   "discogan_modernized_torch.models.regions",
+                   "discogan_modernized_torch.ops.pairs",
+                   "discogan_modernized_torch.ops.recompute"]
+
+
+@pytest.mark.parametrize("module", VARIANT_MODULES)
+def test_variant_modules_are_checked(module):
+    assert module in port_modules()
+    path = PKG / Path(*module.split(".")[1:]).with_suffix(".py")
+    assert not FORBIDDEN.search(path.read_text())
+
+
 def test_sources_import_no_jax():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files

@@ -61,13 +61,28 @@ def test_trainer_end_to_end(tmp_path):
     assert (tmp_path / "inf" / "input_result.png").exists()
 
 
-@pytest.mark.parametrize("flag", ["--paired", "--lean_dis", "--remat=on",
-                                  "--remat_policy=conv", "--steps_per_call=2",
-                                  "--bn_sync", "--xla_copts=a=b", "--profile=p",
-                                  "--no_device_cache", "--ckpt_backend=npz"])
+@pytest.mark.parametrize("flag", ["--steps_per_call=2", "--bn_sync", "--xla_copts=a=b",
+                                  "--profile=p", "--no_device_cache", "--ckpt_backend=npz"])
 def test_unported_flags_are_refused(flag, tmp_path):
     with pytest.raises(SystemExit):
         run(tmp_path, flag)
+
+
+@pytest.mark.parametrize("flag,key,value", [
+    ("--paired", "paired", True), ("--lean_dis", "lean_dis", True),
+    ("--remat=on", "remat", True), ("--remat_policy=conv", "remat_policy", "conv")])
+def test_variant_flags_train(flag, key, value, tmp_path):
+    """The train step's graph variants through the trainer: every logged
+    loss finite, the variant in the train state's meta."""
+    import json
+
+    result_path, model_path = run(tmp_path, flag)
+    log = (result_path / "training_log.txt").read_text()
+    lines = LINE.findall(log)
+    assert len(lines) == 4, log
+    assert all(np.isfinite(float(v)) for v in re.findall(r"\d+\.\d{4}", "".join(lines)))
+    meta = json.loads((model_path / "train_state_meta.json").read_text())
+    assert meta["variants"][key] == value
 
 
 @pytest.mark.parametrize("extra,error", [
