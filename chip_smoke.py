@@ -5,8 +5,9 @@ version, drives the 512px serving path through the inference CLI and the
 serving daemon, trains the 512px DiscoGAN through the trainer CLI on the
 synthetic task, under the train step's graph variants (--paired,
 --lean_dis, --remat, concat_dis) and on an edges2shoes tree (stopped by
-SIGTERM and resumed), and trains the 64px angle-pairing model through its
-CLI.
+SIGTERM and resumed), one step a call and in chunks of steps replayed as
+CUDA graphs from the dataset on the card, and trains the 64px
+angle-pairing model through its CLI both ways.
 
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
 
@@ -98,7 +99,9 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               the plain path run twice, which must agree bit for bit.
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the 256-image synthetic task (32 iterations: 11 D,
-              21 G), with the launch counts of every D and G step checked
+              21 G; a line every 8), one step a call (--steps_per_call 1,
+              the batches gathered from the dataset on the card), with the
+              launch counts of every D and G step checked
               against PER_STEP, every loss finite, ms per D and per G step
               (CUDA events, median after the first two iterations), img/s
               and peak memory; gen_B_final.pth through the inference CLI;
@@ -117,19 +120,22 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               equal to the plain graph's bit for bit (lean: but the
               generators' statistics); every step's launches against
               variant_per_step's table (paired: half of PER_STEP); median D
-              and G ms over 3 rounds of D, G, G; one G step's device busy,
+              and G ms over 2 rounds of D, G, G; one G step's device busy,
               window and kernels under torch.profiler; peak memory; the
               auto-remat decision at batch 8 and 64 and one D and G step at
               batch 64 as it decides. Then the trainer CLI as above with
               --paired --lean_dis --remat=on --remat_policy=conv
-              --log_interval=4: launches per step, finite losses, every
+              --log_interval=4 --steps_per_call=1: launches per step, finite
+              losses, every
               logged line with nonzero RECON, iteration 0's line and the
               final parameters and moments equal to the plain run's.
   8. real data  an edges2shoes tree under the work directory (64 train
               and 8 test side-by-side 512x256 JPEGs from a numpy seed): one
               epoch of the host loader cold (decoding into the cache) and
               warm, timed; the trainer CLI at 512px, batch 8, bf16,
-              slim_state=all, 2 epochs (16 iterations), sent SIGTERM at the
+              slim_state=all, 2 epochs (16 iterations), one step a call from
+              the host loader (--steps_per_call 1 --no_device_cache), sent
+              SIGTERM at the
               end of iteration 7 (it saves and returns, and gives the
               SIGTERM handler back), resumed with --resume to the end, and
               run again uninterrupted: every step's launches checked
@@ -148,12 +154,37 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               G medians; a G
               step under mv and all split into its gradients and its Adam
               update (CUDA events).
-  9. angle    a car sweep (car_<id>_<azimuth>.png, 32 cars x 18 views,
+  9. chunks   the multi-step driver. Phase 7's CLI run on the trainer's
+              defaults with --profile: its path line (the dataset on the
+              card, CHUNK_K = 6 iterations a call, CUDA graphs on, remat
+              off); every chunk's launches (ChunkObserver: an eager chunk
+              launches PER_STEP of each step, the capture each kind's
+              PER_STEP once, replays none) and a graph replay count above
+              0; its log lines and final train state equal to phase 7's,
+              bit for bit; peak memory allocated and reserved beside phase
+              7's; the trace (iterations 3-14, all replayed) holding a
+              cudaGraphLaunch and kernels of all seven of K1-K6. Phase 8's
+              edges2shoes run under slim_state=all on the defaults: equal to
+              phase 8's per-step run from the host loader; phase 8's run
+              stopped by SIGTERM (saved at the misaligned iteration 8)
+              resumed on the defaults: a first chunk of 1 back to the
+              period's start, and equal to the uninterrupted chunked run.
+              The variants under capture: --paired --lean_dis --remat=on
+              --remat_policy=conv, two chunks of 4 (the second replayed)
+              against the same chunks run eagerly, bit for bit.
+              Then the chunked and the per-step path in one process from one
+              seeded state, in turns: ms an iteration over whole periods,
+              img/s, each block's device busy, window and idle share under
+              the profiler, peak memory; the dataset's build time.
+ 10. angle    a car sweep (car_<id>_<azimuth>.png, 32 cars x 18 views,
               64px) and the angle CLI's trainer at the angle parser's
-              defaults (10 epochs, 40 iterations at batch 64): launches
-              of every step against PER_STEP64, losses finite, log lines
-              without the FM field, median D and G step.
- 10. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
+              defaults (10 epochs, 40 iterations at batch 64), one step a
+              call: launches of every step against PER_STEP64, losses
+              finite, log lines without the FM field, median D and G step;
+              then on the trainer's defaults (chunks of ANGLE_K = 24
+              replayed as CUDA graphs): its path line, launches, log lines
+              and final state equal to the per-step run's.
+ 11. report   per-layer lines of K3 (with K5f at enc1) and K6 at their
               main-path shapes against the library call and the bound, and
               of K2 (batch 8, 4 and 1) and K1 (batch 8) with x.clone() of
               the same tensor beside them, with their sums per G step or
@@ -279,10 +310,14 @@ _phase_start = [None, None]
 
 
 def phase(name):
-    """Print the previous phase's duration, then this phase's header."""
+    """Print the previous phase's duration and the disk the checkout's
+    filesystem has in use (the card machine takes 45 GiB of writes in
+    all), then this phase's header."""
     now = time.perf_counter()
     if _phase_start[0] is not None:
-        print(f"-- {_phase_start[0]}: {now - _phase_start[1]:.1f} s", flush=True)
+        used = shutil.disk_usage(ROOT).used / 2**30
+        print(f"-- {_phase_start[0]}: {now - _phase_start[1]:.1f} s; {used:.1f} GiB of "
+              "disk in use", flush=True)
     _phase_start[:] = [name, now]
     print(f"\n== {name}", flush=True)
 
@@ -1501,6 +1536,13 @@ class StepObserver:
         return out
 
 
+# Phase 7's CLI run and the chunked one it is held against: 32 iterations,
+# a line every 8, samples and a save at iteration 0.
+SYNTHETIC_FLAGS = ("--task_name=synthetic", f"--image_size={SIZE}",
+                   f"--batch_size={TRAIN_BATCH}", "--epochs=1", "--precision=bf16",
+                   "--slim_state=mv", "--model_save_interval=1000", "--log_interval=8")
+
+
 def drive_trainer(work: Path):
     """The trainer CLI at 512px, batch 8, bf16, slim_state=mv, one epoch of
     the synthetic task; returns (model_path, launches, step ms)."""
@@ -1509,9 +1551,7 @@ def drive_trainer(work: Path):
     from discogan_modernized_torch.train.loop import run_training
 
     args = parse_with_config(translation_parser(), [
-        "--task_name=synthetic", f"--image_size={SIZE}",
-        f"--batch_size={TRAIN_BATCH}", "--epochs=1", "--precision=bf16",
-        "--slim_state=mv", "--model_save_interval=1000",
+        *SYNTHETIC_FLAGS, "--steps_per_call=1",
         f"--results_dir={work / 'results'}", f"--models_dir={work / 'models'}"])
     observer = StepObserver()
     torch.cuda.reset_peak_memory_stats()
@@ -1520,15 +1560,17 @@ def drive_trainer(work: Path):
     result, model_path = run_training(args, observer=observer)
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     step_ms = observer.report()
     steady = steady_img_s(observer, step_ms)
     print(f"trainer: {len(observer.steps)} iterations in {wall:.1f} s (host clock, "
           f"data, sample forwards and saves included); {steady:.1f} img/s at the "
-          f"median step times; peak memory {peak / 2**30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated)")
+          f"median step times; peak memory {peak / 2**30:.2f} GiB allocated, "
+          f"{reserved / 2**30:.2f} GiB reserved (torch.cuda.max_memory_allocated, "
+          f"max_memory_reserved)")
     return model_path, launches, {"step_ms": step_ms, "img_s": steady, "peak": peak,
-                                  "result": result}
+                                  "reserved": reserved, "result": result,
+                                  "model_path": model_path}
 
 
 def steady_img_s(observer, step_ms) -> float:
@@ -1588,7 +1630,7 @@ VARIANTS = {
     "concat_dis": {"concat_dis": True},
     "paired": {"paired": True},
 }
-VARIANT_ROUNDS = 3  # timed rounds of D, G, G after the first D and G steps
+VARIANT_ROUNDS = 2  # timed rounds of D, G, G after the first D and G steps
 TRAIN_LINE = re.compile(r"Iter \[(\d+)/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, "
                         r"FM: \d+\.\d{4}/\d+\.\d{4}, RECON: (\d+\.\d{4})/(\d+\.\d{4}), "
                         r"DIS: \d+\.\d{4}/\d+\.\d{4}")
@@ -1777,7 +1819,7 @@ def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) ->
         "--task_name=synthetic", f"--image_size={SIZE}",
         f"--batch_size={TRAIN_BATCH}", "--epochs=1", "--precision=bf16",
         "--slim_state=mv", "--model_save_interval=1000", "--log_interval=4",
-        "--paired", "--lean_dis", "--remat=on", "--remat_policy=conv",
+        "--paired", "--lean_dis", "--remat=on", "--remat_policy=conv", "--steps_per_call=1",
         f"--results_dir={work / 'variant_results'}", f"--models_dir={work / 'variant_models'}"])
     # the trainer decides remat_dis as this does (the estimate is far from
     # the card's free memory at batch 8)
@@ -1876,17 +1918,31 @@ def time_decode() -> None:
           f"(from the cache) {times['warm']:.3f} s (host clock)")
 
 
-def real_args(work: Path, tag: str, *extra):
+def real_args(work: Path, tag: str, *extra, per_step: bool = True):
+    """The edges2shoes run's flags; ``per_step``: one step a call from the
+    host loader (phase 8), else the trainer's defaults (the dataset on the
+    card, chunks of CUDA graphs)."""
     from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
 
     return parse_with_config(translation_parser(), [
         "--task_name=edges2shoes", f"--image_size={SIZE}", f"--batch_size={TRAIN_BATCH}",
         f"--epochs={REAL_EPOCHS}", "--precision=bf16", "--slim_state=all",
         "--model_save_interval=1000", f"--results_dir={work / tag / 'results'}",
-        f"--models_dir={work / tag / 'models'}", *extra])
+        f"--models_dir={work / tag / 'models'}",
+        *(("--steps_per_call=1", "--no_device_cache") if per_step else ()), *extra])
 
 
-def compare_states(a: Path, b: Path) -> None:
+def keep_train_state(model_path: Path) -> None:
+    """Delete a finished run's reference-layout .pth files, keeping its
+    train_state.pt and meta for later comparisons: a 512px run writes ~7 GB
+    at iteration 0 and at its end, and the card machine's disk takes 45 GiB
+    of writes in all, so a run's files live no longer than they are
+    needed."""
+    for f in model_path.glob("*.pth"):
+        f.unlink()
+
+
+def compare_states(a: Path, b: Path, what: str = "resumed vs uninterrupted") -> None:
     """The two runs' final train_state.pt, tensor by tensor: bit-identical,
     or the differing tensors and what differs, then a probe of which op
     gives other bits on the same inputs."""
@@ -1903,13 +1959,13 @@ def compare_states(a: Path, b: Path) -> None:
     differ = [(n, (x.float() - y.float()).abs().max().item()) for n, x, y in pairs
               if x.dtype != y.dtype or not torch.equal(x, y)]
     nbytes = sum(x.numel() * x.element_size() for _, x, _ in pairs)
-    print(f"final train_state.pt, resumed vs uninterrupted: {len(pairs)} tensors "
+    print(f"final train_state.pt, {what}: {len(pairs)} tensors "
           f"({nbytes / 2**30:.2f} GiB), {len(differ)} differ")
     if differ:
         for n, d in sorted(differ, key=lambda t: -t[1])[:12]:
             print(f"  {n}: max |diff| {d:.3e}")
         determinism_probe()
-        raise AssertionError("the resumed run's train state is not the uninterrupted one's")
+        raise AssertionError(f"train states differ: {what}")
 
 
 def determinism_probe() -> None:
@@ -1947,7 +2003,8 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     slim_state=all, 2 epochs (16 iterations): uninterrupted, then stopped
     by SIGTERM at the end of iteration SIGTERM_AT and resumed to the end;
     every step's launches checked, the two final train states compared.
-    Returns the uninterrupted run's launches."""
+    Returns the uninterrupted run's launches and the uninterrupted and the
+    stopped run's model directories."""
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.train.loop import run_training
 
@@ -1965,6 +2022,7 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
+    keep_train_state(uninterrupted)
     step_ms = full.report()
     img_s = steady_img_s(full, step_ms)
     print(f"real data, slim_state=all: {len(full.steps)} iterations in {wall:.1f} s "
@@ -1979,6 +2037,7 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     handler = signal.getsignal(signal.SIGTERM)
     stop = SigtermObserver(SIGTERM_AT)
     _, stopped = run_training(real_args(work, "stopped"), observer=stop)
+    keep_train_state(stopped)
     meta = json.loads((stopped / "train_state_meta.json").read_text())
     if not (meta.get("preempted") and meta["iters"] == SIGTERM_AT + 1
             and signal.getsignal(signal.SIGTERM) is handler):
@@ -1993,11 +2052,9 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     if done != list(range(SIGTERM_AT + 1, REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH)):
         raise AssertionError(f"the resumed run trained iterations {done}")
     resume.report()
-    shutil.rmtree(work / "stopped")
     compare_states(resumed, uninterrupted)
     shutil.rmtree(work / "resumed")
-    shutil.rmtree(work / "uninterrupted")
-    return launches
+    return launches, uninterrupted, stopped
 
 
 AB_ORDER = ("real", "synthetic", "pinned", "resident",
@@ -2125,7 +2182,371 @@ def optimizer_share() -> None:
     torch.cuda.empty_cache()
 
 
-# -- phase 9: the angle-pairing trainer at 64px ---------------------------------
+# -- phase 9: the multi-step driver: chunks replayed as CUDA graphs --------------
+
+CHUNK_K = 6  # auto_steps_per_call at 512px without remat: two [D, G, G] periods
+ANGLE_K = 24  # auto_steps_per_call at 64px
+CHUNK_ROUNDS = 3  # timed blocks of CHUNK_K iterations a path, in turns
+TIMING_IMAGES = 64  # a domain, for the timed blocks (8 batches an epoch)
+VARIANT_CHUNK = 4  # the variants under capture: [D, G, G, lean D] warms all three kinds
+PATH_LINE = re.compile(r"^train path: dataset (.*); steps_per_call (\d+) \((\w+)\); "
+                       r"CUDA graphs (on|off); remat (on|off)$", re.M)
+K_IDS = ("K1", "K2", "K3", "K4", "K5f", "K5b", "K6")
+
+
+class Tee(io.TextIOBase):
+    """A stream that writes to ``out`` and keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.text = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.text.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_captured(args, **kw):
+    """run_training with its standard output kept: (result, model_path, text)."""
+    from discogan_modernized_torch.train.loop import run_training
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result, model_path = run_training(args, **kw)
+    return result, model_path, tee.text.getvalue()
+
+
+def check_path_line(text: str, what: str, k: int) -> None:
+    """The trainer's path line: the dataset on the card, ``k`` iterations a
+    call, CUDA graphs on, remat off."""
+    m = PATH_LINE.search(text)
+    if m is None or not (m.group(1).startswith("on the card") and int(m.group(2)) == k
+                         and m.group(4) == "on" and m.group(5) == "off"):
+        raise AssertionError(f"{what}: path line {m and m.group(0)!r}, want the dataset on "
+                             f"the card, steps_per_call {k}, CUDA graphs on, remat off")
+    print(f"{what}: {m.group(0)}")
+
+
+def _add(tables) -> dict:
+    out: dict = {}
+    for t in tables:
+        for k, v in t.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+class ChunkObserver:
+    """Around each chunk of the chunked path: CUDA events, the chunk's
+    kernel launches and graph replays, a copy of its losses. ``report``
+    checks the launches: an eager chunk (the
+    warm-up) launches ``per_step`` of each of its steps; the chunk that
+    captures launches each captured kind's ``per_step`` once, at its
+    capture, and replays every step; a later chunk replays every step and
+    launches nothing."""
+
+    def __init__(self, per_step=None, batch: int = TRAIN_BATCH):
+        from discogan_modernized_torch.ops import _build
+        from discogan_modernized_torch.train import chunk
+
+        self.launches, self.replays = _build.launches, chunk.replays
+        self.per_step, self.batch = per_step or PER_STEP, batch
+        self.chunks = []  # (iters0, kinds, start, end, launches, replays, captured, losses)
+        self.seen, self.program = set(), None
+
+    def begin_chunk(self, iters0, kinds):
+        self._before = (dict(self.launches), sum(self.replays.values()))
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record()
+
+    def end_chunk(self, iters0, kinds, losses, program):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        before, replays = self._before
+        delta = {k: v - before[k] for k, v in self.launches.items() if v != before[k]}
+        captured = sorted(set(program.graphs) - self.seen)
+        self.seen = set(program.graphs)
+        self.program = program
+        self.chunks.append((iters0, kinds, self._start, end, delta,
+                            sum(self.replays.values()) - replays, captured, losses.clone()))
+
+    def report(self) -> dict:
+        """Check every chunk's launches, replays and losses, and that some
+        chunk replayed; return the ms an iteration
+        (CUDA events) over the chunks of whole periods: those that only
+        replayed, the one that captured (its host time inside), the eager
+        ones."""
+        torch.cuda.synchronize()
+        times = {"replayed": [], "capture": [], "eager": []}
+        for iters0, kinds, start, end, delta, replays, captured, losses in self.chunks:
+            if replays == 0:
+                want = _add(self.per_step[k] for k in kinds)
+            elif replays == len(kinds):
+                want = _add(self.per_step[k] for k in captured)
+                for k in captured:
+                    if self.program.launches[k] != self.per_step[k]:
+                        raise AssertionError(f"the {k} capture launched "
+                                             f"{self.program.launches[k]}, want "
+                                             f"{self.per_step[k]}")
+            else:
+                raise AssertionError(f"chunk at {iters0}: {replays} replays for "
+                                     f"{len(kinds)} steps")
+            if delta != want:
+                raise AssertionError(f"chunk at {iters0} ({kinds}, {replays} replays, "
+                                     f"captured {captured}): launches {delta}, want {want}")
+            if not torch.isfinite(losses).all().item():
+                raise AssertionError(f"chunk at {iters0}: non-finite losses")
+            if replays == 0 or len(kinds) % 3 == 0:
+                kind = "eager" if replays == 0 else "capture" if captured else "replayed"
+                times[kind].append(start.elapsed_time(end) / len(kinds))
+        n_replayed = sum(c[5] for c in self.chunks)
+        if not n_replayed:
+            raise AssertionError("no chunk replayed a CUDA graph")
+        kinds = sorted(self.seen)
+        print(f"chunks checked: {len(self.chunks)} chunks, {n_replayed} graph replays, "
+              f"captured {kinds} with launches " + "; ".join(
+                  f"{k} {sum(self.program.launches[k].values())}" for k in kinds)
+              + " (each its kind's per-step table); eager chunks launched their steps' "
+              "tables, replays nothing; all losses finite")
+        out = {k: statistics.median(v) for k, v in times.items() if v}
+        for k, v in times.items():
+            if v:
+                print(f"{k} chunks: median {out[k]:.3f} ms an iteration over {len(v)} "
+                      f"chunks (min {min(v):.3f}, max {max(v):.3f}; CUDA events)")
+        return out
+
+
+def check_trace(trace_dir: Path, observer: ChunkObserver) -> None:
+    """The --profile run's trace: one Chrome trace in ``trace_dir`` whose
+    iterations are all in replayed chunks, holding a cudaGraphLaunch and
+    device kernels of all seven of K1-K6."""
+    from collections import Counter
+
+    files = sorted(trace_dir.glob("trace_iters_*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile wrote {files}")
+    first, last = map(int, re.match(r"trace_iters_(\d+)-(\d+)\.json", files[0].name).groups())
+    inside = [c for c in observer.chunks if first <= c[0] <= last]
+    if not inside or any(c[5] != len(c[1]) for c in inside):
+        raise AssertionError(f"trace of iterations {first}-{last}: chunks "
+                             f"{[(c[0], c[5]) for c in inside]} not all replayed")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_id = Counter(kernel_label(e["name"]).split()[0] for e in kernels)
+    graph_launches = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+    in_graphs = sum(1 for e in kernels if any("graph" in k for k in e.get("args", {})))
+    missing = [k for k in K_IDS if not by_id[k]]
+    print(f"--profile trace {files[0].name} ({files[0].stat().st_size / 2**20:.1f} MiB): "
+          f"{len(kernels)} device kernels, {graph_launches} cudaGraphLaunch calls, "
+          f"{in_graphs} kernels with a graph id; port kernels "
+          + ", ".join(f"{k} {by_id[k]}" for k in K_IDS))
+    if missing or not graph_launches:
+        raise AssertionError(f"the trace lacks {missing or 'cudaGraphLaunch'}")
+
+
+def drive_chunked_cli(work: Path, synthetic: dict) -> dict:
+    """Phase 7's CLI run on the trainer's defaults (the dataset on the
+    card, chunks of CHUNK_K replayed as CUDA graphs) with --profile: its
+    path line; its launches and replays (``ChunkObserver``); its log lines
+    and final train state equal to phase 7's per-step run's, bit for bit;
+    its peak memory beside phase 7's; the trace's kernels. Returns its
+    launches."""
+    from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train import chunk
+
+    args = parse_with_config(translation_parser(), [
+        *SYNTHETIC_FLAGS, f"--profile={work / 'trace'}",
+        f"--results_dir={work / 'chunk_results'}", f"--models_dir={work / 'chunk_models'}"])
+    observer = ChunkObserver()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    chunk.reset_replays()
+    t0 = time.perf_counter()
+    result, model_path, text = run_captured(args, observer=observer)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    keep_train_state(model_path)
+    check_path_line(text, "chunked CLI", CHUNK_K)
+    ms = observer.report()
+    iters = sum(len(c[1]) for c in observer.chunks)
+    print(f"chunked CLI: {iters} iterations in {wall:.1f} s (host clock; the dataset, "
+          f"warm-up, captures, the trace, sample forwards and saves included); "
+          f"{TRAIN_BATCH * 1e3 / ms['replayed']:.1f} img/s over its replayed chunks "
+          f"against phase 7's {synthetic['img_s']:.1f}; peak memory "
+          f"{peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB reserved "
+          f"(phase 7: {synthetic['peak'] / 2**30:.2f}, {synthetic['reserved'] / 2**30:.2f})")
+    mine = TRAIN_LINE.findall((result / "training_log.txt").read_text())
+    theirs = TRAIN_LINE.findall((synthetic["result"] / "training_log.txt").read_text())
+    if mine != theirs or not mine:
+        raise AssertionError(f"log lines differ from phase 7's: {mine} vs {theirs}")
+    print(f"chunked CLI: the same {len(mine)} log lines as phase 7's")
+    compare_states(model_path, synthetic["model_path"], "chunked vs phase 7's per-step run")
+    check_trace(work / "trace", observer)
+    shutil.rmtree(work / "trace")
+    shutil.rmtree(model_path)
+    return launches
+
+
+def drive_real_chunks(work: Path, per_step_run: Path, stopped: Path) -> dict:
+    """The edges2shoes run under slim_state=all on the trainer's defaults:
+    uninterrupted (its final state equal to phase 8's per-step run from
+    the host loader), then --resume of phase 8's run stopped by SIGTERM
+    (saved at the misaligned iteration SIGTERM_AT + 1): its chunks start
+    with one that restores the period's alignment, and it ends equal to the
+    uninterrupted chunked run, bit for bit. Returns the uninterrupted run's
+    launches."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train import chunk
+
+    _build.reset_launches()
+    chunk.reset_replays()
+    full = ChunkObserver()
+    _, uninterrupted, text = run_captured(real_args(work, "chunked", per_step=False),
+                                          observer=full)
+    launches = dict(_build.launches)
+    keep_train_state(uninterrupted)
+    check_path_line(text, "chunked edges2shoes", CHUNK_K)
+    full.report()
+    compare_states(uninterrupted, per_step_run,
+                   "chunked from the card's dataset vs phase 8's per-step run from the loader")
+    at = json.loads((stopped / "train_state_meta.json").read_text())["iters"]
+    resume = ChunkObserver()
+    _, resumed, _ = run_captured(real_args(work, "chunk_resumed", f"--resume={stopped}",
+                                           per_step=False), observer=resume)
+    starts = [(c[0], len(c[1])) for c in resume.chunks]
+    if not at % 3 or starts[0] != (at, 3 - at % 3):
+        raise AssertionError(f"resumed from iteration {at}: chunks {starts}")
+    resume.report()
+    print(f"chunked resume of phase 8's SIGTERM-stopped run (saved at the misaligned "
+          f"iteration {at}): chunks (start, size) {starts}")
+    compare_states(resumed, uninterrupted, "chunked: resumed vs uninterrupted")
+    for tag in ("chunked", "chunk_resumed"):
+        shutil.rmtree(work / tag)
+    return launches
+
+
+def check_graph_variants() -> None:
+    """The step's graph variants under capture: from one seeded 512px bf16
+    state at batch 8 under --paired --lean_dis --remat=on
+    --remat_policy=conv, two chunks of VARIANT_CHUNK (a logged D, G and
+    lean D steps) eager and then replayed from CUDA graphs, against the
+    same chunks run eagerly from a copy of the state: every parameter,
+    moment and running statistic equal, bit for bit."""
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.data.pipeline import DeviceDataset, HostLoader, synthetic_pair
+    from discogan_modernized_torch.train.chunk import ChunkProgram
+    from discogan_modernized_torch.train.step import TrainConfig, init_train_state, kinds_in_range
+
+    configure(BF16)
+    cfg = TrainConfig(image_size=SIZE, precision="bf16", slim_state="mv", paired=True,
+                      lean_dis=True, remat=True, remat_policy="conv", remat_dis=False)
+    data = DeviceDataset(HostLoader(*synthetic_pair(4 * TRAIN_BATCH, SIZE, seed=5),
+                                    TRAIN_BATCH, SIZE, "cuda", seed=5))
+    k = VARIANT_CHUNK
+    rows = [np.concatenate(r)[:2 * k] for r in zip(*(data.epoch_rows(e) for e in range(2)))]
+    snaps = []
+    for graphs in (False, True):
+        ts = init_train_state(4, cfg, "cuda")
+        program = ChunkProgram(ts, cfg, BF16, *data.data, TRAIN_BATCH, k,
+                               kinds_in_range(cfg, 0, 2 * k), graphs=graphs)
+        for i0 in (0, k):
+            program(rows[0][i0:i0 + k], rows[1][i0:i0 + k], i0)
+        if graphs and sorted(program.graphs) != ["dis", "gen", "lean"]:
+            raise AssertionError(f"captured {sorted(program.graphs)}")
+        snaps.append(_snapshot(ts))
+        del ts, program
+        torch.cuda.empty_cache()
+    differ = [k for k in snaps[0] if not torch.equal(snaps[0][k], snaps[1][k])]
+    print(f"graph variants under capture (--paired --lean_dis --remat=on "
+          f"--remat_policy=conv): {2 * VARIANT_CHUNK} iterations, the second chunk replayed; "
+          f"{len(differ)} of {len(snaps[0])} tensors differ from the eager run's")
+    if differ:
+        raise AssertionError(f"replayed variant steps differ from eager ones: {differ[:6]}")
+
+
+def chunk_timing() -> None:
+    """The chunked and the per-step path in one process from one seeded
+    512px bf16 state at batch 8 (slim_state=mv, the dataset on the card):
+    after both are warm, CHUNK_ROUNDS blocks of CHUNK_K iterations (whole
+    [D, G, G] periods) a path in turns (chunked, per-step, per-step,
+    chunked, ...), host clock around each block with a synchronize at both
+    ends; ms an iteration and img/s; one block of each under the profiler
+    (device busy, window, idle share); peak memory of each. The dataset's
+    build time on its own line."""
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.data.pipeline import DeviceDataset, HostLoader, synthetic_pair
+    from discogan_modernized_torch.train.chunk import ChunkProgram
+    from discogan_modernized_torch.train.step import (TrainConfig, auto_steps_per_call,
+                                                      init_train_state, make_train_steps)
+
+    configure(BF16)
+    cfg = TrainConfig(image_size=SIZE, precision="bf16", slim_state="mv", remat=False)
+    if auto_steps_per_call(cfg, SIZE) != CHUNK_K:
+        raise AssertionError("auto_steps_per_call moved")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = DeviceDataset(HostLoader(*synthetic_pair(TIMING_IMAGES, SIZE), TRAIN_BATCH, SIZE,
+                                    "cuda"))
+    torch.cuda.synchronize()
+    print(f"dataset on the card: 2 x {TIMING_IMAGES} images at {SIZE}px, "
+          f"{data.nbytes / 2**30:.2f} GiB f32, built in {time.perf_counter() - t0:.3f} s "
+          "(host clock, the synthetic arrays' generation included)")
+    ts = init_train_state(3, cfg, "cuda")
+    program = ChunkProgram(ts, cfg, BF16, *data.data, TRAIN_BATCH, CHUNK_K, {"dis", "gen"})
+    gen_step, dis_step = make_train_steps(cfg, BF16)
+    rows = [r for e in range(12) for r in zip(*data.epoch_rows(e))]
+    at = [0]
+
+    def chunked():
+        i0 = at[0]
+        block = rows[i0:i0 + CHUNK_K]
+        program(np.stack([a for a, _ in block]), np.stack([b for _, b in block]), i0)
+        at[0] += CHUNK_K
+
+    def per_step():
+        for i in range(at[0], at[0] + CHUNK_K):
+            A, B = data.gather(*rows[i])
+            (dis_step if cfg.is_dis_iter(i) else gen_step)(ts, A, B, cfg.rate_for(i))
+        at[0] += CHUNK_K
+
+    paths = {"chunked": chunked, "per-step": per_step}
+    chunked()  # the warm-up: eager
+    chunked()  # captures, then replays
+    per_step()
+    times = {k: [] for k in paths}
+    for r in range(CHUNK_ROUNDS):
+        for name in ("chunked", "per-step") if r % 2 == 0 else ("per-step", "chunked"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / CHUNK_K)
+    for name, fn in paths.items():
+        med = statistics.median(times[name])
+        prof = {}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        profile_call(fn, f"{CHUNK_K} iterations {name} (512px, batch 8, bf16)", top=0,
+                     out=prof)
+        print(f"{name}: {med:.3f} ms an iteration (median of {CHUNK_ROUNDS} blocks of "
+              f"{CHUNK_K}: " + ", ".join(f"{t:.3f}" for t in times[name])
+              + f"; host clock), {TRAIN_BATCH * 1e3 / med:.1f} img/s; device busy "
+              f"{prof.get('busy_ms', float('nan')):.3f} ms of a "
+              f"{prof.get('window_ms', float('nan')):.3f} ms window for the block; memory "
+              f"allocated {before / 2**30:.2f} GiB before the block, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB in it, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    del ts, program, data
+    torch.cuda.empty_cache()
+
+
+# -- phase 10: the angle-pairing trainer at 64px ---------------------------------
 
 ANGLE_CARS, ANGLE_STEP = 32, 10  # cars, degrees between views (18 views a car)
 ANGLE_LINE = re.compile(r"^Iter \[\d+/\d+\] GEN: \d+\.\d{4}/\d+\.\d{4}, "
@@ -2150,24 +2571,33 @@ def write_cars(root: Path) -> None:
 
 def drive_angle(work: Path) -> dict:
     """The angle CLI's trainer at the angle parser's defaults (car2car,
-    64px, batch 64, bf16 on the card, rates 0.9, 10 epochs: 40 iterations);
-    every step's launches checked against PER_STEP64, every loss finite, the
-    log's lines without the FM field. Returns the run's launches."""
+    64px, batch 64, bf16 on the card, rates 0.9, 10 epochs: 40 iterations),
+    one step a call: every step's launches checked against PER_STEP64,
+    every loss finite, the log's lines without the FM field. Then the same
+    run on the trainer's defaults (the dataset on the card, chunks of
+    ANGLE_K iterations replayed as CUDA graphs): its path line, its
+    launches, its log lines and its final train state equal to the
+    per-step run's. Returns the two runs' launches."""
     from discogan_modernized_torch.cli.common import angle_parser, parse_with_config
     from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train import chunk
     from discogan_modernized_torch.train.loop import run_training
 
     os.environ["DISCOGAN_DATASETS_ROOT"] = str(work / "angle_data")
     write_cars(work / "angle_data")
-    args = parse_with_config(angle_parser(), [
-        f"--results_dir={work / 'angle' / 'results'}",
-        f"--models_dir={work / 'angle' / 'models'}"])
-    if (args.image_size, args.batch_size) != (SIZE64, BATCH64):
+
+    def args(tag, *extra):
+        return parse_with_config(angle_parser(), [
+            f"--results_dir={work / tag / 'results'}",
+            f"--models_dir={work / tag / 'models'}", *extra])
+
+    per_step = args("angle", "--steps_per_call=1")
+    if (per_step.image_size, per_step.batch_size) != (SIZE64, BATCH64):
         raise AssertionError("the angle parser's defaults moved")
     observer = StepObserver(PER_STEP64, batch=BATCH64)
     _build.reset_launches()
     t0 = time.perf_counter()
-    result, _ = run_training(args, observer=observer, angle_variant=True)
+    result, model_path = run_training(per_step, observer=observer, angle_variant=True)
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
     step_ms = observer.report()
@@ -2178,7 +2608,25 @@ def drive_angle(work: Path) -> dict:
     print(f"angle CLI: {len(observer.steps)} iterations at {SIZE64}px batch {BATCH64} "
           f"in {wall:.1f} s (host clock); {steady_img_s(observer, step_ms):.1f} img/s "
           f"at the median step times; log lines without FM, e.g. {lines[0]!r}")
-    return launches
+
+    chunked = ChunkObserver(PER_STEP64, batch=BATCH64)
+    _build.reset_launches()
+    chunk.reset_replays()
+    t0 = time.perf_counter()
+    c_result, c_model_path, text = run_captured(args("angle_chunks"), observer=chunked,
+                                                angle_variant=True)
+    wall = time.perf_counter() - t0
+    chunk_launches = dict(_build.launches)
+    check_path_line(text, "angle CLI on its defaults", ANGLE_K)
+    c_ms = chunked.report()
+    if ANGLE_LINE.findall((c_result / "training_log.txt").read_text()) != lines:
+        raise AssertionError("the chunked angle run's log lines differ from the per-step run's")
+    print(f"angle CLI chunked: {sum(len(c[1]) for c in chunked.chunks)} iterations in "
+          f"{wall:.1f} s (host clock); {c_ms['replayed']:.3f} ms an iteration over its "
+          f"replayed chunks; the same {len(lines)} log lines as the per-step run")
+    compare_states(c_model_path, model_path, "angle, chunked vs per-step")
+    return launches, chunk_launches
+
 
 def main() -> int:
     phase("device")
@@ -2235,6 +2683,7 @@ def main() -> int:
         serve_latency(tr, images)
         tr.close()
         check_serve_outputs(model_dir, images)
+        shutil.rmtree(model_dir)
 
         phase("equivalence: one f32 D and G step at 512px, kernels vs plain")
         check_equivalence()
@@ -2246,6 +2695,7 @@ def main() -> int:
         _build.reset_launches()
         forwards = drive_cli(train_model_path, work / "trained", images)
         per_forward_check(dict(_build.launches), forwards, "CLI on trained weights")
+        keep_train_state(train_model_path)
         profile_g_step()
 
         phase("train: the step's graph variants at 512px, batch 8, bf16")
@@ -2255,15 +2705,23 @@ def main() -> int:
         _build.reset_launches()
         drive_variant_cli(work, train_model_path, synthetic["result"])
         variant_cli_counts = dict(_build.launches)
-        shutil.rmtree(train_model_path)
 
         phase("train: a real-data task at 512px, slim_state=all, SIGTERM and resume")
-        real_counts = drive_real_data(work, synthetic)
+        real_counts, *real_run = drive_real_data(work, synthetic)
         data_source_ab(work)
         optimizer_share()
 
+        phase("train: chunks of the step replayed as CUDA graphs, the dataset on the card")
+        chunk_counts = drive_chunked_cli(work, synthetic)
+        shutil.rmtree(train_model_path)
+        real_chunk_counts = drive_real_chunks(work, *real_run)
+        shutil.rmtree(work / "uninterrupted")
+        shutil.rmtree(work / "stopped")
+        check_graph_variants()
+        chunk_timing()
+
         phase("train: the angle-pairing CLI at 64px")
-        angle_counts = drive_angle(work)
+        angle_counts, angle_chunk_counts = drive_angle(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2271,7 +2729,9 @@ def main() -> int:
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
                     "train": train_counts[k], "variants": variant_counts[k],
                     "variant_cli": variant_cli_counts[k], "real_data": real_counts[k],
-                    "angle": angle_counts[k]} for k in train_counts}
+                    "chunks": chunk_counts[k], "real_data_chunks": real_chunk_counts[k],
+                    "angle": angle_counts[k], "angle_chunks": angle_chunk_counts.get(k, 0)}
+                for k in train_counts}
     per_layer_lines(results)
     summary = kernel_summary(results, launches, pair_ms)
     for name, v in variants.items():

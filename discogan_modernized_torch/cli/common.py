@@ -108,10 +108,12 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
                    celebA_flags: bool) -> argparse.ArgumentParser:
     """The flags both trainers take (the JAX package's ``add_common_flags``,
     ``cli/common.py:81-235``), as far as the port has them. Not ported
-    yet, and so refused: --steps_per_call, --no_device_cache, --bn_sync,
-    --xla_copts, --profile; and --ckpt_backend, since the port writes its
-    train state with torch.save only (the JAX package's orbax backend has
-    no counterpart here)."""
+    yet, and so refused: --bn_sync and the distributed flags (data
+    parallelism and the mesh modes), --exported and --exported_rev
+    (inference export); --xla_copts, which sets XLA flags and has no CUDA
+    meaning; and --ckpt_backend, since the port writes its train state with
+    torch.save only (the JAX package's orbax backend has no counterpart
+    here)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
@@ -213,6 +215,23 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
                         'generators\' 1x1 latents, conv = every conv output '
                         '(the backward rebuilds only the BatchNorm and '
                         'activation chains)')
+    p.add_argument('--steps_per_call', type=int, default=None,
+                   help='(extension) train iterations a call, gathered from '
+                        'the decoded dataset on the device, each step kind '
+                        'replayed as a CUDA graph on the card. Default: with '
+                        'the dataset on the card, 24 at <= 128px, 6 (two '
+                        'D/G periods) above without remat, 1 with remat on '
+                        'there; 1 otherwise. 1 = one step a call. Above 1 '
+                        'it needs the dataset on the device (on the CPU it '
+                        'is built for it, and the steps run eagerly)')
+    p.add_argument('--no_device_cache', action='store_true',
+                   help='(extension) keep the decoded dataset off the '
+                        'device: batches come from the host loader, one '
+                        'step a call. Otherwise the dataset goes on the card '
+                        'where both domains fit 30%% of its memory')
+    p.add_argument('--profile', type=str, default=None, metavar='DIR',
+                   help='(extension) write a torch.profiler Chrome trace of '
+                        'iterations 2-9 (CUDA and CPU on the card) into DIR')
     return p
 
 

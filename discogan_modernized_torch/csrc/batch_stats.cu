@@ -26,16 +26,20 @@
 //   ticket from its channel tile's counter, after a __threadfence. The
 //   block that takes the last one sums the tile's partials in split order
 //   (its threads on interleaved splits, then their groups in order), writes
-//   mean and var, and puts the counter back to 0 for the next call. The
-//   atomic only elects that block; the order of the sums is fixed. A single
-//   split writes mean and var from its own sums.
+//   mean and var. The atomic only elects that block; the order of the sums
+//   is fixed. A single split writes mean and var from its own sums.
+//
+// The counters and partials are the call's own (a workspace the wrapper
+// allocates per call; the entry zeroes the counters with cudaMemsetAsync on
+// the call's stream), so a launch captured in a CUDA graph keeps pointing at
+// memory of its own, and replays zero the counters again.
 #include "common.cuh"
 
 namespace {
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_LANES = 32;
-constexpr int MAX_TILES = 1024;  // counters in the wrapper's ticket buffer
+constexpr int MAX_TILES = 1024;  // counters a launch (ctiles a pair)
 constexpr int UNROLL = 4;        // loads in flight a thread
 constexpr int SPLIT_UNROLL = 8;  // partials a thread loads at once when it sums them
 
@@ -236,7 +240,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   __syncthreads();
   if (!last) return;
   sum_splits<FV, SQ>(part, splits, rows, c, c0, w, mean, var, sh);
-  if (threadIdx.x == 0) tickets[blockIdx.y] = 0;
 }
 
 template <typename T, int V>
@@ -256,7 +259,7 @@ int launch(const void* x, long long rows, int c, int lanes, int ctiles, int spli
 // rows_per_split, unroll, shuffle) is ops/fused.py::stats_plan's; one the
 // kernel cannot run, or whose splits do not cover the rows exactly once, is
 // refused. `part` holds 2 * splits * C floats (16-byte aligned) a pair;
-// `tickets` MAX_TILES counters that are 0 between calls, ctiles a pair.
+// `tickets` ctiles counters a pair, zeroed here before the launch.
 // pairs, x_ps: the pair axis (common.cuh); pair p's x starts x_ps values
 // after pair 0's, its mean and var C floats after pair 0's.
 extern "C" int discogan_batch_stats(const void* x, void* part, void* tickets, void* mean,
@@ -283,6 +286,10 @@ extern "C" int discogan_batch_stats(const void* x, void* part, void* tickets, vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   unsigned* t = static_cast<unsigned*>(tickets);
+  if (splits > 1) {
+    const cudaError_t e = cudaMemsetAsync(t, 0, sizeof(unsigned) * pairs * ctiles, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   float* m = static_cast<float*>(mean);
   float* vr = static_cast<float*>(var);
   const PairStrides ps{x_ps, 0, 0, 0, 2LL * splits * c, c};

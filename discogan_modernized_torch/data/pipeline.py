@@ -1,6 +1,6 @@
-"""Training data: the synthetic task and the host loader (the port of the
-JAX package's ``PrefetchLoader`` host epoch, without its device-resident
-dataset).
+"""Training data: the synthetic task, the host loader and the dataset on
+the device (the port of the JAX package's ``PrefetchLoader``: its host
+epoch, and its device path, data/pipeline.py:89-187 and :310-326).
 
 ``HostLoader`` yields one epoch of (A, B) batches with independent
 per-domain shuffles (unpaired training, ref dataset.py:24-35). Datasets
@@ -12,9 +12,19 @@ moves it to the card with ``non_blocking=True``. A file that fails to
 decode is skipped (ref dataset.py:44-46) and remembered by the cache, so
 its batch comes out smaller.
 
-Each epoch's two permutations are drawn from (seed, epoch), so a resumed
-run sees the batches the uninterrupted run saw; ``skip`` starts an epoch
-at a batch index without decoding the batches before it.
+``DeviceDataset`` decodes both domains once, through the loader's cache,
+into f32 tensors on the device, and gathers each batch there by index:
+no image crosses from the host after the build. A file that fails to
+decode takes a substitute image drawn from (seed, domain, index), so the
+counts stay fixed. ``fits_device_budget`` says whether the trainer keeps
+it on the card: both domains within DEVICE_BUDGET_SHARE of the card's
+memory, as the JAX package's rule takes 30% of the device's
+``bytes_limit``.
+
+Each epoch's two permutations are drawn from (seed, epoch)
+(``epoch_perms``), so a resumed run sees the batches the uninterrupted
+run saw, and the loader and the dataset give the same batches; ``skip``
+starts an epoch at a batch index without decoding the batches before it.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from .cache import STATUS_OK, STATUS_UNKNOWN, DecodedCache, cache_enabled
 from .preprocess import decode_image
 
 PREFETCH = 3  # batches the decode thread keeps ready
+DEVICE_BUDGET_SHARE = 0.3  # of the card's memory, for the decoded dataset
+DECODE_CHUNK = 256  # samples a decode batch of the dataset's build
 
 
 def synthetic_pair(n: int, image_size: int, seed: int = 0):
@@ -188,3 +200,73 @@ class HostLoader:
         if self._pool is not None:
             self._pool.shutdown()
             self._pool = None
+
+
+def dataset_bytes(n_a: int, n_b: int, image_size: int) -> int:
+    """Both decoded domains in f32."""
+    return (n_a + n_b) * image_size * image_size * 3 * 4
+
+
+def fits_device_budget(n_a: int, n_b: int, image_size: int, device) -> bool:
+    """Whether both decoded domains fit DEVICE_BUDGET_SHARE of the card's
+    total memory (``torch.cuda.mem_get_info``)."""
+    total = torch.cuda.mem_get_info(torch.device(device))[1]
+    return dataset_bytes(n_a, n_b, image_size) <= DEVICE_BUDGET_SHARE * total
+
+
+class DeviceDataset:
+    """Both domains of ``loader`` decoded once into (N, H, W, 3) f32
+    tensors on its device (``data``); the batches of an epoch gathered
+    there by the loader's (seed, epoch) order."""
+
+    def __init__(self, loader: HostLoader):
+        self.device = loader.device
+        self.batch_size, self.seed = loader.batch_size, loader.seed
+        self.n_batches = loader.n_batches
+        self.data = tuple(self._build(loader, k) for k in (0, 1))
+        for c in loader.caches:
+            if c is not None:
+                c.flush()
+
+    def _build(self, loader: HostLoader, k: int) -> torch.Tensor:
+        data = (loader.data_A, loader.data_B)[k]
+        if not loader.paths[k]:
+            return torch.from_numpy(np.ascontiguousarray(data, np.float32)).to(self.device)
+        size = loader.image_size
+        out = torch.empty((len(data), size, size, 3), dtype=torch.float32, device=self.device)
+        paths = [str(p) for p in data]
+        for i in range(0, len(paths), DECODE_CHUNK):
+            arrs = loader._decode_paths(paths[i:i + DECODE_CHUNK], loader.domains[k],
+                                        loader.caches[k])
+            arrs = [a if a is not None else np.random.default_rng(
+                        [self.seed, k, i + j]).random((size, size, 3), dtype=np.float32)
+                    for j, a in enumerate(arrs)]
+            out[i:i + len(arrs)].copy_(torch.from_numpy(np.stack(arrs)))
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.data)
+
+    def epoch_rows(self, epoch: int):
+        """Epoch ``epoch``'s index rows into each domain, (n_batches,
+        batch) int64 each: the loader's batches."""
+        pa, pb = epoch_perms(self.seed, epoch, len(self.data[0]), len(self.data[1]))
+        n = self.n_batches * self.batch_size
+        return (pa[:n].reshape(self.n_batches, -1).astype(np.int64),
+                pb[:n].reshape(self.n_batches, -1).astype(np.int64))
+
+    def gather(self, idx_A, idx_B):
+        """The batch of the index rows ``idx_A``, ``idx_B``, on the device."""
+        def take(data, idx):
+            idx = torch.from_numpy(np.asarray(idx, np.int64))
+            if self.device.type == "cuda":
+                idx = idx.pin_memory().to(self.device, non_blocking=True)
+            return data.index_select(0, idx)
+        return take(self.data[0], idx_A), take(self.data[1], idx_B)
+
+    def epoch(self, epoch: int, skip: int = 0):
+        """Yield epoch ``epoch``'s batches from batch index ``skip`` on."""
+        ia, ib = self.epoch_rows(epoch)
+        for i in range(skip, self.n_batches):
+            yield self.gather(ia[i], ib[i])

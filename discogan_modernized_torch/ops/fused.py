@@ -19,7 +19,6 @@ and offset per pair ((P, C)) or shared ((C,)).
 from __future__ import annotations
 
 import math
-import threading
 from typing import NamedTuple
 
 import torch
@@ -35,8 +34,8 @@ from .conv_k4s2p1 import H100_SMS
 # STATS_UNROLL loads in flight a thread; about STATS_TARGET_BLOCKS blocks
 # (two an SM) split the rows, each split of at least STATS_MIN_STEPS
 # unrolled steps of every row lane. The last block of each channel tile
-# sums the splits' partials, elected by a counter in a per-device,
-# per-stream buffer of STATS_MAX_TILES (tools/fused_ab.py times the
+# sums the splits' partials, elected by a counter of its own; at most
+# STATS_MAX_TILES counters a launch (tools/fused_ab.py times the
 # alternatives).
 STATS_THREADS, STATS_MAX_LANES, STATS_UNROLL, STATS_MIN_STEPS = 512, 8, 4, 4
 STATS_TARGET_BLOCKS = 2 * H100_SMS
@@ -117,24 +116,14 @@ def bn_act_plan(numel: int, c: int, dtype, pairs: int = 1) -> BnActPlan:
     return BnActPlan(width, False, BN_THREADS, blocks, 1, pairs)
 
 
-_scratch: dict = {}
-_scratch_lock = threading.Lock()
-
-
-def _stats_scratch(x: torch.Tensor, stream: int, floats: int):
-    """K1's tile counters and partial sums for x's device and stream: the
-    counters zeroed once here and put back to 0 by the kernel's last block
-    of each tile; the partials grown to ``floats`` where a call needs more.
-    Calls on one stream run in order, so they share both."""
-    key = (x.device.index, stream)
-    with _scratch_lock:
-        tickets, part = _scratch.get(key, (None, None))
-        if tickets is None:
-            tickets = torch.zeros(STATS_MAX_TILES, dtype=torch.int32, device=x.device)
-        if part is None or part.numel() < floats:
-            part = torch.empty(floats, dtype=torch.float32, device=x.device)
-        _scratch[key] = (tickets, part)
-    return tickets, part
+def _stats_workspace(x: torch.Tensor, tiles: int, floats: int):
+    """K1's tile counters and partial sums, the call's own: one buffer from
+    the caching allocator (so from the graph's pool under a capture), the
+    counters first, padded to 16 bytes; the C entry zeroes them on the
+    call's stream. Returns (tickets, partials)."""
+    words = -(-tiles // 4) * 4
+    ws = torch.empty(words + floats, dtype=torch.int32, device=x.device)
+    return ws[:words], ws[words:].view(torch.float32)
 
 
 def batch_stats_plain(x: torch.Tensor):
@@ -163,15 +152,14 @@ def batch_stats(x: torch.Tensor):
                          f"tiles pass the {STATS_MAX_TILES} tickets")
     stats = torch.empty((2, pairs, c) if paired else (2, c), dtype=torch.float32,
                         device=x.device)
-    stream = _build.stream_of(x)
-    tickets, part = _stats_scratch(x, stream, plan.partial_floats(c))
+    tickets, part = _stats_workspace(x, pairs * plan.ctiles, plan.partial_floats(c))
     lib = _build.library()
     _build.launch("batch_stats", lib.discogan_batch_stats, x.data_ptr(),
                   part.data_ptr(), tickets.data_ptr(), stats[0].data_ptr(),
                   stats[1].data_ptr(), rows, c, _build.DTYPE_CODES[x.dtype], plan.width,
                   plan.threads, plan.lanes, plan.row_lanes, plan.ctiles, plan.splits,
                   plan.rows_per_split, plan.unroll, int(plan.shuffle), pairs, rows * c,
-                  stream)
+                  _build.stream_of(x))
     return stats[0], stats[1]
 
 

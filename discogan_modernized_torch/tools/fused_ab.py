@@ -84,9 +84,9 @@ _TWO_LAUNCHES = [
      "  sum_splits<FV, SQ>(part, splits, rows, c, c0, min(width, c - c0), mean, var, sh);\n"
      "}\n\n"
      "template <typename T, int V>\nint launch("),
-    ("                                                    rows_per_split, part, tickets, mean, var);\n"
+    ("                                                    rows_per_split, part, tickets, mean, var, ps);\n"
      "  return launch_status();",
-     "                                                    rows_per_split, part, tickets, mean, var);\n"
+     "                                                    rows_per_split, part, tickets, mean, var, ps);\n"
      "  if (splits > 1)\n"
      "    finalize_kernel<V == 1 ? 1 : 4, MAX_THREADS * V><<<ctiles, threads, 0, s>>>(\n"
      "        part, splits, rows, c, lanes * V, mean, var);\n"
@@ -231,7 +231,8 @@ def _k2_call(fn, name, x, s, o, y):
     def call():
         err = fn(x.data_ptr(), s.data_ptr(), o.data_ptr(), y.data_ptr(), x.numel(),
                  x.shape[-1], 1, _build.DTYPE_CODES[x.dtype], plan.width, int(plan.fixed),
-                 plan.threads, plan.blocks, plan.unroll, _build.stream_of(x))
+                 plan.threads, plan.blocks, plan.unroll, 1, x.numel(), x.numel(), 0,
+                 _build.stream_of(x))
         if err:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return plan, call
@@ -254,7 +255,8 @@ def _k1_call(fn, name, x, tickets):
         err = fn(x.data_ptr(), part.data_ptr(), tickets.data_ptr(), stats[0].data_ptr(),
                  stats[1].data_ptr(), rows, c, _build.DTYPE_CODES[x.dtype], plan.width,
                  plan.threads, plan.lanes, plan.row_lanes, plan.ctiles, plan.splits,
-                 plan.rows_per_split, plan.unroll, int(plan.shuffle), _build.stream_of(x))
+                 plan.rows_per_split, plan.unroll, int(plan.shuffle), 1, rows * c,
+                 _build.stream_of(x))
         if err:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
         return stats[0], stats[1]

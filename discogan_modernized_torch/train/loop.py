@@ -25,11 +25,34 @@ logged one the full graph), ``--remat {on,off}`` and ``--remat_policy``;
 with ``--remat`` unset, ``resolve_remat`` decides from the card's free
 memory and prints its line.
 
-``run_training`` takes an optional ``observer`` with ``begin(iters, kind)``
-and ``end(iters, kind, losses)`` (kind "dis", "lean" (a lean D step) or
-"gen", losses the step's device tensors), called around each step and
-nothing else: a caller can time the steps, count their kernel launches or
-check their losses.
+The multi-step driver (the JAX package's train/loop.py:498-921, one
+process): where both decoded domains fit the card's budget
+(``data/pipeline.py::fits_device_budget``; ``--no_device_cache`` turns it
+off) the dataset is built on the card before ``resolve_remat`` reads the
+free memory, and batches are gathered there. ``--steps_per_call`` k > 1
+(the default on the card: ``auto_steps_per_call`` of the resolved config)
+then runs chunks of up to k iterations through ``train/chunk.py``'s
+``ChunkProgram``: CUDA graphs of the step kinds on the card, the same
+steps eagerly on the CPU. Chunks end at sample and save iterations and at
+whole [D, G, ..., G] periods (``step.chunk_steps``), so logs, samples and
+saves fall on the per-step path's iterations and give its results; the
+losses are read once a chunk that holds a logged iteration; SIGTERM is
+honoured between chunks. Unlike the JAX package, nothing falls back to
+the per-step loop: the path is decided up front, printed in one line
+(dataset, k, graphs, remat), and a capture or replay that fails raises.
+k = 1 is the per-step loop, from the dataset where it is on, else from
+the host loader. ``--profile DIR`` traces iterations 2-9
+(``train/profiling.py``).
+
+``run_training`` takes an optional ``observer``. On the per-step path it
+is called with ``begin(iters, kind)`` and ``end(iters, kind, losses)``
+(kind "dis", "lean" (a lean D step) or "gen", losses the step's device
+tensors) around each step; on the chunked path with
+``begin_chunk(iters0, kinds)`` and ``end_chunk(iters0, kinds, losses,
+program)`` around each chunk (losses (k, len(chunk.LOSS_KEYS)) on the
+device; ``program`` the ``ChunkProgram``, with each captured kind's
+launches). Nothing else calls it: a caller can time the steps, count
+their kernel launches or check their losses.
 """
 
 from __future__ import annotations
@@ -46,17 +69,20 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.precision import configure, default_policy
-from ..data.pipeline import HostLoader, is_paths
+from ..data.pipeline import (DEVICE_BUDGET_SHARE, DeviceDataset, HostLoader,
+                             dataset_bytes, fits_device_budget, is_paths)
 from ..data.preprocess import read_images
 from ..data.resolvers import get_task_data, task_domains
 from .checkpoint import (load_train_state, save_reference_layout,
                          save_train_state, train_state_meta)
+from .chunk import LOSS_KEYS, ChunkProgram
 from .graph import ARCH_MODES
 from .logging_ import TrainingLogger
+from .profiling import ProfileWindow
 from .samples import save_individual_images, save_sample_grid
-from .step import (TrainConfig, init_train_state, make_lean_dis_step,
-                   make_sample_fn, make_train_steps, resolve_remat,
-                   resolve_slim_state)
+from .step import (TrainConfig, auto_steps_per_call, chunk_steps, init_train_state,
+                   kinds_in_range, make_lean_dis_step, make_sample_fn,
+                   make_train_steps, resolve_remat, resolve_slim_state)
 
 
 def build_paths(args, timestamp: str, angle_variant: bool = False):
@@ -102,6 +128,43 @@ def config_from_args(args, angle_variant: bool = False) -> TrainConfig:
     return cfg
 
 
+def use_device_dataset(args, device, n_a: int, n_b: int) -> tuple[bool, str]:
+    """(whether the decoded dataset goes on the device, why): off under
+    --no_device_cache; on the card where it fits DEVICE_BUDGET_SHARE of the
+    card's memory; on the CPU only for chunks (--steps_per_call > 1)."""
+    gib = dataset_bytes(n_a, n_b, args.image_size) / 2**30
+    if args.no_device_cache:
+        return False, "off (--no_device_cache)"
+    if device.type == "cuda":
+        if fits_device_budget(n_a, n_b, args.image_size, device):
+            return True, f"on the card ({gib:.2f} GiB)"
+        return False, (f"off ({gib:.2f} GiB passes {DEVICE_BUDGET_SHARE:.0%} of the "
+                       "card's memory)")
+    if (args.steps_per_call or 1) > 1:
+        return True, f"on the CPU for --steps_per_call ({gib:.2f} GiB)"
+    return False, "off (the CPU)"
+
+
+def resolve_steps_per_call(args, cfg: TrainConfig, device, dataset) -> tuple[int, str]:
+    """(iterations a call, how it was decided): --steps_per_call as set, else
+    ``auto_steps_per_call`` of the resolved config with the dataset on the
+    card (not under --debug, whose anomaly checks read the device inside a
+    step), else 1. Above 1 it needs the dataset on the device."""
+    k, how = args.steps_per_call, "set"
+    if k is None:
+        auto = dataset is not None and device.type == "cuda" and not args.debug
+        k, how = (auto_steps_per_call(cfg, args.image_size) if auto else 1), "auto"
+    if k < 1:
+        raise SystemExit(f"--steps_per_call must be at least 1, got {k}")
+    if k > 1 and dataset is None:
+        raise SystemExit("--steps_per_call above 1 gathers its batches from the dataset "
+                         "on the device, which is off for this run")
+    if k > 1 and args.debug and device.type == "cuda":
+        raise SystemExit("--debug reads the device inside a step, which a CUDA graph "
+                         "cannot capture: use --steps_per_call 1")
+    return k, how
+
+
 @contextlib.contextmanager
 def sigterm_flag():
     """A flag that SIGTERM sets while the block runs (in the main thread;
@@ -142,9 +205,23 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
             f"batch_size={args.batch_size} exceeds the usable dataset size "
             f"({min(len(data_A), len(data_B))} pairs): no batches to train on")
     total_iterations = args.epochs * nb
+    on, dataset_line = use_device_dataset(args, device, len(data_A), len(data_B))
+    dataset = None
+    if on:
+        t0 = time.perf_counter()
+        dataset = DeviceDataset(loader)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dataset_line += f", built in {time.perf_counter() - t0:.3f} s"
+    # After the dataset: the remat rule reads the free memory without it.
     cfg, remat_line = resolve_remat(cfg, args.batch_size, device,
                                     compute_itemsize=policy.compute_dtype.itemsize)
     print(remat_line)
+    steps_per_call, how = resolve_steps_per_call(args, cfg, device, dataset)
+    graphs = steps_per_call > 1 and device.type == "cuda"
+    print(f"train path: dataset {dataset_line}; steps_per_call {steps_per_call} ({how}); "
+          f"CUDA graphs {'on' if graphs else 'off'}; remat "
+          f"{'on' if cfg.use_remat else 'off'}")
 
     ts = init_train_state(args.seed, cfg, device)
     start_iters = 0
@@ -156,6 +233,12 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
 
     gen_step, dis_step = make_train_steps(cfg, policy)
     lean_step = make_lean_dis_step(cfg, policy) if cfg.lean_dis else None
+    program = None
+    if steps_per_call > 1:
+        program = ChunkProgram(ts, cfg, policy, *dataset.data, args.batch_size,
+                               steps_per_call,
+                               kinds_in_range(cfg, start_iters, total_iterations - start_iters),
+                               graphs=graphs)
     sample_fn = make_sample_fn(cfg, policy)
     test_A_t = torch.from_numpy(test_A).to(device)
     test_B_t = torch.from_numpy(test_B).to(device)
@@ -181,46 +264,93 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
             save_sample_grid(test_A, test_B, *out, result_path / "samples", iters,
                              n_samples=n_samples)
 
+    def finish(i: int, vals: dict | None) -> None:
+        """What follows iteration i: its log line (``vals``, its losses on
+        the host), its samples and its saves."""
+        if i % args.log_interval == 0:
+            if not all(np.isfinite(v) for v in vals.values()):
+                print("경고: 손실에 NaN/Inf 감지 — --debug 로 첫 발생 "
+                      "지점을 추적할 수 있습니다")
+            logger.log(i, total_iterations, vals, fm=not angle_variant)
+        if i % args.image_save_interval == 0:
+            dump_samples(i)
+        if i % args.model_save_interval == 0:
+            save_reference_layout(model_path, ts.models, i)
+            # The state holds iteration i: a resume from it trains i + 1 next.
+            save_train_state(model_path, ts, i + 1, meta)
+
+    def preempt(iters: int):
+        save_train_state(model_path, ts, iters, dict(meta, preempted=True))
+        save_reference_layout(model_path, ts.models, iters)
+        print(f"SIGTERM: 학습 상태 저장 후 종료 (iter {iters}) — "
+              f"--resume {model_path} 로 재개")
+        return result_path, model_path
+
+    def batches():
+        """(iters, A, B) from start_iters on, from the dataset or the loader."""
+        i, skip = start_iters, start_iters - start_epoch * nb
+        for epoch in range(start_epoch, args.epochs):
+            source = (dataset or loader).epoch(epoch, skip=skip)
+            with contextlib.closing(source):
+                for A, B in source:
+                    yield i, A, B
+                    i += 1
+            skip = 0
+
+    def index_rows():
+        """The dataset's (idx_A, idx_B) rows from start_iters on."""
+        skip = start_iters - start_epoch * nb
+        for epoch in range(start_epoch, args.epochs):
+            ia, ib = dataset.epoch_rows(epoch)
+            yield from zip(ia[skip:], ib[skip:])
+            skip = 0
+
     iters = start_iters
     start_epoch = min(start_iters // nb, args.epochs)
-    skip = start_iters - start_epoch * nb
+    profiler = ProfileWindow(args.profile, device)
+    steps = {"dis": dis_step, "lean": lean_step, "gen": gen_step}
     t_start = time.time()
     with sigterm_flag() as preempted, contextlib.closing(loader), \
             torch.autograd.set_detect_anomaly(args.debug):
-        for epoch in range(start_epoch, args.epochs):
-            with contextlib.closing(loader.epoch(epoch, skip=skip)) as batches:
-                for A, B in batches:
-                    kind = ("lean" if cfg.use_lean_dis(iters) else
-                            "dis" if cfg.is_dis_iter(iters) else "gen")
-                    if observer is not None:
-                        observer.begin(iters, kind)
-                    step = {"dis": dis_step, "lean": lean_step, "gen": gen_step}[kind]
-                    losses = step(ts, A, B, cfg.rate_for(iters))
-                    if observer is not None:
-                        observer.end(iters, kind, losses)
-
-                    if iters % args.log_interval == 0:
-                        vals = {k: float(v) for k, v in losses.items()}
-                        if not all(np.isfinite(v) for v in vals.values()):
-                            print("경고: 손실에 NaN/Inf 감지 — --debug 로 첫 발생 "
-                                  "지점을 추적할 수 있습니다")
-                        logger.log(iters, total_iterations, vals, fm=not angle_variant)
-                    if iters % args.image_save_interval == 0:
-                        dump_samples(iters)
-                    if iters % args.model_save_interval == 0:
-                        save_reference_layout(model_path, ts.models, iters)
-                        # The state holds iteration ``iters``: a resume
-                        # from it trains ``iters + 1`` next.
-                        save_train_state(model_path, ts, iters + 1, meta)
-                    iters += 1
-                    if preempted["set"]:
-                        save_train_state(model_path, ts, iters,
-                                         dict(meta, preempted=True))
-                        save_reference_layout(model_path, ts.models, iters)
-                        print(f"SIGTERM: 학습 상태 저장 후 종료 (iter {iters}) — "
-                              f"--resume {model_path} 로 재개")
-                        return result_path, model_path
-            skip = 0
+        if program is None:
+            for i, A, B in batches():
+                profiler.tick(i)
+                kind = cfg.step_kind(i)
+                if observer is not None:
+                    observer.begin(i, kind)
+                losses = steps[kind](ts, A, B, cfg.rate_for(i))
+                if observer is not None:
+                    observer.end(i, kind, losses)
+                finish(i, {k: float(v) for k, v in losses.items()}
+                       if i % args.log_interval == 0 else None)
+                iters = i + 1
+                if preempted["set"]:
+                    profiler.stop()
+                    return preempt(iters)
+        else:
+            rows = index_rows()
+            intervals = (args.image_save_interval, args.model_save_interval)
+            while iters < total_iterations:
+                profiler.tick(iters)
+                k = chunk_steps(cfg, iters, total_iterations, steps_per_call, intervals)
+                idx = [next(rows) for _ in range(k)]
+                kinds = [cfg.step_kind(i) for i in range(iters, iters + k)]
+                if observer is not None:
+                    observer.begin_chunk(iters, kinds)
+                losses = program(np.stack([a for a, _ in idx]),
+                                 np.stack([b for _, b in idx]), iters)
+                if observer is not None:
+                    observer.end_chunk(iters, kinds, losses, program)
+                logged = [j for j in range(k) if (iters + j) % args.log_interval == 0]
+                host = losses.cpu().numpy() if logged else None
+                for j in range(k):
+                    finish(iters + j, dict(zip(LOSS_KEYS, map(float, host[j])))
+                           if j in logged else None)
+                iters += k
+                if preempted["set"]:
+                    profiler.stop()
+                    return preempt(iters)
+        profiler.stop()
 
     save_reference_layout(model_path, ts.models, "final")
     save_train_state(model_path, ts, iters, meta)

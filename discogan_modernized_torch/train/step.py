@@ -25,6 +25,7 @@ remat=None from the port's own model of a step's peak memory
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -97,6 +98,12 @@ class TrainConfig:
     def is_dis_iter(self, iters: int) -> bool:
         """D trains on iters % update_interval == 0 (ref :385)."""
         return iters % self.update_interval == 0
+
+    def step_kind(self, iters: int) -> str:
+        """The step iteration ``iters`` takes: "lean" (the lean D step),
+        "dis" or "gen"."""
+        return ("lean" if self.use_lean_dis(iters) else
+                "dis" if self.is_dis_iter(iters) else "gen")
 
 
 def resolve_slim_state(cfg: TrainConfig) -> str:
@@ -204,6 +211,75 @@ def make_lean_dis_step(cfg: TrainConfig, policy: Policy | None = None):
     return _branch(cfg, policy or default_policy(cfg.precision), "dis", lean=True)
 
 
+# The multi-step driver's planner (the JAX package's train/step.py:388-478
+# and the chunk splitting of its train/loop.py:786-799), as pure functions
+# with its names and results. The port replays one CUDA graph a step kind
+# (train/chunk.py), so a chunk's variant names its shape, not another
+# program: "phase" is whole [D, G, ..., G] periods from an aligned
+# iteration, "phase_cond" the same with a logged D iteration inside under
+# lean_dis, "switch" anything else.
+LARGE_IMAGE = 256  # the JAX package's threshold of the large-image regime
+
+
+def scan_variant(cfg: TrainConfig, it0: int, k: int) -> str:
+    """The variant of a chunk of k iterations from it0."""
+    ui = cfg.update_interval
+    if it0 % ui or k % ui:
+        return "switch"
+    if cfg.lean_dis and any(i % ui == 0 and i % cfg.log_interval == 0
+                            for i in range(it0, it0 + k)):
+        return "phase_cond"
+    return "phase"
+
+
+def auto_steps_per_call(cfg: TrainConfig, image_size: int) -> int:
+    """The default chunk: about 24 iterations at <= 128px, two whole
+    periods from 129px without remat, and 1 (one step a call) with remat
+    on there; whole periods always. remat None counts as on from
+    LARGE_IMAGE, as in the JAX package; the trainer passes the config
+    ``resolve_remat`` decided."""
+    ui = cfg.update_interval
+    if image_size <= 128:
+        return max(ui, (24 // ui) * ui)
+    use_remat = (image_size >= LARGE_IMAGE) if cfg.remat is None else cfg.remat
+    return 1 if use_remat else 2 * ui
+
+
+def scan_variants_for_range(cfg: TrainConfig, it0: int, n: int, k: int) -> dict:
+    """variant -> first chunk start, over the chunks of size k that cover
+    iterations [it0, it0 + n)."""
+    out: dict = {}
+    for i0 in range(it0, it0 + n, k):
+        out.setdefault(scan_variant(cfg, i0, k), i0)
+    return out
+
+
+def chunk_steps(cfg: TrainConfig, iters: int, total: int, steps_per_call: int,
+                intervals) -> int:
+    """The size of the chunk that starts at ``iters``: at most
+    steps_per_call and what is left of ``total``; ending at the next
+    iteration that is a multiple of one of ``intervals`` (the sample and
+    save intervals: their work follows that iteration); from a misaligned
+    iteration, only to the next period's start; else clipped to whole
+    periods where it holds one."""
+    k = min(steps_per_call, total - iters)
+    for iv in intervals:
+        k = min(k, -(-iters // iv) * iv - iters + 1)
+    ui = cfg.update_interval
+    if iters % ui:
+        k = min(k, ui - iters % ui)
+    elif k >= ui and k % ui:
+        k = (k // ui) * ui
+    return k
+
+
+def kinds_in_range(cfg: TrainConfig, it0: int, n: int) -> set:
+    """The step kinds of iterations [it0, it0 + n): they repeat with the
+    period lcm(update_interval, log_interval)."""
+    period = math.lcm(cfg.update_interval, cfg.log_interval)
+    return {cfg.step_kind(i) for i in range(it0, it0 + min(n, period))}
+
+
 # The auto-remat rule's model of one train step's peak device memory, from
 # the shapes. What the step holds whatever the batch: parameters, Adam
 # moments, one subset's gradients, and each forward's weights written into
@@ -288,7 +364,16 @@ def resolve_remat(cfg: TrainConfig, batch: int, device,
     free memory from ``torch.cuda.mem_get_info``) less REMAT_MARGIN of it,
     and stays off on the CPU; remat_dis=None rematerializes the
     discriminators only where the step does not fit with their activations
-    kept."""
+    kept.
+
+    The trainer calls it after the dataset is on the card, so the free
+    memory is what is left beside it. The chunked path's CUDA graphs hold
+    one step's activations in their pool for the run, in place of the
+    allocator's cache: the captures share the pool, and no eager step
+    follows them. So the same estimate stands for both paths (at 512px
+    batch 8 the chunked run peaked 0.06 GiB above the per-step one,
+    allocated, and 0.7-0.9 GiB above it reserved, inside REMAT_MARGIN;
+    PERF.md)."""
     if cfg.remat_policy is not None and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                          f"got {cfg.remat_policy!r}")

@@ -6,6 +6,10 @@ JAX, which tests/conftest.py imports), run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
+Each kernel is also captured in a CUDA graph and replayed on new inputs,
+single and as a pair launch, at one 512px batch-8 training shape: the
+replays give an eager launch's bits.
+
 Shapes: the 512px forward's and training step's (small batches where it
 is quick) and the odd ones that take the kernels' edge paths (ragged rows,
 non-square maps, channel counts off the tile, partial bands, more than one
@@ -490,3 +494,71 @@ def test_pair_stride_off_16_bytes_raises(gen):
     s = torch.ones(2, 3, device="cuda")
     with pytest.raises(RuntimeError):
         bn_act(x, s, s, "relu")
+
+
+# ---- CUDA graphs: each kernel captured, then replayed on new inputs --------
+
+# One 512px batch-8 training shape a kernel (bf16): (fn, operand shapes, the
+# operands' scales, keyword arguments). K1 at dec6 takes several splits, so
+# its tile counters take part.
+CAPTURE_CASES = {
+    "batch_stats": (batch_stats, [(8, 256, 256, 64)], [1.0], {}),
+    "bn_act": (lambda x, s, o: bn_act(x, s, o, "leaky"),
+               [(8, 256, 256, 64), (64,), (64,)], [1.0, 1.0, 1.0], {}),
+    "conv_k4s2p1": (conv2d_k4s2p1, [(8, 128, 128, 128), (4, 4, 128, 256)], [1.0, 1 / 45],
+                    {"with_stats": True}),
+    "conv_k4s2p1_dw": (conv2d_k4s2p1_dw, [(8, 128, 128, 128), (8, 64, 64, 256)], [1.0, 0.1],
+                       {}),
+    "halo_conv_k4s2p1": (halo_conv2d_k4s2p1, [(8, 256, 256, 64), (4, 4, 64, 128)],
+                         [1.0, 1 / 32], {"act": "leaky"}),
+    "halo_conv_k4s2p1_dw": (halo_conv2d_k4s2p1_dw, [(8, 256, 256, 64), (8, 128, 128, 128)],
+                            [1.0, 0.1], {}),
+    "head_convt": (head_convt, [(8, 256, 256, 64), (4, 4, 64, 3)], [1.0, 1 / 16], {}),
+}
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "pair"])
+@pytest.mark.parametrize("kernel", list(CAPTURE_CASES))
+def test_captured_kernel_replays_equal_eager_launches(gen, kernel, paired):
+    """Each kernel, single and as a pair launch (operands per pair),
+    captured in a CUDA graph after one eager launch on a side stream; the
+    graph replayed twice with new inputs copied into its static inputs;
+    each replay's outputs equal an eager launch's on the same inputs bit
+    for bit, and the capture counted one launch, the replays none."""
+    from discogan_modernized_torch.ops import _build
+
+    configure(BF16)
+    fn, shapes, scales, kw = CAPTURE_CASES[kernel]
+    lead = (2,) if paired else ()
+
+    def operands():
+        out = []
+        for shape, scale in zip(shapes, scales):
+            if len(shape) == 1:  # K2's scale and offset: f32
+                out.append(torch.rand(*lead, *shape, device="cuda", generator=gen) + 0.5)
+            else:
+                out.append(_rand(gen, torch.bfloat16, *lead, *shape, scale=scale))
+        return out
+
+    static = operands()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.launches[kernel]
+    with torch.cuda.graph(graph):
+        out = fn(*static, **kw)
+    assert _build.launches[kernel] == before + 1
+    for _ in range(2):
+        new = operands()
+        for t, n in zip(static, new):
+            t.copy_(n)
+        before = _build.launches[kernel]
+        graph.replay()
+        assert _build.launches[kernel] == before
+        want = fn(*new, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(_flat(out), _flat(want)):
+            assert torch.equal(a, b), kernel

@@ -330,3 +330,39 @@ def test_pairs_keep_the_single_plans(shape, dtype):
     assert 2 * two.ctiles <= STATS_MAX_TILES
     assert bn_act_plan(_numel(shape), c, dtype, 2)._replace(pairs=1) == \
         bn_act_plan(_numel(shape), c, dtype)
+
+
+class _Entry:
+    """A stand-in for a C entry that counts its arguments against its
+    ctypes signature (``_build._SIGNATURES``)."""
+
+    def __init__(self, name):
+        from discogan_modernized_torch.ops import _build
+
+        self.want = len(_build._SIGNATURES[name][1])
+        self.got = None
+
+    def __call__(self, *args):
+        self.got = len(args)
+        return 0
+
+
+def test_ab_tool_matches_the_sources_and_entries(monkeypatch):
+    """tools/fused_ab.py's variants are text patches of csrc/bn_act.cu and
+    csrc/batch_stats.cu: each matches its source once; and its calls of
+    the two C entries pass as many arguments as their signatures take (the
+    pair axis's included)."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.tools import fused_ab
+
+    for name, (source, patches, _) in fused_ab.VARIANTS.items():
+        text = (_build.CSRC / source).read_text()
+        for old, _ in patches:
+            assert text.count(old) == 1, (name, old)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
+    k1, k2 = _Entry("discogan_batch_stats"), _Entry("discogan_bn_act")
+    fused_ab._k1_call(k1, "K1 kernel", x, torch.zeros(STATS_MAX_TILES, dtype=torch.int32))[1]()
+    s = torch.ones(64)
+    fused_ab._k2_call(k2, "K2 kernel", x, s, s, torch.empty_like(x))[1]()
+    assert (k1.got, k2.got) == (k1.want, k2.want)

@@ -46,7 +46,12 @@ VARIANT_MODULES = ["discogan_modernized_torch.tools.remat_bench",
                    "discogan_modernized_torch.ops.recompute"]
 
 
-@pytest.mark.parametrize("module", VARIANT_MODULES)
+# And those of the multi-step driver.
+MULTISTEP_MODULES = ["discogan_modernized_torch.train.chunk",
+                     "discogan_modernized_torch.train.profiling"]
+
+
+@pytest.mark.parametrize("module", VARIANT_MODULES + MULTISTEP_MODULES)
 def test_variant_modules_are_checked(module):
     assert module in port_modules()
     path = PKG / Path(*module.split(".")[1:]).with_suffix(".py")

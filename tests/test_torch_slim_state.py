@@ -7,7 +7,8 @@
 - stochastic rounding is unbiased, with tests/test_slim_state.py's point
   (1/4 ulp above 1.0) and limits (share of round-ups within 0.03 of 1/4,
   mean within 5% of an ulp), also below zero and across an exponent
-  boundary;
+  boundary, with the CPU's generator bits and with the card's hashed bits
+  (computed here); the hash in int32 tensor ops equals its uint32 model;
 - one Adam update from a JAX state carried across after two steps: under
   all every parameter lies within one bf16 ulp of JAX ``adam_update``'s
   (the two draw other random bits, so they may round the same value to
@@ -40,7 +41,8 @@ from discogan_modernized_torch.models.torch_compat import (discriminator_from_ja
                                                            train_state_from_jax)
 from discogan_modernized_torch.train import optim
 from discogan_modernized_torch.train.graph import trainable_subsets
-from discogan_modernized_torch.train.optim import rounding_seed, stochastic_round_bf16
+from discogan_modernized_torch.train.optim import (rounding_seed, seed_word,
+                                                   stochastic_round_bf16)
 from discogan_modernized_torch.train.step import (TrainConfig, init_train_state,
                                                   make_train_steps)
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -141,9 +143,8 @@ def test_stochastic_round_unbiased(lo, frac):
     ulp = 2.0 ** -7
     hi = lo + np.sign(lo) * ulp
     x = np.float32(lo + (hi - lo) * frac)
-    gen = torch.Generator()
     vals = torch.cat([stochastic_round_bf16(
-        torch.full((4,), float(x)), gen.manual_seed(rounding_seed(step, 3)))
+        torch.full((4,), float(x)), seed_word(rounding_seed(step, 3)))
         for step in range(1, 4097)]).float().numpy()
     assert set(np.unique(vals)) <= {np.float32(lo), np.float32(hi)}
     frac_hi = float((vals == np.float32(hi)).mean())
@@ -154,17 +155,51 @@ def test_stochastic_round_unbiased(lo, frac):
 
 
 def test_rounding_bits_are_stateless():
-    """The same (step, index) draws the same bits whatever ran before; other
-    steps and indices draw others."""
+    """The same (step, index) draws the same bits whatever ran before, as a
+    Python int or as a tensor of one value; other steps and indices draw
+    others."""
     x = torch.rand(1000, generator=torch.Generator().manual_seed(0))
-    gen = torch.Generator()
-    a = stochastic_round_bf16(x, gen.manual_seed(rounding_seed(5, 2)))
-    stochastic_round_bf16(x, gen)  # advances the generator
-    b = stochastic_round_bf16(x, gen.manual_seed(rounding_seed(5, 2)))
+    a = stochastic_round_bf16(x, seed_word(rounding_seed(5, 2)))
+    stochastic_round_bf16(x, seed_word(rounding_seed(7, 1)))  # another draw between
+    b = stochastic_round_bf16(x, torch.tensor(seed_word(rounding_seed(5, 2)),
+                                              dtype=torch.int32))
     assert torch.equal(a, b)
     for step, index in ((6, 2), (5, 3)):
-        c = stochastic_round_bf16(x, gen.manual_seed(rounding_seed(step, index)))
+        c = stochastic_round_bf16(x, seed_word(rounding_seed(step, index)))
         assert not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("lo,frac", [(1.0, 0.25), (-1.0, 0.25), (1.0, 0.75),
+                                     (2.0 - 2.0 ** -7, 0.75)],
+                         ids=["quarter", "negative", "three_quarters", "exponent"])
+def test_card_rounding_bits_are_unbiased(lo, frac):
+    """The card's bits (``rounding_bits``, run here on the CPU) at the
+    points and limits of ``test_stochastic_round_unbiased``: 4096 draws of
+    4 values, each seeded as the optimizer seeds a step."""
+    ulp = 2.0 ** -7
+    hi = lo + np.sign(lo) * ulp
+    x = np.float32(lo + (hi - lo) * frac)
+    word = torch.full((4,), float(x)).view(torch.int32)
+    vals = torch.cat([((word + optim.rounding_bits(4, seed_word(rounding_seed(step, 3)), "cpu"))
+                       & -65536).view(torch.float32)
+                      for step in range(1, 4097)]).numpy()
+    assert set(np.unique(vals)) <= {np.float32(lo), np.float32(hi)}
+    assert abs(float((vals == np.float32(hi)).mean()) - frac) < 0.03
+    assert abs(vals.mean() - x) < ulp * 0.05
+
+
+@pytest.mark.parametrize("step,index", [(1, 0), (5, 2), (1000, 77)])
+def test_rounding_bits_match_their_uint32_model(step, index):
+    """``rounding_bits`` in int32 tensor ops equals murmur3's finalizer of
+    e * golden + seed in uint32 arithmetic (numpy), top 16 bits."""
+    seed = seed_word(rounding_seed(step, index))
+    h = (np.arange(50000, dtype=np.uint64) * 0x9E3779B1 + (seed & 0xFFFFFFFF)) & 0xFFFFFFFF
+    for shift, mul in ((16, 0x85EBCA6B), (13, 0xC2B2AE35), (16, None)):
+        h ^= h >> shift
+        if mul is not None:
+            h = (h * mul) & 0xFFFFFFFF
+    got = optim.rounding_bits(50000, seed, "cpu").numpy()
+    np.testing.assert_array_equal(got, (h >> 16).astype(np.int32))
 
 
 @pytest.mark.parametrize("slim", ["off", "mv", "all"])

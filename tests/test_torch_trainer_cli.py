@@ -61,11 +61,29 @@ def test_trainer_end_to_end(tmp_path):
     assert (tmp_path / "inf" / "input_result.png").exists()
 
 
-@pytest.mark.parametrize("flag", ["--steps_per_call=2", "--bn_sync", "--xla_copts=a=b",
-                                  "--profile=p", "--no_device_cache", "--ckpt_backend=npz"])
+@pytest.mark.parametrize("flag", ["--bn_sync", "--xla_copts=a=b", "--ckpt_backend=npz"])
 def test_unported_flags_are_refused(flag, tmp_path):
     with pytest.raises(SystemExit):
         run(tmp_path, flag)
+
+
+@pytest.mark.parametrize("flag,line", [
+    ("--steps_per_call=4", "dataset on the CPU for --steps_per_call"),
+    ("--no_device_cache", "dataset off (--no_device_cache)"),
+    ("--profile=trace", "steps_per_call 1 (auto)")])
+def test_multistep_flags_train(flag, line, tmp_path, capsys):
+    """The multi-step driver's flags through the trainer: it trains, every
+    logged loss finite, its path line says what it took; --profile writes
+    its trace."""
+    if flag.startswith("--profile"):
+        flag = f"--profile={tmp_path / 'trace'}"
+    result_path, _ = run(tmp_path, flag)
+    lines = LINE.findall((result_path / "training_log.txt").read_text())
+    assert len(lines) == 4
+    assert all(np.isfinite(float(v)) for v in re.findall(r"\d+\.\d{4}", "".join(lines)))
+    assert line in capsys.readouterr().out
+    if flag.startswith("--profile"):
+        assert [p.name for p in (tmp_path / "trace").iterdir()] == ["trace_iters_2-9.json"]
 
 
 @pytest.mark.parametrize("flag,key,value", [
