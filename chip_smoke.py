@@ -2,12 +2,13 @@
 """On-card smoke run of the PyTorch port: builds the CUDA kernels from
 ``discogan_modernized_torch/csrc``, holds each against its plain PyTorch
 version, drives the 512px serving path through the inference CLI and the
-serving daemon, trains the 512px DiscoGAN through the trainer CLI on the
-synthetic task, under the train step's graph variants (--paired,
---lean_dis, --remat, concat_dis) and on an edges2shoes tree (stopped by
-SIGTERM and resumed), one step a call and in chunks of steps replayed as
-CUDA graphs from the dataset on the card, and trains the 64px
-angle-pairing model through its CLI both ways.
+serving daemon, from checkpoints and from exported artifacts, trains the
+512px DiscoGAN through the trainer CLI on the synthetic task (and through
+the data-parallel CLI at a world of one on NCCL), under the train step's
+graph variants (--paired, --lean_dis, --remat, concat_dis) and on an
+edges2shoes tree (stopped by SIGTERM and resumed), one step a call and in
+chunks of steps replayed as CUDA graphs from the dataset on the card, and
+trains the 64px angle-pairing model through its CLI both ways.
 
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
 
@@ -88,6 +89,23 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               each request's round trip; the daemon's Translator held
               against the plain forward at batch 1 in f32 and bf16; its
               latency on the main thread and from fresh threads.
+  5b. export  the serving artifact (tools/export_model.py): gen_B at batch 4
+              and symbolic and gen_A at batch 4 exported on the card, and
+              gen_B at batch 1 exported on the CPU, through the export CLI
+              in bf16, each timed with its size and its graph holding
+              OP_NODES (the discogan:: ops of K3, K5f, K2 and K6, one a
+              kernel launch of the eval forward); the inference CLI from
+              --exported/--exported_rev over phase 4's PNGs, its launches a
+              forward as PER_FORWARD; every artifact's forward on the card
+              (the symbolic one at batch 1 and 4, the CPU-exported one at
+              batch 1) launching PER_FORWARD and equal to the eager forward
+              bit for bit, or else its difference and the operands that
+              cause it printed and held to PATH_TOL; the daemon from the
+              CPU-exported artifact (3 requests, /stats saying so); the
+              forward at batch 1 and 4 through the registered ops, the
+              wrappers called directly and the artifact, in turns: the
+              host's issue time, the window, the device busy time; one K2
+              call's host cost through its op and its wrapper.
   6. equivalence  one D step and one G step at 512px batch 2 in f32 from
               the same seeded weights, through the kernels and through the
               plain versions, on three seeded batches, under
@@ -129,6 +147,19 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               losses, every
               logged line with nonzero RECON, iteration 0's line and the
               final parameters and moments equal to the plain run's.
+  7b. distributed  the data-parallel CLI (--distributed --world_size 1, a
+              world of one on NCCL in this process), run between phase 7's
+              CLI run and its variants, with phase 7's flags: one step a call
+              and on the chunked default, each with and without --bn_sync,
+              and one step a call under --bn_sync --remat=on; every run's
+              log lines and final train state equal to phase 7's CLI run's
+              bit for bit; its all-reduces counted, 2 a step under per-rank
+              BatchNorm (the gradients, the losses), more under --bn_sync
+              (the statistics), more again under remat on the steps whose
+              backward rebuilds a region, and on the chunked path
+              inside each captured graph as many as the same kind's eager
+              step; launches as PER_STEP; ms a step beside phase 7's. The
+              runs keep their saves in memory (state_in_memory).
   8. real data  an edges2shoes tree under the work directory (64 train
               and 8 test side-by-side 512x256 JPEGs from a numpy seed): one
               epoch of the host loader cold (decoding into the cache) and
@@ -1100,6 +1131,259 @@ def check_serve_outputs(model_dir: Path, images: np.ndarray) -> None:
         tr.close()
 
 
+# -- the export phase: serving from a torch.export artifact ------------------
+
+# The artifacts of the phase: (file, direction, batch (0: symbolic), the
+# device that traces it, the platforms it may serve on).
+ARTIFACTS = (("gen_B_b4.pt2", "AtoB", BATCH, "cuda", "cuda"),
+             ("gen_A_b4.pt2", "BtoA", BATCH, "cuda", "cuda"),
+             ("gen_B_sym.pt2", "AtoB", 0, "cuda", "cuda,cpu"),
+             ("gen_B_b1_cpu.pt2", "AtoB", 1, "cpu", "cuda,cpu"))
+# Each eval forward's discogan:: nodes, by op: PER_FORWARD's kernels.
+OP_NODES = {"conv2d_k4s2p1": 6, "halo_conv2d_k4s2p1": 1, "fused_batchnorm_act": 8,
+            "head_convt_fwd": 1}
+
+
+def export_artifacts(model_dir: Path, out_dir: Path) -> dict:
+    """ARTIFACTS through the export CLI (bf16): each one's export time (the
+    checkpoint's load included), size and graph, which must hold OP_NODES.
+    Returns name -> path."""
+    from discogan_modernized_torch.tools import export_model
+
+    paths = {}
+    for name, direction, batch, device, platforms in ARTIFACTS:
+        path = out_dir / name
+        t0 = time.perf_counter()
+        rc = export_model.main([f"--model_path={model_dir}", f"--direction={direction}",
+                                f"--image_size={SIZE}", f"--batch={batch}",
+                                "--precision=bf16", f"--device={device}",
+                                f"--platforms={platforms}", f"--output={path}"])
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"export of {name} returned {rc}")
+        nodes = export_model.discogan_nodes(torch.export.load(str(path)))
+        if nodes != OP_NODES:
+            raise AssertionError(f"{name}: discogan:: nodes {nodes}, want {OP_NODES}")
+        print(f"artifact {name}: exported on {device} in {seconds:.2f} s (host clock, the "
+              f"checkpoint's load included), {path.stat().st_size / 2**20:.1f} MiB; "
+              f"graph nodes {nodes}")
+        paths[name] = path
+    return paths
+
+
+def artifact_forwards(paths: dict, model_dir: Path, images: np.ndarray) -> int:
+    """Each artifact's forward on the card against the eager forward of the
+    same checkpoint (bf16): its launches (PER_FORWARD a forward) and its
+    outputs bit for bit, or, where they differ, the difference and its
+    place, held to PATH_TOL against the plain forward. Returns the
+    forwards run."""
+    from discogan_modernized_torch.cli.inference import load_artifact, load_generators
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.ops import _build
+
+    configure(BF16)
+    gens = dict(zip(("AtoB", "BtoA"), load_generators(model_dir, "AtoB", SIZE, "cuda")))
+    forwards = 0
+    cases = [("gen_B_b4.pt2", "AtoB", BATCH), ("gen_A_b4.pt2", "BtoA", BATCH),
+             ("gen_B_sym.pt2", "AtoB", 1), ("gen_B_sym.pt2", "AtoB", BATCH),
+             ("gen_B_b1_cpu.pt2", "AtoB", 1)]
+    for name, direction, batch in cases:
+        module, _ = load_artifact(paths[name], SIZE, "cuda")
+        x = torch.from_numpy(images[:batch]).cuda()
+        with torch.no_grad():
+            module(x)  # warm: the first call builds what it needs
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = module(x)
+            torch.cuda.synchronize()
+            per_forward_check(dict(_build.launches), 1, f"artifact {name} batch {batch}")
+            forwards += 2
+            want = gens[direction](x, policy=BF16)
+        if torch.equal(got, want):
+            print(f"artifact {name} batch {batch}: equal to the eager forward bit for bit")
+            continue
+        diff = (got - want).abs()
+        where = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+        print(f"artifact {name} batch {batch}: differs from the eager forward, max "
+              f"{float(diff.max()):.3e} at {where}, mean {float(diff.mean()):.3e}")
+        operand_differences(paths[name], gens[direction])
+        hold_against_plain(f"artifact {name} batch {batch}", "generated", BF16,
+                           got.cpu().numpy(), gens[direction](x, policy=BF16, plain=True))
+    return forwards
+
+
+def operand_differences(path: Path, gen) -> None:
+    """Where an artifact's forward differs from the eager one: its buffers
+    (the eval operands it was exported with) against the ones the eager
+    forward derives on the card, by name."""
+    from discogan_modernized_torch.core.precision import BF16
+    from discogan_modernized_torch.tools.export_model import ServingGenerator
+
+    mine = ServingGenerator(gen, BF16).state_dict()
+    theirs = torch.export.load(str(path)).state_dict
+    differ = [k for k in mine if not torch.equal(mine[k].cpu(), theirs[k].cpu())]
+    worst = {k: float((mine[k].cpu().float() - theirs[k].cpu().float()).abs().max())
+             for k in differ}
+    print(f"  its operands against the card-derived ones: {len(differ)} of {len(mine)} "
+          f"buffers differ ({', '.join(f'{k} {v:.2e}' for k, v in list(worst.items())[:6])}"
+          f"{', ...' if len(differ) > 6 else ''})")
+
+
+def drive_exported_cli(paths: dict, work: Path, images: np.ndarray) -> int:
+    """The inference CLI from --exported/--exported_rev (the batch-4
+    artifacts) over the same PNGs as phase 4's run, with its launches per
+    forward; returns its forwards."""
+    from discogan_modernized_torch.cli import inference
+    from discogan_modernized_torch.ops import _build
+
+    src = work / "inputs"
+    _build.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = inference.main([f"--exported={paths['gen_B_b4.pt2']}",
+                             f"--exported_rev={paths['gen_A_b4.pt2']}",
+                             f"--input_path={src}", f"--output_dir={work / 'exported_out'}",
+                             f"--image_size={SIZE}", f"--batch_size={BATCH}"])
+    text = out.getvalue()
+    print("\n".join(line for line in text.splitlines() if "p50" in line or "로드" in line))
+    if rc != 0 or "p50 per-image latency" not in text:
+        raise AssertionError(f"inference CLI from artifacts failed (rc {rc}):\n{text}")
+    forwards = 2 * (len(images) // BATCH)
+    per_forward_check(dict(_build.launches), forwards, "CLI from artifacts")
+    return forwards
+
+
+def serve_exported(paths: dict, images: np.ndarray) -> int:
+    """The daemon from the CPU-exported batch-1 artifact: 3 /translate
+    requests, /stats saying it serves an artifact, launches per forward.
+    Returns its forwards."""
+    from PIL import Image
+
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.tools.serve import parse_args, serve
+
+    srv, tr = serve(parse_args([f"--exported={paths['gen_B_b1_cpu.pt2']}",
+                                f"--image_size={SIZE}", "--port=0"]))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        _build.reset_launches()
+        for im in images[:3]:
+            buf = io.BytesIO()
+            Image.fromarray((im * 255).astype(np.uint8)).save(buf, "PNG")
+            req = urllib.request.Request(url + "/translate", data=buf.getvalue(),
+                                         headers={"Content-Type": "image/png"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out = np.array(Image.open(io.BytesIO(r.read())))
+            if out.shape != (SIZE, SIZE, 3):
+                raise AssertionError(f"exported daemon: response of shape {out.shape}")
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        tr.close()
+    if not stats["exported"] or stats["requests"] != 3:
+        raise AssertionError(f"exported daemon: /stats {stats}")
+    per_forward_check(dict(_build.launches), 3, "daemon from an artifact")
+    print(f"daemon from the CPU-exported batch-1 artifact: {stats}")
+    return 3
+
+
+def dispatch_cost(paths: dict, model_dir: Path, images: np.ndarray) -> None:
+    """The 512px bf16 eval forward at batch 1 and 4 through the registered
+    ops (the eval forward's default), through the kernels' wrappers called
+    directly, and through the artifact's module, in turns in this process:
+    the host's issue time (the call returns), the window to the device's
+    end (host clock, after a synchronize), medians of ROUNDS x REPS; then
+    each one's device busy time and window under the profiler."""
+    from discogan_modernized_torch.cli.inference import load_artifact, load_generators
+    from discogan_modernized_torch.core.precision import BF16, configure
+    from discogan_modernized_torch.ops.autograd import KERNEL_OPS
+
+    configure(BF16)
+    gen, _ = load_generators(model_dir, "AtoB", SIZE, "cuda")
+    arts = {1: load_artifact(paths["gen_B_sym.pt2"], SIZE, "cuda")[0]}
+    arts[BATCH] = arts[1]
+    for batch in (1, BATCH):
+        x = torch.from_numpy(images[:batch]).cuda()
+        paths_ = {"ops": lambda: gen(x, policy=BF16),
+                  "wrappers": lambda: gen._eval_forward(x, BF16, KERNEL_OPS),
+                  "artifact": lambda: arts[batch](x)}
+        issue = {k: [] for k in paths_}
+        window = {k: [] for k in paths_}
+        with torch.no_grad():
+            for fn in paths_.values():
+                fn()
+            for _ in range(3):
+                for k, fn in paths_.items():
+                    for _ in range(10):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        t1 = time.perf_counter()
+                        torch.cuda.synchronize()
+                        t2 = time.perf_counter()
+                        issue[k].append((t1 - t0) * 1e3)
+                        window[k].append((t2 - t0) * 1e3)
+            busy = {}
+            for k, fn in paths_.items():
+                busy[k] = {}
+                profile_call(fn, f"the batch-{batch} forward through the {k}", top=0,
+                             out=busy[k])
+        if batch == 1:
+            op_call_cost(x)
+        print(f"forward 512px batch {batch} bf16, in turns (host clock, medians of 30): "
+              + "; ".join(f"{k}: issue {statistics.median(issue[k]):.3f} ms, window "
+                          f"{statistics.median(window[k]):.3f} ms, device busy "
+                          f"{busy[k].get('busy_ms', float('nan')):.3f} ms"
+                          for k in paths_))
+
+
+def op_call_cost(like: torch.Tensor, calls: int = 2000) -> None:
+    """The host's cost of one call of K2 on a latent-sized (1, 1, 1, 100)
+    bf16 tensor, through its registered op and through its wrapper, in
+    turns: us a call (host clock, the median of 5 blocks of ``calls``)."""
+    from discogan_modernized_torch.ops.fused import bn_act
+    from discogan_modernized_torch.ops.library import bn_act_op
+
+    x = torch.rand(1, 1, 1, 100, device=like.device).to(torch.bfloat16)
+    scale, offset = torch.rand(100, device=like.device), torch.rand(100, device=like.device)
+    per = {"op": [], "wrapper": []}
+    fns = {"op": lambda: bn_act_op(x, scale, offset, "relu"),
+           "wrapper": lambda: bn_act(x, scale, offset, "relu")}
+    for _ in range(5):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per[k].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    print("K2 on (1, 1, 1, 100) bf16, host us a call (median of 5 x "
+          f"{calls}, in turns): " + ", ".join(f"{k} {statistics.median(v):.2f}"
+                                             for k, v in per.items()))
+
+
+def drive_export(model_dir: Path, work: Path, images: np.ndarray) -> dict:
+    """The export phase; returns its launches."""
+    from discogan_modernized_torch.ops import _build
+
+    out_dir = work / "artifacts"
+    out_dir.mkdir()
+    paths = export_artifacts(model_dir, out_dir)
+    drive_exported_cli(paths, work, images)
+    counts = dict(_build.launches)
+    artifact_forwards(paths, model_dir, images)
+    serve_exported(paths, images)
+    counts = _add([counts, _build.launches])
+    dispatch_cost(paths, model_dir, images)
+    shutil.rmtree(out_dir)
+    return counts
+
+
 KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "batch_stats_kernel": "K1 batch_stats",
     "conv_k4s2p1_kernel": "K3 conv_k4s2p1", "conv_wgmma_kernel": "K3 conv_k4s2p1",
@@ -1573,6 +1857,168 @@ def drive_trainer(work: Path):
                                   "model_path": model_path}
 
 
+# -- the distributed phase: the data-parallel CLI at a world of one ----------
+
+class DistStepObserver(StepObserver):
+    """StepObserver that also keeps each step's all-reduces, by kind."""
+
+    def begin(self, iters, kind):
+        from discogan_modernized_torch.parallel import collectives
+
+        self._reduces = collectives["all_reduce"]
+        super().begin(iters, kind)
+
+    def end(self, iters, kind, losses):
+        from discogan_modernized_torch.parallel import collectives
+
+        super().end(iters, kind, losses)
+        self.__dict__.setdefault("reduces", {}).setdefault(kind, set()).add(
+            collectives["all_reduce"] - self._reduces)
+
+
+@contextlib.contextmanager
+def state_in_memory(total: int):
+    """The trainer's saves kept in memory instead of on disk for the block:
+    the final train state (iteration ``total``) as ``save_train_state``
+    would write it, copied on the card, and the tags of the
+    reference-layout saves. A 512px run writes several GiB a save, and the
+    card machine's disk takes 45 GiB of writes a call in all."""
+    from discogan_modernized_torch.train import loop
+
+    kept = {"layouts": [], "states": []}
+
+    def save_train_state(model_path, ts, iters, meta=None):
+        kept["states"].append(iters)
+        if iters == total:
+            kept["state"] = {
+                "models": {n: {k: v.detach().clone() for k, v in m.state_dict().items()}
+                           for n, m in ts.models.items()},
+                **{key: {"m": [t.clone() for t in opt.m], "v": [t.clone() for t in opt.v],
+                         "step": opt.step}
+                   for key, opt in (("opt_gen", ts.opt_gen), ("opt_dis", ts.opt_dis))}}
+
+    def save_reference_layout(model_path, models, tag):
+        kept["layouts"].append(tag)
+
+    saved = loop.save_train_state, loop.save_reference_layout
+    loop.save_train_state, loop.save_reference_layout = save_train_state, save_reference_layout
+    try:
+        yield kept
+    finally:
+        loop.save_train_state, loop.save_reference_layout = saved
+
+
+# One step a call first: its steps' all-reduces are what each capture must hold,
+# and what a remat run's steps add to.
+DIST_RUNS = (("per-step", True), ("per-step", False), ("remat", True), ("chunked", True),
+             ("chunked", False))
+
+
+def drive_distributed(work: Path, synthetic: dict) -> dict:
+    """The distributed CLI at a world of one on NCCL (--distributed
+    --world_size 1, in this process) with phase 7's flags, on the chunked
+    default and one step a call, with and without --bn_sync, and one step
+    a call under --bn_sync --remat=on: each run's log lines and final train
+    state equal to phase 7's bit for bit (an all-reduce over one rank is
+    the identity); its all-reduces counted, 2 a step (the gradients, the
+    losses) under per-rank BatchNorm and more under bn_sync (the
+    statistics), under remat more again on the steps whose backward
+    rebuilds a region (the rebuild takes the statistics over the ranks
+    too), and on the chunked path inside each captured graph, as many as
+    the same kind's eager step; its launches as PER_STEP (under remat,
+    ``variant_per_step``'s); ms a step beside phase 7's. The runs keep
+    their saves in memory (``state_in_memory``). Returns the launches."""
+    from discogan_modernized_torch.cli import distributed_image_translation as dcli
+    from discogan_modernized_torch.cli.common import distributed_parser, parse_with_config
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.parallel import reset_collectives
+    from discogan_modernized_torch.train import chunk
+    from discogan_modernized_torch.train.loop import config_from_args
+    from discogan_modernized_torch.train.step import resolve_remat
+
+    reference = torch.load(synthetic["model_path"] / "train_state.pt", map_location="cuda",
+                           weights_only=True)
+    theirs = TRAIN_LINE.findall((synthetic["result"] / "training_log.txt").read_text())
+    eager_reduces: dict = {}
+    counts: dict = {}
+    for path, sync in DIST_RUNS:
+        tag = f"dist_{path}_{'sync' if sync else 'local'}"
+        argv = [*SYNTHETIC_FLAGS, "--distributed", "--world_size=1",
+                f"--results_dir={work / tag / 'results'}",
+                f"--models_dir={work / tag / 'models'}",
+                *(["--bn_sync"] if sync else []),
+                *(["--steps_per_call=1"] if path != "chunked" else []),
+                *(["--remat=on"] if path == "remat" else [])]
+        if path == "chunked":
+            observer = ChunkObserver()
+        elif path == "remat":
+            # the trainer decides remat_dis as this does (far from the card's
+            # free memory at batch 8)
+            cfg, _ = resolve_remat(config_from_args(parse_with_config(distributed_parser(),
+                                                                      argv)),
+                                   TRAIN_BATCH, "cuda")
+            observer = DistStepObserver(variant_per_step(remat="full",
+                                                         remat_dis=cfg.remat_dis))
+        else:
+            observer = DistStepObserver()
+        _build.reset_launches()
+        chunk.reset_replays()
+        reset_collectives()
+        t0 = time.perf_counter()
+        tee = Tee(sys.stdout)
+        with state_in_memory(32) as kept, contextlib.redirect_stdout(tee):
+            result, _ = dcli.main(argv, observer=observer)
+        wall = time.perf_counter() - t0
+        counts = _add([counts, _build.launches])
+        text = tee.text.getvalue()
+        if "data parallel: rank 0 of 1 (nccl" not in text:
+            raise AssertionError(f"{tag}: no NCCL rank line in its output")
+        if kept["layouts"] != [0, "final"] or kept["states"] != [1, 32]:
+            raise AssertionError(f"{tag}: saves {kept['layouts']} / {kept['states']}")
+        ms = observer.report()
+        if path == "chunked":
+            check_path_line(text, tag, CHUNK_K)
+            program = observer.program
+            for kind, n in program.collectives.items():
+                if n != eager_reduces.get((sync, kind), n) or n < 2 or (n == 2) == sync:
+                    raise AssertionError(f"{tag}: the {kind} capture holds {n} all-reduces "
+                                         f"(per step: {eager_reduces})")
+            print(f"{tag}: all-reduces captured in the graphs: {program.collectives}; "
+                  f"{sum(chunk.replays.values())} replays; {ms.get('replayed', 0):.3f} ms "
+                  f"an iteration replayed; {wall:.1f} s (host clock)")
+        elif path == "remat":
+            rebuilds = {"gen": True, "dis": cfg.remat_dis}
+            for kind, ns in observer.reduces.items():
+                (n,) = ns
+                base = eager_reduces[(sync, kind)]
+                if (n <= base) if rebuilds[kind] else (n != base):
+                    raise AssertionError(f"{tag}: {kind} steps ran {ns} all-reduces, "
+                                         f"{base} without remat")
+            print(f"{tag}: all-reduces a step {{{', '.join(f'{k}: {n}' for k, (n,) in observer.reduces.items())}}} "
+                  f"(without remat {{{', '.join(f'{k}: {v}' for (s2, k), v in eager_reduces.items() if s2 == sync)}}}); "
+                  f"D {ms['dis']:.3f} ms, G {ms['gen']:.3f} ms a step; "
+                  f"{wall:.1f} s (host clock)")
+        else:
+            for kind, ns in observer.reduces.items():
+                (n,) = ns
+                if n < 2 or (n == 2) == sync:
+                    raise AssertionError(f"{tag}: {kind} steps ran {ns} all-reduces")
+                eager_reduces[(sync, kind)] = n
+            print(f"{tag}: all-reduces a step {{{', '.join(f'{k}: {v}' for (s2, k), v in eager_reduces.items() if s2 == sync)}}}; "
+                  f"D {ms['dis']:.3f} ms, G {ms['gen']:.3f} ms a step (phase 7: D "
+                  f"{synthetic['step_ms']['dis']:.3f}, G {synthetic['step_ms']['gen']:.3f}); "
+                  f"{wall:.1f} s (host clock)")
+        mine = TRAIN_LINE.findall((result / "training_log.txt").read_text())
+        if mine != theirs:
+            raise AssertionError(f"{tag}: log lines differ from phase 7's")
+        compare_states(kept["state"], reference, f"{tag} vs phase 7's run")
+        del kept["state"]
+        shutil.rmtree(work / tag)
+    del reference
+    torch.cuda.empty_cache()
+    return counts
+
+
 def steady_img_s(observer, step_ms) -> float:
     """img/s of the run's steps at the median D and G step times."""
     n_dis = sum(1 for s in observer.steps if s[1] == "dis")
@@ -1942,12 +2388,13 @@ def keep_train_state(model_path: Path) -> None:
         f.unlink()
 
 
-def compare_states(a: Path, b: Path, what: str = "resumed vs uninterrupted") -> None:
-    """The two runs' final train_state.pt, tensor by tensor: bit-identical,
+def compare_states(a, b, what: str = "resumed vs uninterrupted") -> None:
+    """The two runs' final train_state.pt (a model dir, or the state's dict
+    as ``save_train_state`` writes it), tensor by tensor: bit-identical,
     or the differing tensors and what differs, then a probe of which op
     gives other bits on the same inputs."""
-    sa = torch.load(a / "train_state.pt", map_location="cpu", weights_only=True)
-    sb = torch.load(b / "train_state.pt", map_location="cpu", weights_only=True)
+    sa, sb = (x if isinstance(x, dict) else torch.load(
+        x / "train_state.pt", map_location="cpu", weights_only=True) for x in (a, b))
     pairs = [(f"{name}.{k}", v, sb["models"][name][k])
              for name in sa["models"] for k, v in sa["models"][name].items()]
     for key in ("opt_gen", "opt_dis"):
@@ -2683,6 +3130,9 @@ def main() -> int:
         serve_latency(tr, images)
         tr.close()
         check_serve_outputs(model_dir, images)
+
+        phase("export: the 512px artifact")
+        export_counts = drive_export(model_dir, work, images)
         shutil.rmtree(model_dir)
 
         phase("equivalence: one f32 D and G step at 512px, kernels vs plain")
@@ -2697,6 +3147,9 @@ def main() -> int:
         per_forward_check(dict(_build.launches), forwards, "CLI on trained weights")
         keep_train_state(train_model_path)
         profile_g_step()
+
+        phase("distributed: world 1 on NCCL")
+        dist_counts = drive_distributed(work, synthetic)
 
         phase("train: the step's graph variants at 512px, batch 8, bf16")
         _build.reset_launches()
@@ -2727,7 +3180,8 @@ def main() -> int:
 
     phase("report")
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
-                    "train": train_counts[k], "variants": variant_counts[k],
+                    "export": export_counts.get(k, 0), "train": train_counts[k],
+                    "distributed": dist_counts.get(k, 0), "variants": variant_counts[k],
                     "variant_cli": variant_cli_counts[k], "real_data": real_counts[k],
                     "chunks": chunk_counts[k], "real_data_chunks": real_chunk_counts[k],
                     "angle": angle_counts[k], "angle_chunks": angle_chunk_counts.get(k, 0)}

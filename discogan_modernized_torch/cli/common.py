@@ -70,8 +70,17 @@ def inference_parser() -> argparse.ArgumentParser:
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
                         'is available')
-    p.add_argument('--model_path', type=str, required=True,
-                   help='Directory with gen_A_final.pth / gen_B_final.pth')
+    p.add_argument('--model_path', type=str, default=None,
+                   help='Directory with gen_A_final.pth / gen_B_final.pth '
+                        '(required unless --exported is given)')
+    p.add_argument('--exported', type=str, default=None,
+                   help='(extension) run from a torch.export artifact '
+                        '(tools/export_model.py, .pt2) instead of a checkpoint: '
+                        'the weights are inside; it must match --image_size, '
+                        'and --batch_size unless its batch is symbolic')
+    p.add_argument('--exported_rev', type=str, default=None,
+                   help='(extension) the reverse generator\'s artifact, for the '
+                        'reconstruction panel')
     p.add_argument('--input_path', type=str, required=True,
                    help='Path to input image or directory with images')
     p.add_argument('--output_dir', type=str, default='./inference_results',
@@ -107,13 +116,13 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
                    image_save_default: int,
                    celebA_flags: bool) -> argparse.ArgumentParser:
     """The flags both trainers take (the JAX package's ``add_common_flags``,
-    ``cli/common.py:81-235``), as far as the port has them. Not ported
-    yet, and so refused: --bn_sync and the distributed flags (data
-    parallelism and the mesh modes), --exported and --exported_rev
-    (inference export); --xla_copts, which sets XLA flags and has no CUDA
-    meaning; and --ckpt_backend, since the port writes its train state with
-    torch.save only (the JAX package's orbax backend has no counterpart
-    here)."""
+    ``cli/common.py:81-235``), as far as the port has them; the data
+    parallel trainer's own flags are ``distributed_parser``'s. Refused:
+    --xla_copts, which sets XLA flags and has no CUDA meaning, and
+    --ckpt_backend, since the port writes its train state with torch.save
+    only (the JAX package's orbax backend has no counterpart here); and
+    the mesh modes' --parallel_mode gspmd|spatial and --tp, which the
+    distributed trainer refuses with a message until they are ported."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
@@ -171,6 +180,9 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
                    choices=['bf16', 'f32'],
                    help='(extension) compute precision; default bf16 on '
                         'CUDA, f32 on the CPU')
+    p.add_argument('--bn_sync', action='store_true',
+                   help='(extension) cross-rank BatchNorm statistics under data '
+                        'parallelism (default: per rank, as DDP keeps them)')
     p.add_argument('--seed', type=int, default=1234,
                    help='(extension) init and shuffle seed (the reference '
                         'distributed trainer hardcodes torch.manual_seed(1234))')
@@ -241,6 +253,50 @@ def translation_parser() -> argparse.ArgumentParser:
                           task_default='facescrub', epochs_default=100,
                           starting_rate_default=0.01, default_rate_default=0.5,
                           image_save_default=1000, celebA_flags=True)
+
+
+def distributed_parser() -> argparse.ArgumentParser:
+    """distributed_image_translation.py flags (ref :48-126; the JAX
+    package's ``cli/common.py:246-290``)."""
+    p = translation_parser()
+    p.description = 'DiscoGAN data-parallel trainer (PyTorch/CUDA)'
+    p.add_argument('--distributed', action='store_true',
+                   help='Data-parallel training, one process a rank '
+                        '(torch.distributed: NCCL on the card, gloo on the CPU). '
+                        'Under torchrun the ranks come from its environment; '
+                        'else this starts --world_size local processes')
+    p.add_argument('--multihost', action='store_true',
+                   help='Ranks on several hosts: joins the process group at '
+                        '--coordinator_address as rank --process_id of '
+                        '--num_processes (needs --distributed)')
+    p.add_argument('--coordinator_address', type=str, default=None,
+                   help='(multihost) host:port of the rendezvous')
+    p.add_argument('--num_processes', type=int, default=None,
+                   help='(multihost) the number of processes')
+    p.add_argument('--process_id', type=int, default=None,
+                   help='(multihost) this process\'s rank')
+    p.add_argument('--local_rank', type=int, default=0,
+                   help='The card of this process on its host (LOCAL_RANK '
+                        'in the environment sets it and forces --distributed)')
+    p.add_argument('--world_size', type=int, default=None,
+                   help='Ranks to start without torchrun (default: the '
+                        'visible cards; 1 on the CPU)')
+    p.add_argument('--parallel_mode', type=str, default='dp',
+                   choices=['dp', 'gspmd', 'spatial'],
+                   help='(extension) dp = data parallelism; gspmd and spatial '
+                        '(tensor and spatial sharding) are not ported yet')
+    p.add_argument('--tp', type=int, default=None,
+                   help='(extension) model-axis size of gspmd/spatial (not '
+                        'ported yet)')
+    p.add_argument('--load_gen_A', type=str, default=None,
+                   help='Path to a gen_A checkpoint (.pth) to start from')
+    p.add_argument('--load_gen_B', type=str, default=None,
+                   help='Path to a gen_B checkpoint (.pth) to start from')
+    p.add_argument('--load_dis_A', type=str, default=None,
+                   help='Path to a dis_A checkpoint (.pth) to start from')
+    p.add_argument('--load_dis_B', type=str, default=None,
+                   help='Path to a dis_B checkpoint (.pth) to start from')
+    return p
 
 
 def angle_parser() -> argparse.ArgumentParser:

@@ -9,10 +9,20 @@ per-image latency, and saves an Input/Generated[/Reconstructed] panel as
 (running statistics) matches the reference's .eval() calls.
 
 ``translate_batch`` is the array-level step, usable without PIL or
-matplotlib. The JAX CLI's ``--exported`` artifact mode is not ported yet.
+matplotlib.
+
+``--exported`` (and ``--exported_rev`` for the reconstruction) runs from
+``torch.export`` artifacts (tools/export_model.py) instead of a
+checkpoint: the weights and the precision are inside. The artifact's input
+must match ``--image_size``, and a static batch ``--batch_size``; where the
+sidecar is there, its generator must be the one ``--direction`` serves and
+its precision ``--precision`` where that is given. Each artifact's program
+is made into a module once and called for every batch.
 
     python -m discogan_modernized_torch.cli.inference \
         --model_path=<dir> --input_path=<imgs> --image_size=512
+    python -m discogan_modernized_torch.cli.inference \
+        --exported=<dir>/gen_B_final.pt2 --input_path=<imgs> --image_size=512
 """
 
 from __future__ import annotations
@@ -79,34 +89,108 @@ def translate_batch(fwd: Generator, rev: Generator | None, images,
                     policy: Policy) -> tuple[np.ndarray, np.ndarray | None]:
     """(N,H,W,3) float images in [0,1] -> (generated, reconstructed or None)
     as float32 numpy arrays."""
-    device = fwd.encoder[0].weight.device
+    return run_batch(lambda x: fwd(x, policy=policy),
+                     None if rev is None else (lambda y: rev(y, policy=policy)),
+                     images, fwd.encoder[0].weight.device)
+
+
+@torch.no_grad()
+def run_batch(run_fwd, run_rev, images, device) -> tuple[np.ndarray, np.ndarray | None]:
+    """``translate_batch`` through callables: a generator's forward or an
+    artifact's module."""
     x = torch.as_tensor(np.asarray(images, np.float32)).to(device)
-    y = fwd(x, policy=policy)
-    r = rev(y, policy=policy) if rev is not None else None
+    y = run_fwd(x)
+    r = run_rev(y) if run_rev is not None else None
     return y.cpu().numpy(), (r.cpu().numpy() if r is not None else None)
+
+
+def load_artifact(path, image_size: int, device):
+    """(an artifact's program as a module on ``device``, made once; its
+    static batch or None where it is symbolic). Raises ValueError where its
+    input is not ``image_size`` or its platforms do not list ``device``."""
+    from ..tools.export_model import artifact_input_shape, load_exported
+
+    program = load_exported(path, device)
+    b, *hwc = artifact_input_shape(program)
+    if tuple(hwc) != (image_size, image_size, 3):
+        raise ValueError(f"artifact {path} expects input {(b or 'b', *hwc)}, which does "
+                         f"not match --image_size={image_size}")
+    return program.module(), b
+
+
+def artifact_for_batch(path, image_size: int, batch: int, device):
+    """``load_artifact``'s module, refusing (SystemExit) an artifact of
+    another input size or of a static batch other than ``batch``."""
+    try:
+        module, b = load_artifact(path, image_size, device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if b is not None and b != batch:
+        raise SystemExit(f"artifact {path} was exported with static batch {b}; pass "
+                         f"--batch_size={b} or re-export with --batch 0 (symbolic)")
+    return module
+
+
+def check_sidecar(path, direction: str, precision: str | None) -> str | None:
+    """The artifact's baked precision from its sidecar, after checking that
+    its generator is ``direction``'s and its precision ``precision`` (where
+    given); None without a sidecar."""
+    from ..tools.export_model import load_artifact_sidecar
+
+    meta = load_artifact_sidecar(path)
+    if meta is None:
+        print("참고: 사이드카 .json 이 없어 --direction/--precision 교차 검증은 "
+              "생략합니다 (생성기와 정밀도는 아티팩트에 고정됨)")
+        return None
+    want = "gen_B" if direction == "AtoB" else "gen_A"
+    if meta.get("generator") and meta["generator"] != want:
+        raise SystemExit(
+            f"artifact {path} holds {meta['generator']} (exported for --direction "
+            f"{meta.get('direction')}); --direction {direction} needs {want}: pass the "
+            "matching direction or re-export")
+    baked = meta.get("precision")
+    if precision and baked not in (None, precision):
+        raise SystemExit(
+            f"--precision {precision} conflicts with the artifact's baked compute dtype "
+            f"({baked}): precision is fixed at export; re-export with --precision "
+            f"{precision}")
+    return baked
 
 
 def main(argv=None):
     args = parse_with_config(inference_parser(), argv)
     device = resolve_device(args.device)
-    policy = default_policy(args.precision, device)
-    configure(policy)
+    if not (args.exported or args.model_path):
+        print("inference: --model_path 또는 --exported 가 필요합니다")
+        return 2
 
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     batch_n = max(1, int(args.batch_size))
 
-    fwd_name = "gen_B" if args.direction == "AtoB" else "gen_A"
-    try:
-        fwd, rev = load_generators(args.model_path, args.direction,
-                                   args.image_size, device)
-        print(f"모델 로드 성공: {Path(args.model_path) / (fwd_name + '_final.pth')}")
-    except (OSError, RuntimeError, KeyError, ValueError) as e:
-        print(f"모델 로드 실패: {e}")
-        print("다음 파일이 있는지 확인하세요:")
-        for f in Path(args.model_path).glob("*.pth"):
-            print(f" - {f}")
-        return 1
+    if args.exported:
+        baked = check_sidecar(args.exported, args.direction, args.precision)
+        configure(default_policy(baked or args.precision, device))
+        run_fwd = artifact_for_batch(args.exported, args.image_size, batch_n, device)
+        run_rev = (artifact_for_batch(args.exported_rev, args.image_size, batch_n, device)
+                   if args.exported_rev else None)
+        print(f"아티팩트 로드 성공: {args.exported}")
+    else:
+        policy = default_policy(args.precision, device)
+        configure(policy)
+        fwd_name = "gen_B" if args.direction == "AtoB" else "gen_A"
+        try:
+            fwd, rev = load_generators(args.model_path, args.direction,
+                                       args.image_size, device)
+            print(f"모델 로드 성공: {Path(args.model_path) / (fwd_name + '_final.pth')}")
+        except (OSError, RuntimeError, KeyError, ValueError) as e:
+            print(f"모델 로드 실패: {e}")
+            print("다음 파일이 있는지 확인하세요:")
+            for f in Path(args.model_path).glob("*.pth"):
+                print(f" - {f}")
+            return 1
+        run_fwd = lambda x: fwd(x, policy=policy)  # noqa: E731
+        run_rev = None if rev is None else (lambda y: rev(y, policy=policy))
 
     panels = have_matplotlib()
     if not panels:
@@ -132,7 +216,7 @@ def main(argv=None):
         x = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:],
                                            np.float32)]) if pad else imgs
         t0 = time.perf_counter()
-        gen_np, rec_np = translate_batch(fwd, rev, x, policy)
+        gen_np, rec_np = run_batch(run_fwd, run_rev, x, device)
         # Per-image latency = batch time / rows computed (padding included).
         dt = (time.perf_counter() - t0) / x.shape[0]
         # The first batch builds the kernels and derives the weights'

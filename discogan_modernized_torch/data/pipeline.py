@@ -21,6 +21,11 @@ it on the card: both domains within DEVICE_BUDGET_SHARE of the card's
 memory, as the JAX package's rule takes 30% of the device's
 ``bytes_limit``.
 
+Under data parallelism each host takes ``rank_shard`` of both domains, and
+each of its ranks builds its loader and dataset over the host's shard and
+takes its ``rows`` (``host_rows``) of every batch: the ranks of one host
+together take the batches that one process takes.
+
 Each epoch's two permutations are drawn from (seed, epoch)
 (``epoch_perms``), so a resumed run sees the batches the uninterrupted
 run saw, and the loader and the dataset give the same batches; ``skip``
@@ -60,6 +65,29 @@ def is_paths(data) -> bool:
         np.asarray(data).ravel()[0], (str, np.str_, bytes))
 
 
+def rank_shard(data, rank: int, world: int):
+    """Shard ``rank`` of ``world`` of ``data`` (a host's, JAX
+    train/loop.py:241-260): every world-th sample from ``rank`` on,
+    truncated to len(data) // world, so that every shard has as many
+    batches."""
+    data = np.asarray(data)
+    per = len(data) // world
+    if per == 0:
+        raise ValueError(f"{len(data)} samples for {world} ranks: every rank needs one")
+    return data[rank::world][:per]
+
+
+def host_rows(batch_size: int, part: int, parts: int) -> slice:
+    """Part ``part`` of ``parts`` of a host's batch of ``batch_size`` rows: a
+    rank's rows, as a ``parts``-device mesh splits the batch (JAX
+    train/loop.py:352-375: ``--batch_size`` is a host's batch)."""
+    if batch_size % parts:
+        raise SystemExit(f"--batch_size {batch_size} is one host's batch and must "
+                         f"split evenly over its {parts} ranks")
+    per = batch_size // parts
+    return slice(part * per, (part + 1) * per)
+
+
 def epoch_perms(seed: int, epoch: int, n_a: int, n_b: int):
     """Epoch ``epoch``'s independent permutations of the two domains."""
     rng = np.random.default_rng([seed, epoch])
@@ -72,15 +100,18 @@ class HostLoader:
 
     data_A/data_B: arrays of file paths, or decoded (N,H,W,3) f32 arrays.
     domain_A/domain_B: the decode-time domain tags ('A', 'B' or None).
+    ``rows``: the rows of each batch this loader yields (a rank's part of a
+    host's batch; all where None).
     ``waits`` collects the seconds the consumer waited for each batch.
     """
 
     def __init__(self, data_A, data_B, batch_size: int, image_size: int,
                  device, *, domain_A: Optional[str] = None,
                  domain_B: Optional[str] = None, seed: int = 0,
-                 workers: Optional[int] = None):
+                 workers: Optional[int] = None, rows: Optional[slice] = None):
         self.data_A, self.data_B = np.asarray(data_A), np.asarray(data_B)
         self.batch_size, self.image_size = batch_size, image_size
+        self.rows = rows or slice(None)
         self.device = torch.device(device)
         self.domains = (domain_A, domain_B)
         self.seed = seed
@@ -168,8 +199,8 @@ class HostLoader:
                     if stop.is_set():
                         return
                     sl = slice(i * bs, (i + 1) * bs)
-                    item = (self._pinned(self._host_batch(self.data_A, 0, pa[sl])),
-                            self._pinned(self._host_batch(self.data_B, 1, pb[sl])))
+                    item = (self._pinned(self._host_batch(self.data_A, 0, pa[sl][self.rows])),
+                            self._pinned(self._host_batch(self.data_B, 1, pb[sl][self.rows])))
                     if not put(item):
                         return
                 put(None)
@@ -217,11 +248,11 @@ def fits_device_budget(n_a: int, n_b: int, image_size: int, device) -> bool:
 class DeviceDataset:
     """Both domains of ``loader`` decoded once into (N, H, W, 3) f32
     tensors on its device (``data``); the batches of an epoch gathered
-    there by the loader's (seed, epoch) order."""
+    there by the loader's (seed, epoch) order, its ``rows`` of each."""
 
     def __init__(self, loader: HostLoader):
         self.device = loader.device
-        self.batch_size, self.seed = loader.batch_size, loader.seed
+        self.batch_size, self.seed, self.rows = loader.batch_size, loader.seed, loader.rows
         self.n_batches = loader.n_batches
         self.data = tuple(self._build(loader, k) for k in (0, 1))
         for c in loader.caches:
@@ -250,11 +281,11 @@ class DeviceDataset:
 
     def epoch_rows(self, epoch: int):
         """Epoch ``epoch``'s index rows into each domain, (n_batches,
-        batch) int64 each: the loader's batches."""
+        rows) int64 each: the loader's batches."""
         pa, pb = epoch_perms(self.seed, epoch, len(self.data[0]), len(self.data[1]))
         n = self.n_batches * self.batch_size
-        return (pa[:n].reshape(self.n_batches, -1).astype(np.int64),
-                pb[:n].reshape(self.n_batches, -1).astype(np.int64))
+        return tuple(np.ascontiguousarray(p[:n].reshape(self.n_batches, -1)[:, self.rows],
+                                          np.int64) for p in (pa, pb))
 
     def gather(self, idx_A, idx_B):
         """The batch of the index rows ``idx_A``, ``idx_B``, on the device."""

@@ -32,8 +32,7 @@ from torch import nn
 
 from ..core.precision import F32, Policy
 from ..ops.activations import sigmoid
-from ..ops.autograd import (KERNEL_OPS, PLAIN_OPS, conv, conv_batch_stats, mm_fn,
-                            train_bn_act)
+from ..ops.autograd import conv, conv_batch_stats, mm_fn, train_bn_act, train_ops
 from ..ops.batchnorm import batchnorm, fold_bn
 from ..ops.conv import init_conv_, latent_conv
 from ..ops.halo_conv import takes_halo
@@ -70,15 +69,16 @@ class Discriminator(nn.Module):
         return materialize([self._weight_views()[i - 1]], dtype)
 
     def forward(self, x: torch.Tensor, *, policy: Policy = F32,
-                plain: bool = False, remat: str | None = None):
+                plain: bool = False, remat: str | None = None, stats_dp=None):
         """x: (N,H,W,3) -> (prob (N,1,1,1) float32, features).
 
-        The train form normalizes with batch statistics, advances the
+        The train form normalizes with batch statistics (over the ranks of
+        ``stats_dp``, a parallel.DataParallel, where given), advances the
         running statistics and keeps the autograd graph, in the regions of
         ``remat``; the eval form runs without a graph on the running
         statistics. plain=True runs the kernels' plain PyTorch versions
         instead."""
-        ops = PLAIN_OPS if plain else KERNEL_OPS
+        ops = train_ops(plain, stats_dp)
         if not self.training:
             with torch.no_grad():
                 return self._eval_forward(x, policy.compute_dtype, ops)
@@ -86,7 +86,7 @@ class Discriminator(nn.Module):
 
     def forward_pair(self, x_real: torch.Tensor, x_fake: torch.Tensor, *,
                      policy: Policy = F32, plain: bool = False,
-                     remat: str | None = None):
+                     remat: str | None = None, stats_dp=None):
         """Both train forwards of this discriminator, real then fake, as
         one pass over the two halves on a pair axis, BatchNorm statistics
         per half: each layer's running statistics take the real update,
@@ -99,7 +99,7 @@ class Discriminator(nn.Module):
         parameter on its own and they add there, as the sequential
         forwards' do (summed before, in the compute dtype, they would
         round)."""
-        ops = PLAIN_OPS if plain else KERNEL_OPS
+        ops = train_ops(plain, stats_dp)
         shared = not any(p.requires_grad for p in self.parameters())
         prob, feats = discriminator_train((self, self), torch.stack([x_real, x_fake]),
                                           policy, ops, remat, shared=shared)

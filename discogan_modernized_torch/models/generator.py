@@ -21,6 +21,12 @@ NHWC, as in the JAX package. Both forms run through the kernels (ops/):
   dec1..            F.conv_transpose2d, then K2      F.conv_transpose2d, K1, K2
   head              K6 convT, then the sigmoid in f32
 
+The eval form reaches K2, K3, K5f and K6 through their registered
+``discogan::`` ops (ops/library.py: the CUDA implementation launches the
+kernel, the CPU one runs its plain version), so ``torch.export`` of it
+records the kernels (tools/export_model.py); the train form calls the
+wrappers from ops/autograd.py's functions.
+
 The train form runs under autograd (ops/autograd.py: K4 / K5b weight
 gradients, K6 for the stem's input gradient) and advances the BN running
 statistics in place. ``generator_train`` runs it for one generator, or for
@@ -44,13 +50,13 @@ from torch import nn
 
 from ..core.precision import F32, Policy
 from ..ops.activations import sigmoid
-from ..ops.autograd import (KERNEL_OPS, PLAIN_OPS, batch_stats_fn, conv,
-                            conv_batch_stats, conv_transpose_fn, head_fn, mm_fn,
-                            train_bn_act)
+from ..ops.autograd import (PLAIN_OPS, batch_stats_fn, conv, conv_batch_stats,
+                            conv_transpose_fn, head_fn, mm_fn, train_bn_act, train_ops)
 from ..ops.batchnorm import batchnorm, fold_bn
 from ..ops.conv import (conv_transpose2d, init_conv_, latent_conv,
                         latent_conv_transpose)
 from ..ops.halo_conv import takes_halo
+from ..ops.library import SERVING_OPS
 from .geometry import KERNEL, LATENT_CH, encoder_channels
 from .regions import materialize, run_regions
 
@@ -163,36 +169,46 @@ class Generator(nn.Module):
     # -- forward ----------------------------------------------------------
 
     def forward(self, x: torch.Tensor, *, policy: Policy = F32,
-                plain: bool = False, remat: str | None = None) -> torch.Tensor:
+                plain: bool = False, remat: str | None = None,
+                stats_dp=None) -> torch.Tensor:
         """x: (N,H,W,3) in [0,1] -> (N,H,W,3) float32 in [0,1].
 
-        The train form (``.train()``) normalizes with batch statistics,
-        advances the running statistics and keeps the autograd graph, in the
-        regions of ``remat`` ("full", "latent", "conv"; None: none); the
-        eval form runs without a graph. plain=True runs the kernels' plain
-        PyTorch versions instead, for holding the kernels' path against
-        them on the card."""
-        ops = PLAIN_OPS if plain else KERNEL_OPS
+        The train form (``.train()``) normalizes with batch statistics
+        (over the ranks of ``stats_dp``, a parallel.DataParallel, where
+        given), advances the running statistics and keeps the autograd
+        graph, in the regions of ``remat`` ("full", "latent", "conv"; None:
+        none); the eval form runs without a graph. plain=True runs the
+        kernels' plain PyTorch versions instead, for holding the kernels'
+        path against them on the card."""
         if self.training:
-            return generator_train((self,), x, policy, ops, remat)
+            return generator_train((self,), x, policy, train_ops(plain, stats_dp), remat)
         with torch.no_grad():
-            return self._eval_forward(x, policy, ops)
+            return self._eval_forward(x, policy, PLAIN_OPS if plain else SERVING_OPS)
 
     def _eval_forward(self, x, policy, ops):
-        p = self._operands(policy.compute_dtype)
-        h = x.to(policy.compute_dtype).contiguous()
-        for w, scale, offset in p["enc"]:
-            conv_op = ops["halo"] if takes_halo(h, w) else ops["conv"]
-            h = conv_op(h, w, scale=scale, offset=offset, act="leaky")
-        w, scale, offset = p["latent"]
-        h = ops["bn_act"](latent_conv(h, w), scale, offset, "leaky")
-        for j, (w, scale, offset) in enumerate(p["dec"]):
-            h = (latent_conv_transpose(h, w) if j == 0
-                 else conv_transpose2d(h, w))
-            h = ops["bn_act"](h, scale, offset, "relu")
-        h = ops["head"](h, p["head"])
-        return sigmoid(h.float())
+        """The eval form through ``ops``: SERVING_OPS (the kernels as
+        registered ``discogan::`` ops), KERNEL_OPS (their wrappers, called
+        directly) or PLAIN_OPS."""
+        return eval_forward(self._operands(policy.compute_dtype), x,
+                            policy.compute_dtype, ops)
 
+
+def eval_forward(p: dict, x: torch.Tensor, compute_dtype: torch.dtype, ops) -> torch.Tensor:
+    """The eval form from ``Generator._operands``' dict ``p``: NHWC x in
+    [0, 1] -> the image in [0, 1], f32. Routing between K3 and K5f is by
+    shape (``takes_halo``)."""
+    h = x.to(compute_dtype).contiguous()
+    for w, scale, offset in p["enc"]:
+        conv_op = ops["halo"] if takes_halo(h, w) else ops["conv"]
+        h = conv_op(h, w, scale=scale, offset=offset, act="leaky")
+    w, scale, offset = p["latent"]
+    h = ops["bn_act"](latent_conv(h, w), scale, offset, "leaky")
+    for j, (w, scale, offset) in enumerate(p["dec"]):
+        h = (latent_conv_transpose(h, w) if j == 0
+             else conv_transpose2d(h, w))
+        h = ops["bn_act"](h, scale, offset, "relu")
+    h = ops["head"](h, p["head"])
+    return sigmoid(h.float())
 
 
 def generator_weights(gens, dtype: torch.dtype, part: str | None = None) -> dict:

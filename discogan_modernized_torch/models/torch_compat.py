@@ -153,11 +153,25 @@ def read_jax_train_state_npz(path, image_size: int, arch: str) -> dict:
     return out
 
 
-def train_state_from_jax(jts: dict, cfg, device="cpu"):
+def _replica(tree, r: int):
+    """``tree`` with replica ``r`` taken from every leaf's leading axis."""
+    if isinstance(tree, dict):
+        return {k: _replica(v, r) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_replica(v, r) for v in tree]
+    return np.asarray(tree)[r]
+
+
+def train_state_from_jax(jts: dict, cfg, device="cpu", replica: int | None = None):
     """A JAX train state (``init_train_state``'s pytree, its leaves
     numpy-convertible) -> the port's ``TrainState`` for ``cfg`` on
     ``device``: parameters in bf16 under slim state "all", moments in the
-    slim state's dtype, running statistics f32, Adam step counts kept."""
+    slim state's dtype, running statistics f32, Adam step counts kept.
+    ``replica``: the state is a data-parallel one under per-replica
+    BatchNorm (JAX ``parallel/dp.py:48-60``: a leading replica axis on its
+    BatchNorm states), and rank ``replica`` takes that replica's."""
+    if replica is not None:
+        jts = dict(jts, model_states=_replica(jts["model_states"], replica))
     from ..train.graph import trainable_subsets
     from ..train.step import (TrainState, cast_parameters, make_optimizers,
                               resolve_slim_state)

@@ -3,8 +3,13 @@ JAX package leaves to ``jax.custom_vjp`` and XLA's autodiff.
 
 Every function takes ``ops``, the table of kernel wrappers
 (``KERNEL_OPS``) or of their plain PyTorch versions (``PLAIN_OPS``), so a
-run on the card can hold the kernels' path against the plain one. Per
-function, forward and backward:
+run on the card can hold the kernels' path against the plain one. Under
+data parallelism with cross-rank BatchNorm the table also holds
+``"stats_dp"``, the parallel.DataParallel whose ranks' global batch the
+statistics are taken over (``train_ops``): a rematerialized region closes
+over the table, so its rebuild in the backward takes the same statistics
+and the same all-reduces as its first forward. Per function, forward and
+backward:
 
 - ``conv`` (k4/s2/p1): K3, or K5f on the ``takes_halo`` route, with an
   optional fused LeakyReLU (the stem) or K3's batch statistics
@@ -70,6 +75,15 @@ PLAIN_OPS = {"conv": conv2d_k4s2p1_plain, "halo": halo_conv2d_k4s2p1_plain,
              "bn_act": bn_act_plain, "head": head_convt_plain,
              "stats": batch_stats_plain, "conv_dw": conv2d_k4s2p1_dw_plain,
              "halo_dw": halo_conv2d_k4s2p1_dw_plain}
+
+
+def train_ops(plain: bool = False, stats_dp=None) -> dict:
+    """The table a train forward takes: the kernels' wrappers (their plain
+    versions with ``plain``), and with ``stats_dp`` (a
+    parallel.DataParallel) the ranks whose global batch the BatchNorm
+    statistics span."""
+    ops = PLAIN_OPS if plain else KERNEL_OPS
+    return ops if stats_dp is None else dict(ops, stats_dp=stats_dp)
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -298,18 +312,32 @@ def conv(x, w, ops, *, act=None, with_stats=False):
 
 
 def batch_stats_fn(x, ops):
-    """Per-channel (mean, biased var) of NHWC x through K1."""
-    return _BatchStats.apply(x, ops)
+    """Per-channel (mean, biased var) of NHWC x through K1; with
+    ``ops["stats_dp"]``, the global batch's: the ranks' mean of the
+    means, and of each rank's variance plus its mean's squared distance
+    from the global one (equal counts a rank). Over one rank the second
+    term is exactly 0 and the statistics are K1's bits."""
+    mean, var = _BatchStats.apply(x, ops)
+    dp = ops.get("stats_dp")
+    if dp is not None:
+        mean_all = dp.rank_mean(mean)
+        var = dp.rank_mean(var + (mean - mean_all).square())
+        mean = mean_all
+    return mean, var
 
 
 def conv_batch_stats(x, w, ops):
     """The conv of a BatchNorm'd layer and its batch statistics:
-    (y, mean, var). K3 takes them from its f32 accumulator; the halo
-    route's K5f has none, so K1 reads them off y."""
+    (y, mean, var). K3 takes them from its f32 accumulator (mean and mean
+    of squares; with ``ops["stats_dp"]``, the ranks' means of both);
+    the halo route's K5f has none, so K1 reads them off y."""
     if takes_halo(x, w):
         y = conv(x, w, ops)
         return (y, *batch_stats_fn(y, ops))
     y, mean, mean_sq = conv(x, w, ops, with_stats=True)
+    dp = ops.get("stats_dp")
+    if dp is not None:
+        mean, mean_sq = dp.rank_mean(torch.stack([mean, mean_sq])).unbind(0)
     return y, mean, torch.clamp_min(mean_sq - mean.square(), 0.0)
 
 
@@ -339,8 +367,9 @@ def train_bn_act(bn, y, mean, var, act, ops):
     act(normalize(y)) with gamma and beta in the graph. With a pair axis,
     ``bn`` holds one module a pair (the same one twice where both halves
     are one network's, which then takes the first half's update, then the
-    second's)."""
-    count = _rows(y)
+    second's). With ``ops["stats_dp"]`` the count is the global batch's."""
+    dp = ops.get("stats_dp")
+    count = _rows(y) * (dp.world if dp is not None else 1)
     if isinstance(bn, (tuple, list)):
         folded = [batchnorm_train(m, mean[p], var[p], count) for p, m in enumerate(bn)]
         scale, offset = (torch.stack([f[i] for f in folded]) for i in range(2))

@@ -9,7 +9,9 @@
 - ``feature_matching_loss``: per discriminator feature, the mean of the
   squared difference of the batch means (HingeEmbeddingLoss with all-ones
   targets reduces to that), summed over features; ``skip_first`` drops the
-  first feature (ref angle_pairing.py:114-115).
+  first feature (ref angle_pairing.py:114-115); with ``stats_dp`` (a
+  parallel.DataParallel) the batch means are the global batch's (JAX
+  ``ops/losses.py:72-90``).
 - ``gan_losses``: dis = 0.5 * (BCE(real, 1) + BCE(fake, 0)), gen =
   BCE(fake, 1), after the (B,1,1,1) -> (B,1) reshape (ref :151-154).
 
@@ -30,15 +32,20 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred.float() - target.float()).square().mean()
 
 
-def feature_matching_loss(real_feats, fake_feats, *, skip_first: bool = False):
+def feature_matching_loss(real_feats, fake_feats, *, skip_first: bool = False,
+                          stats_dp=None):
     """Sum over features of mean((mean_N(real) - mean_N(fake))^2); 0 where
-    no feature is left (a 16px discriminator has one)."""
+    no feature is left (a 16px discriminator has one). ``stats_dp``: the
+    batch means over its ranks."""
     device = real_feats[0].device if real_feats else None
     if skip_first:
         real_feats, fake_feats = real_feats[1:], fake_feats[1:]
     total = torch.zeros((), dtype=torch.float32, device=device)
     for rf, ff in zip(real_feats, fake_feats):
-        diff = rf.float().mean(0) - ff.float().mean(0)
+        rm, fm = rf.float().mean(0), ff.float().mean(0)
+        if stats_dp is not None:
+            rm, fm = stats_dp.rank_mean(rm), stats_dp.rank_mean(fm)
+        diff = rm - fm
         total = total + diff.square().mean()
     return total
 

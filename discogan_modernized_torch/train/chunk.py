@@ -43,6 +43,14 @@ that fails raises; there is no fallback to the per-step loop.
 ``ops/_build.launches`` counts the kernels' launches; a kernel launched in
 a captured step is counted once, at its capture (``ChunkProgram.launches``
 keeps each kind's), and not at its replays.
+
+Under data parallelism (``dp``, a parallel.DataParallel) each rank runs
+its own program over its shard of the dataset, and the steps' all-reduces
+(the gradients, the losses, and under bn_sync the statistics) run inside
+the steps: on the card NCCL's collectives are captured into the graphs
+with the kernels, after the eager warm-up has made the communicator, and
+each capture's all-reduces are counted (``ChunkProgram.collectives``); on
+the CPU gloo's run eagerly.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch
 
 from ..core.precision import Policy
 from ..ops import _build
+from ..parallel import dp as dp_counts
 from .step import TrainConfig, TrainState, loss_and_grads
 
 LOSS_KEYS = ("gen_A", "gen_B", "fm_A", "fm_B", "recon_A", "recon_B", "dis_A", "dis_B",
@@ -78,13 +87,14 @@ class ChunkProgram:
     decoded dataset, (N, H, W, 3) f32 on the models' device). ``kinds``:
     the step kinds the run will take (``step.kinds_in_range``), all of
     which run eagerly once before any is captured. ``graphs``: capture and
-    replay (the default on the card; never on the CPU)."""
+    replay (the default on the card; never on the CPU). ``dp``: this rank's
+    parallel.DataParallel under data parallelism."""
 
     def __init__(self, ts: TrainState, cfg: TrainConfig, policy: Policy,
                  data_A: torch.Tensor, data_B: torch.Tensor, batch: int, steps: int,
-                 kinds, graphs: bool | None = None):
+                 kinds, graphs: bool | None = None, dp=None):
         device = data_A.device
-        self.ts, self.cfg, self.steps, self.batch = ts, cfg, steps, batch
+        self.ts, self.cfg, self.steps, self.batch, self.dp = ts, cfg, steps, batch, dp
         self.kinds = set(kinds)
         graphs = device.type == "cuda" if graphs is None else graphs
         if graphs and device.type != "cuda":
@@ -101,6 +111,7 @@ class ChunkProgram:
         self.warm: set = set()
         self.graphs: dict = {}    # kind -> torch.cuda.CUDAGraph
         self.launches: dict = {}  # kind -> the kernel launches of its capture
+        self.collectives: dict = {}  # kind -> the all-reduces of its capture
         self.stream = torch.cuda.Stream(device) if graphs else None
         self._copied = None  # the event after the last table copy
 
@@ -118,7 +129,7 @@ class ChunkProgram:
             f32 = r[2 * b:2 * b + 3].view(torch.float32)[0::2]  # rate, bc1, bc2
             seeds = r[2 * b + 3:2 * b + 3 + n_seeds].view(torch.int32)[0::2]
             losses, grads = loss_and_grads(ts, A, B, f32[0], cfg, policy, which,
-                                           lean=kind == "lean")
+                                           lean=kind == "lean", dp=self.dp)
             opt.apply(grads, f32[1:], seeds)
             self.losses.index_copy_(0, slot, torch.stack([losses[k] for k in LOSS_KEYS])[None])
             slot.add_(1)
@@ -155,15 +166,18 @@ class ChunkProgram:
 
     def _capture(self) -> None:
         """Each kind of ``kinds`` as a CUDA graph on the side stream, all in
-        one memory pool; the kernel launches of each capture counted."""
+        one memory pool; the kernel launches and all-reduces of each capture
+        counted."""
         pool = torch.cuda.graph_pool_handle()
         for kind in sorted(self.kinds):
             graph = torch.cuda.CUDAGraph()
             before = dict(_build.launches)
+            reduces = dp_counts.collectives["all_reduce"]
             with torch.cuda.graph(graph, pool=pool, stream=self.stream):
                 self.bodies[kind]()
             self.launches[kind] = {k: v - before[k] for k, v in _build.launches.items()
                                    if v != before[k]}
+            self.collectives[kind] = dp_counts.collectives["all_reduce"] - reduces
             self.graphs[kind] = graph
 
     def __call__(self, idx_A, idx_B, iters0: int) -> torch.Tensor:

@@ -28,6 +28,14 @@ Curriculum and arch-mode mixing (ref :366-382):
     discogan: gen = A_total + B_total,            dis = dis_A + dis_B
     recongan: gen = A_total,                      dis = dis_B
     gan:      gen = gen_B*0.1 + fm_B*0.9,         dis = dis_B
+
+Under data parallelism with cross-rank statistics (``stats_dp``, the
+parallel.DataParallel train/step.py passes under ``bn_sync``, which every
+forward carries in its ops table) the BatchNorm statistics and the
+feature-matching means are the global batch's, and the reported losses are
+the ranks' means (JAX ``graph.py:165-168``, there ``pmean`` of each
+component; here one all-reduce of them all after the backward,
+``parallel.DataParallel.mean_losses``).
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import torch
 from ..core.precision import F32, Policy
 from ..models.discriminator import discriminator_train
 from ..models.generator import generator_train
-from ..ops.autograd import KERNEL_OPS, PLAIN_OPS
+from ..ops.autograd import train_ops
 from ..ops.losses import feature_matching_loss, gan_losses, mse_loss
 
 ARCH_MODES = ("discogan", "recongan", "gan")
@@ -80,13 +88,14 @@ def _zero(like: torch.Tensor) -> torch.Tensor:
 
 
 def _losses(A_real, A_feats_real, A_fake, A_feats_fake, B_real, B_feats_real,
-            B_fake, B_feats_fake, recon_A, recon_B, skip_first_fm: bool) -> dict:
+            B_fake, B_feats_fake, recon_A, recon_B, skip_first_fm: bool,
+            stats_dp) -> dict:
     dis_loss_A, gen_loss_A = gan_losses(A_real, A_fake)
     fm_loss_A = feature_matching_loss(A_feats_real, A_feats_fake,
-                                      skip_first=skip_first_fm)
+                                      skip_first=skip_first_fm, stats_dp=stats_dp)
     dis_loss_B, gen_loss_B = gan_losses(B_real, B_fake)
     fm_loss_B = feature_matching_loss(B_feats_real, B_feats_fake,
-                                      skip_first=skip_first_fm)
+                                      skip_first=skip_first_fm, stats_dp=stats_dp)
     return {"gen_A": gen_loss_A, "gen_B": gen_loss_B, "fm_A": fm_loss_A,
             "fm_B": fm_loss_B, "recon_A": recon_A, "recon_B": recon_B,
             "dis_A": dis_loss_A, "dis_B": dis_loss_B}
@@ -96,7 +105,8 @@ def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
                     policy: Policy = F32, plain: bool = False,
                     skip_first_fm: bool = False, remat: bool = False,
                     remat_policy: str | None = None, remat_dis: bool | None = None,
-                    dis_only: bool = False, concat_dis: bool = False) -> dict:
+                    dis_only: bool = False, concat_dis: bool = False,
+                    stats_dp=None) -> dict:
     """Run the full forward graph with the models in their current mode.
     models: gen_A, gen_B, dis_A, dis_B. Returns the eight raw loss
     components the reference logs. ``skip_first_fm`` leaves the first
@@ -112,9 +122,10 @@ def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
 
     remat / remat_policy / remat_dis: rematerialized regions
     (``_checkpoint_policies``); concat_dis: each discriminator's real and
-    fake forwards as one pass."""
+    fake forwards as one pass; stats_dp: the BatchNorm statistics and the
+    feature-matching means over its ranks."""
     g_remat, d_remat = _regions(remat, remat_policy, remat_dis)
-    kw = dict(policy=policy, plain=plain)
+    kw = dict(policy=policy, plain=plain, stats_dp=stats_dp)
     AB = models["gen_B"](A, remat=g_remat, **kw)
     BA = models["gen_A"](B, remat=g_remat, **kw)
     if dis_only:
@@ -136,7 +147,7 @@ def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
         B_real, B_feats_real = models["dis_B"](B, remat=d_remat, **kw)
         B_fake, B_feats_fake = models["dis_B"](AB, remat=d_remat, **kw)
     return _losses(A_real, A_feats_real, A_fake, A_feats_fake, B_real, B_feats_real,
-                   B_fake, B_feats_fake, recon_A, recon_B, skip_first_fm)
+                   B_fake, B_feats_fake, recon_A, recon_B, skip_first_fm, stats_dp)
 
 
 def discogan_losses_paired(models: dict, A: torch.Tensor, B: torch.Tensor, *,
@@ -144,7 +155,7 @@ def discogan_losses_paired(models: dict, A: torch.Tensor, B: torch.Tensor, *,
                            skip_first_fm: bool = False, remat: bool = False,
                            remat_policy: str | None = None,
                            remat_dis: bool | None = None,
-                           dis_only: bool = False) -> dict:
+                           dis_only: bool = False, stats_dp=None) -> dict:
     """The same loss graph with every A-side/B-side pair of forwards as
     one pass on a pair axis (JAX ``discogan_losses_paired``, there a vmap
     over stacked parameters): each port kernel launches once for both
@@ -153,7 +164,7 @@ def discogan_losses_paired(models: dict, A: torch.Tensor, B: torch.Tensor, *,
     on (AB, BA), then (D_A, D_B) on (A, B) and on (BA, AB); each member's
     BatchNorm takes its own statistics."""
     g_remat, d_remat = _regions(remat, remat_policy, remat_dis)
-    ops = PLAIN_OPS if plain else KERNEL_OPS
+    ops = train_ops(plain, stats_dp)
     gen_A, gen_B, dis_A, dis_B = (models[k] for k in ("gen_A", "gen_B", "dis_A", "dis_B"))
     AB_in = torch.stack([A, B])
     out1 = generator_train((gen_B, gen_A), AB_in, policy, ops, g_remat)
@@ -169,7 +180,7 @@ def discogan_losses_paired(models: dict, A: torch.Tensor, B: torch.Tensor, *,
                                            ops, d_remat)
     return _losses(real[0], [f[0] for f in real_feats], fake[0], [f[0] for f in fake_feats],
                    real[1], [f[1] for f in real_feats], fake[1], [f[1] for f in fake_feats],
-                   recon_A, recon_B, skip_first_fm)
+                   recon_A, recon_B, skip_first_fm, stats_dp)
 
 
 def mix_losses(losses: dict, rate, arch: str):

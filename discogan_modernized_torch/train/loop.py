@@ -44,6 +44,31 @@ k = 1 is the per-step loop, from the dataset where it is on, else from
 the host loader. ``--profile DIR`` traces iterations 2-9
 (``train/profiling.py``).
 
+Data parallelism (``ranks``, from core/distributed.py; the JAX package's
+train/loop.py:164-375 on a mesh): every rank runs this loop on its own
+device with a ``parallel.DataParallel``, whose all-reduces run inside the
+steps (and, on the chunked path, inside their CUDA graphs).
+``--batch_size`` is one host's batch, as in the JAX package
+(loop.py:241-260, :352-375, where a host's mesh splits it over its
+devices): each host trains on its shard of both domains,
+``d[host::hosts]`` truncated to the shortest shard's length (a host with
+one batch more would wait forever in a collective), draws the batches one
+process would draw from that shard, and each of its ranks takes its rows
+of every batch (``data/pipeline.py::host_rows``). So W ranks on one host
+train on exactly the batches of the one-process run with the same flags;
+a rank's dataset on the device holds its host's shard. Every rank takes
+the same seed, so the models start equal, and rank 0's run timestamp
+names every rank's directories. The ranks decide remat and the dataset's
+place from the smallest free memory and the least fit among them, so that
+all run the same collectives. Rank 0 alone
+writes the log, the sample images and the checkpoints (its running
+statistics under per-rank BatchNorm, JAX ``dp.py:55-69``), and handles a
+SIGTERM save; the ranks agree after each step (chunk) whether any was
+sent SIGTERM, and all stop there. Every rank runs the sample forwards, so
+their running statistics take the same updates as a single process's.
+``--resume`` and the weights-only ``--load_gen_A`` ... ``--load_dis_B``
+(the distributed CLI's; JAX loop.py:278-290) load on every rank.
+
 ``run_training`` takes an optional ``observer``. On the per-step path it
 is called with ``begin(iters, kind)`` and ``end(iters, kind, losses)``
 (kind "dis", "lean" (a lean D step) or "gen", losses the step's device
@@ -68,11 +93,14 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.distributed import any_rank, broadcast_text, min_over_ranks
 from ..core.precision import configure, default_policy
 from ..data.pipeline import (DEVICE_BUDGET_SHARE, DeviceDataset, HostLoader,
-                             dataset_bytes, fits_device_budget, is_paths)
+                             dataset_bytes, fits_device_budget, host_rows, is_paths,
+                             rank_shard)
 from ..data.preprocess import read_images
 from ..data.resolvers import get_task_data, task_domains
+from ..parallel import DataParallel
 from .checkpoint import (load_train_state, save_reference_layout,
                          save_train_state, train_state_meta)
 from .chunk import LOSS_KEYS, ChunkProgram
@@ -123,7 +151,8 @@ def config_from_args(args, angle_variant: bool = False) -> TrainConfig:
         skip_first_fm=angle_variant, precision=args.precision,
         slim_state=args.slim_state, paired=args.paired, lean_dis=args.lean_dis,
         remat={"on": True, "off": False, None: None}[args.remat],
-        remat_policy=args.remat_policy, log_interval=args.log_interval)
+        remat_policy=args.remat_policy, log_interval=args.log_interval,
+        bn_sync=args.bn_sync)
     resolve_slim_state(cfg)  # fail before any data or weights
     return cfg
 
@@ -185,20 +214,41 @@ def sigterm_flag():
             signal.signal(signal.SIGTERM, old)
 
 
-def run_training(args, *, observer=None, angle_variant: bool = False):
-    """Train as the flags say; returns (result_path, model_path)."""
-    device = resolve_device(args.device)
+def load_weights(args, models: dict) -> None:
+    """The weights-only ``--load_<name>`` flags: a reference-layout .pth
+    into that network (strict), cast to its parameters' dtype."""
+    for name, m in models.items():
+        path = getattr(args, f"load_{name}", None)
+        if path:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+            m.load_state_dict(sd, strict=True)
+            print(f"모델 로드 성공: {path}")
+
+
+def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None):
+    """Train as the flags say; returns (result_path, model_path). ``ranks``:
+    this process's place in a data-parallel group (core/distributed.py)."""
+    device = ranks.device if ranks is not None else resolve_device(args.device)
+    main_rank = ranks is None or ranks.is_main
     policy = default_policy(args.precision, device)
     configure(policy)
     cfg = config_from_args(args, angle_variant)
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    if ranks is not None:
+        timestamp = broadcast_text(timestamp, ranks, len(timestamp))
     result_path, model_path = build_paths(args, timestamp, angle_variant)
     data_A, data_B, test_A, test_B = get_task_data(args)
+    rows, batch, global_batch = None, args.batch_size, args.batch_size
+    if ranks is not None:
+        if ranks.hosts > 1:
+            data_A, data_B = (rank_shard(d, ranks.host, ranks.hosts) for d in (data_A, data_B))
+        rows = host_rows(args.batch_size, ranks.part, ranks.local_world)
+        batch, global_batch = rows.stop - rows.start, ranks.hosts * args.batch_size
     test_A, test_B = preprocess_test_set(args, test_A, test_B, angle_variant)
     n_samples = min(5, len(test_A), len(test_B))
     dom_A, dom_B = (None, None) if angle_variant else task_domains(args.task_name)
     loader = HostLoader(data_A, data_B, args.batch_size, args.image_size, device,
-                        domain_A=dom_A, domain_B=dom_B, seed=args.seed)
+                        domain_A=dom_A, domain_B=dom_B, seed=args.seed, rows=rows)
     nb = loader.n_batches
     if nb == 0:
         raise SystemExit(
@@ -206,6 +256,8 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
             f"({min(len(data_A), len(data_B))} pairs): no batches to train on")
     total_iterations = args.epochs * nb
     on, dataset_line = use_device_dataset(args, device, len(data_A), len(data_B))
+    if ranks is not None and not min_over_ranks([on], ranks)[0] and on:
+        on, dataset_line = False, "off (it does not fit on every rank's card)"
     dataset = None
     if on:
         t0 = time.perf_counter()
@@ -214,7 +266,12 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
             torch.cuda.synchronize(device)
         dataset_line += f", built in {time.perf_counter() - t0:.3f} s"
     # After the dataset: the remat rule reads the free memory without it.
-    cfg, remat_line = resolve_remat(cfg, args.batch_size, device,
+    free_bytes = None
+    if device.type == "cuda":
+        free_bytes = torch.cuda.mem_get_info(device)[0]
+        if ranks is not None:
+            (free_bytes,) = min_over_ranks([free_bytes], ranks)
+    cfg, remat_line = resolve_remat(cfg, batch, device, free_bytes,
                                     compute_itemsize=policy.compute_dtype.itemsize)
     print(remat_line)
     steps_per_call, how = resolve_steps_per_call(args, cfg, device, dataset)
@@ -222,38 +279,49 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
     print(f"train path: dataset {dataset_line}; steps_per_call {steps_per_call} ({how}); "
           f"CUDA graphs {'on' if graphs else 'off'}; remat "
           f"{'on' if cfg.use_remat else 'off'}")
+    dp = None
+    if ranks is not None:
+        dp = DataParallel(bn_sync=cfg.bn_sync)
+        print(f"data parallel: rank {ranks.rank} of {ranks.world} ({ranks.backend}, "
+              f"{device}); BatchNorm {'synced' if cfg.bn_sync else 'per rank'}; "
+              f"global batch {global_batch}, {batch} on this rank")
 
     ts = init_train_state(args.seed, cfg, device)
     start_iters = 0
     if args.resume:
         start_iters = load_train_state(args.resume, ts, cfg)
         print(f"전체 학습 상태 복원: {args.resume} (iter {start_iters})")
-    result_path.mkdir(parents=True, exist_ok=True)
-    model_path.mkdir(parents=True, exist_ok=True)
+    load_weights(args, ts.models)
+    if main_rank:
+        result_path.mkdir(parents=True, exist_ok=True)
+        model_path.mkdir(parents=True, exist_ok=True)
 
-    gen_step, dis_step = make_train_steps(cfg, policy)
-    lean_step = make_lean_dis_step(cfg, policy) if cfg.lean_dis else None
+    gen_step, dis_step = make_train_steps(cfg, policy, dp)
+    lean_step = make_lean_dis_step(cfg, policy, dp) if cfg.lean_dis else None
     program = None
     if steps_per_call > 1:
-        program = ChunkProgram(ts, cfg, policy, *dataset.data, args.batch_size,
+        program = ChunkProgram(ts, cfg, policy, *dataset.data, batch,
                                steps_per_call,
                                kinds_in_range(cfg, start_iters, total_iterations - start_iters),
-                               graphs=graphs)
+                               graphs=graphs, dp=dp)
     sample_fn = make_sample_fn(cfg, policy)
     test_A_t = torch.from_numpy(test_A).to(device)
     test_B_t = torch.from_numpy(test_B).to(device)
     logger = TrainingLogger(result_path / "training_log.txt", timestamp,
                             args.task_name, args.model_arch, args.batch_size,
-                            args.learning_rate)
-    print(f"Total iterations: {total_iterations}")
-    print(f"Saving results to: {result_path}")
-    print(f"Saving models to: {model_path}")
+                            args.learning_rate) if main_rank else None
+    if main_rank:
+        print(f"Total iterations: {total_iterations}")
+        print(f"Saving results to: {result_path}")
+        print(f"Saving models to: {model_path}")
     meta = train_state_meta(cfg, task=args.task_name)
 
     def dump_samples(iters):
         # Train-mode forwards: the running statistics advance, as in the
         # reference.
         out = [o.cpu().numpy() for o in sample_fn(ts.models, test_A_t, test_B_t)]
+        if not main_rank:
+            return
         if angle_variant:
             save_individual_images(test_A, test_B, *out,
                                    result_path / str(iters // args.image_save_interval),
@@ -267,24 +335,32 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
     def finish(i: int, vals: dict | None) -> None:
         """What follows iteration i: its log line (``vals``, its losses on
         the host), its samples and its saves."""
-        if i % args.log_interval == 0:
+        if i % args.log_interval == 0 and main_rank:
             if not all(np.isfinite(v) for v in vals.values()):
                 print("경고: 손실에 NaN/Inf 감지 — --debug 로 첫 발생 "
                       "지점을 추적할 수 있습니다")
             logger.log(i, total_iterations, vals, fm=not angle_variant)
         if i % args.image_save_interval == 0:
             dump_samples(i)
-        if i % args.model_save_interval == 0:
+        if i % args.model_save_interval == 0 and main_rank:
             save_reference_layout(model_path, ts.models, i)
             # The state holds iteration i: a resume from it trains i + 1 next.
             save_train_state(model_path, ts, i + 1, meta)
 
     def preempt(iters: int):
-        save_train_state(model_path, ts, iters, dict(meta, preempted=True))
-        save_reference_layout(model_path, ts.models, iters)
-        print(f"SIGTERM: 학습 상태 저장 후 종료 (iter {iters}) — "
-              f"--resume {model_path} 로 재개")
+        if main_rank:
+            save_train_state(model_path, ts, iters, dict(meta, preempted=True))
+            save_reference_layout(model_path, ts.models, iters)
+            print(f"SIGTERM: 학습 상태 저장 후 종료 (iter {iters}) — "
+                  f"--resume {model_path} 로 재개")
         return result_path, model_path
+
+    def stop_now(flag: bool) -> bool:
+        """Whether to stop for a SIGTERM: on any rank, where there are
+        several (they must stop at the same step)."""
+        if ranks is None or ranks.world == 1:
+            return flag
+        return any_rank(flag, ranks)
 
     def batches():
         """(iters, A, B) from start_iters on, from the dataset or the loader."""
@@ -307,7 +383,7 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
 
     iters = start_iters
     start_epoch = min(start_iters // nb, args.epochs)
-    profiler = ProfileWindow(args.profile, device)
+    profiler = ProfileWindow(args.profile if main_rank else None, device)
     steps = {"dis": dis_step, "lean": lean_step, "gen": gen_step}
     t_start = time.time()
     with sigterm_flag() as preempted, contextlib.closing(loader), \
@@ -324,7 +400,7 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
                 finish(i, {k: float(v) for k, v in losses.items()}
                        if i % args.log_interval == 0 else None)
                 iters = i + 1
-                if preempted["set"]:
+                if stop_now(preempted["set"]):
                     profiler.stop()
                     return preempt(iters)
         else:
@@ -347,18 +423,19 @@ def run_training(args, *, observer=None, angle_variant: bool = False):
                     finish(iters + j, dict(zip(LOSS_KEYS, map(float, host[j])))
                            if j in logged else None)
                 iters += k
-                if preempted["set"]:
+                if stop_now(preempted["set"]):
                     profiler.stop()
                     return preempt(iters)
         profiler.stop()
 
-    save_reference_layout(model_path, ts.models, "final")
-    save_train_state(model_path, ts, iters, meta)
+    if main_rank:
+        save_reference_layout(model_path, ts.models, "final")
+        save_train_state(model_path, ts, iters, meta)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t_start
     if dt > 0 and iters > start_iters:
-        print(f"Throughput: {(iters - start_iters) * args.batch_size / dt:.1f} "
+        print(f"Throughput: {(iters - start_iters) * global_batch / dt:.1f} "
               "images/sec")
     if loader.waits:
         ms = [w * 1e3 for w in loader.waits]

@@ -20,6 +20,15 @@ the D iterations that are not logged), ``remat`` / ``remat_policy`` /
 ``remat_dis``, ``concat_dis`` and ``paired``. ``resolve_remat`` decides
 remat=None from the port's own model of a step's peak memory
 (``estimate_step_bytes``) and the card's free memory.
+
+Under data parallelism the steps take ``dp``, a ``parallel.DataParallel``
+whose ``bn_sync`` the trainer sets from ``TrainConfig.bn_sync``: the
+forward graph then takes it as ``stats_dp`` (cross-rank statistics, carried
+in every forward's ops table, so a rematerialized region's rebuild in the
+backward takes them too), and
+``loss_and_grads`` reduces the gradients over the ranks after
+``torch.autograd.grad`` and reports the ranks' mean losses (the JAX
+package's ``make_dp_train_steps``).
 """
 
 from __future__ import annotations
@@ -77,6 +86,10 @@ class TrainConfig:
     lean_dis: bool = False
     # Logging cadence: logged iterations take the full graph.
     log_interval: int = 50
+    # Under data parallelism: cross-rank BatchNorm statistics (and summed
+    # gradients) instead of per-rank ones (parallel/dp.py). Without ranks
+    # it changes nothing.
+    bn_sync: bool = False
 
     @property
     def use_remat(self) -> bool:
@@ -164,11 +177,14 @@ def subset_params(models: dict, keys) -> list:
 
 def loss_and_grads(ts: TrainState, A, B, rate, cfg: TrainConfig,
                    policy: Policy, which: str, *, plain: bool = False,
-                   lean: bool = False):
+                   lean: bool = False, dp=None):
     """The forward graph of ``cfg``'s variant and the gradients of the
     ``which`` ("gen" or "dis") total over its trainable subset; ``lean``:
     the D step's graph without ABA/BAB. Returns (losses, grads), the losses
-    detached (the eight components, gen_total and dis_total)."""
+    detached (the eight components, gen_total and dis_total). With ``dp``
+    (a parallel.DataParallel) the gradients are reduced over its ranks and
+    the losses are the ranks' means; the statistics are cross-rank where
+    ``dp.bn_sync`` (the trainer makes it from ``cfg.bn_sync``)."""
     gen_keys, dis_keys = trainable_subsets(cfg.model_arch)
     keys = gen_keys if which == "gen" else dis_keys
     for name, m in ts.models.items():
@@ -178,37 +194,47 @@ def loss_and_grads(ts: TrainState, A, B, rate, cfg: TrainConfig,
     losses = graph(ts.models, A, B, policy=policy, plain=plain,
                    skip_first_fm=cfg.skip_first_fm, remat=cfg.use_remat,
                    remat_policy=cfg.remat_policy, remat_dis=cfg.remat_dis,
-                   dis_only=lean and which == "dis", **extra)
+                   dis_only=lean and which == "dis",
+                   stats_dp=dp if dp is not None and dp.bn_sync else None, **extra)
     gen_total, dis_total = mix_losses(losses, rate, cfg.model_arch)
     total = gen_total if which == "gen" else dis_total
+    if dp is not None and dp.bn_sync:  # the rank's share; the ranks' sum is the mean
+        total = total / dp.world
     grads = torch.autograd.grad(total, subset_params(ts.models, keys),
                                 materialize_grads=True)
-    losses = dict(losses, gen_total=gen_total, dis_total=dis_total)
-    return {k: v.detach() for k, v in losses.items()}, grads
+    losses = {k: v.detach() for k, v in
+              dict(losses, gen_total=gen_total, dis_total=dis_total).items()}
+    if dp is not None:
+        grads = dp.reduce_grads(which, grads)
+        losses = dp.mean_losses(losses)
+    return losses, grads
 
 
-def _branch(cfg: TrainConfig, policy: Policy, which: str, lean: bool = False):
+def _branch(cfg: TrainConfig, policy: Policy, which: str, lean: bool = False, dp=None):
     _checkpoint_policies(cfg.remat_policy)  # refuse an unknown policy up front
 
     def step(ts: TrainState, A, B, rate) -> dict:
-        losses, grads = loss_and_grads(ts, A, B, rate, cfg, policy, which, lean=lean)
+        losses, grads = loss_and_grads(ts, A, B, rate, cfg, policy, which, lean=lean,
+                                       dp=dp)
         (ts.opt_gen if which == "gen" else ts.opt_dis).update(grads)
         return losses
     return step
 
 
-def make_train_steps(cfg: TrainConfig, policy: Policy | None = None):
+def make_train_steps(cfg: TrainConfig, policy: Policy | None = None, dp=None):
     """Returns (gen_step, dis_step): (ts, A, B, rate) -> losses, updating ts
-    in place. A and B are NHWC images on the models' device."""
+    in place. A and B are NHWC images on the models' device: with ``dp``,
+    this rank's part of the global batch."""
     policy = policy or default_policy(cfg.precision)
-    return _branch(cfg, policy, "gen"), _branch(cfg, policy, "dis")
+    return _branch(cfg, policy, "gen", dp=dp), _branch(cfg, policy, "dis", dp=dp)
 
 
-def make_lean_dis_step(cfg: TrainConfig, policy: Policy | None = None):
+def make_lean_dis_step(cfg: TrainConfig, policy: Policy | None = None, dp=None):
     """The lean D step (cfg.lean_dis): the D update of ``dis_step`` without
     the ABA/BAB forwards, for D iterations that are not logged; its
-    recon_A and recon_B report 0 (graph.discogan_losses' dis_only)."""
-    return _branch(cfg, policy or default_policy(cfg.precision), "dis", lean=True)
+    recon_A and recon_B report 0 (graph.discogan_losses' dis_only), under
+    ``dp`` too (the ranks' mean of zeros)."""
+    return _branch(cfg, policy or default_policy(cfg.precision), "dis", lean=True, dp=dp)
 
 
 # The multi-step driver's planner (the JAX package's train/step.py:388-478

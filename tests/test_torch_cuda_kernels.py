@@ -562,3 +562,79 @@ def test_captured_kernel_replays_equal_eager_launches(gen, kernel, paired):
         torch.cuda.synchronize()
         for a, b in zip(_flat(out), _flat(want)):
             assert torch.equal(a, b), kernel
+
+
+# -- the eval forward's kernels as registered ops (ops/library.py) -----------
+
+# case -> (N, H, CI, CO, with the epilogue's scale and offset) of a conv at a
+# 512px batch-4 forward shape: the stem's and enc2's for K3, enc1's for K5f.
+OP_CONVS = {"conv_stem": (4, 512, 3, 64, False), "conv": (4, 128, 64, 128, True),
+            "halo": (4, 256, 64, 128, True)}
+OP_NAMES = [*OP_CONVS, "bn_act", "head"]
+OP_LAUNCHES = {"conv_stem": "conv_k4s2p1", "conv": "conv_k4s2p1",
+               "halo": "halo_conv_k4s2p1", "bn_act": "bn_act", "head": "head_convt"}
+
+
+def _op_inputs(name, gen, dtype) -> list:
+    """Case ``name``'s tensors, x first."""
+    if name in OP_CONVS:
+        n, h, ci, co, affine = OP_CONVS[name]
+        out = [_rand(gen, dtype, n, h, h, ci), _rand(gen, dtype, 4, 4, ci, co, scale=0.1)]
+        if affine:
+            out += [_rand(gen, torch.float32, co).abs(), _rand(gen, torch.float32, co)]
+        return out
+    if name == "bn_act":
+        return [_rand(gen, dtype, 4, 8, 8, 512), _rand(gen, torch.float32, 512),
+                _rand(gen, torch.float32, 512)]
+    return [_rand(gen, dtype, 4, 256, 256, 64), _rand(gen, dtype, 4, 4, 64, 3, scale=0.1)]
+
+
+def _call(name, tensors, registered: bool):
+    """Case ``name`` through its registered op, or its wrapper directly."""
+    from discogan_modernized_torch.ops import library
+
+    if name in OP_CONVS:
+        x, w, *affine = tensors
+        scale, offset = affine if affine else (None, None)
+        fn = ((library.halo_op if registered else halo_conv2d_k4s2p1) if name == "halo"
+              else (library.conv_op if registered else conv2d_k4s2p1))
+        return fn(x, w, scale=scale, offset=offset, act="leaky")
+    if name == "bn_act":
+        return (library.bn_act_op if registered else bn_act)(*tensors, "relu")
+    return (library.head_op if registered else head_convt)(*tensors)
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_registered_op_equals_its_wrapper(gen, dtype, name):
+    """Each discogan:: op on CUDA tensors launches its kernel once and
+    gives its wrapper's bits."""
+    from discogan_modernized_torch.ops import _build
+
+    tensors = _op_inputs(name, gen, dtype)
+    want = _call(name, tensors, registered=False)
+    _build.reset_launches()
+    got = _call(name, tensors, registered=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launches.items() if v} == {OP_LAUNCHES[name]: 1}
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_registered_op_fake_under_a_symbolic_batch(gen, name):
+    """torch.export of one call of the op with a symbolic batch: the fake
+    implementation gives the real output's shape past the batch, a
+    symbolic batch, and the real output's dtype."""
+    tensors = _op_inputs(name, gen, torch.bfloat16)
+    real = _call(name, tensors, registered=True)
+
+    class Call(torch.nn.Module):
+        def forward(self, x):
+            return _call(name, [x, *tensors[1:]], registered=True)
+
+    program = torch.export.export(Call(), (tensors[0],),
+                                  dynamic_shapes=({0: torch.export.Dim("b", min=1)},))
+    node = next(n for n in program.graph.nodes
+                if n.op == "call_function" and str(n.target).startswith("discogan."))
+    fake = node.meta["val"]
+    assert not isinstance(fake.shape[0], int)
+    assert tuple(fake.shape[1:]) == tuple(real.shape[1:]) and fake.dtype == real.dtype

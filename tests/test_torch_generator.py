@@ -90,7 +90,7 @@ def test_kernel_calls_per_forward(size, want, monkeypatch):
             return G.PLAIN_OPS[name](*args, **kwargs)
         return op
 
-    monkeypatch.setattr(G, "KERNEL_OPS", {n: recorder(n) for n in G.PLAIN_OPS})
+    monkeypatch.setattr(G, "SERVING_OPS", {n: recorder(n) for n in G.PLAIN_OPS})
     with torch.device("meta"):
         y = Generator(size)(torch.zeros(4, size, size, 3), policy=BF16)
     assert y.shape == (4, size, size, 3) and y.dtype == torch.float32

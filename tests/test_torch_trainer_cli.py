@@ -61,7 +61,8 @@ def test_trainer_end_to_end(tmp_path):
     assert (tmp_path / "inf" / "input_result.png").exists()
 
 
-@pytest.mark.parametrize("flag", ["--bn_sync", "--xla_copts=a=b", "--ckpt_backend=npz"])
+@pytest.mark.parametrize("flag", ["--parallel_mode=gspmd", "--xla_copts=a=b",
+                                  "--ckpt_backend=npz"])
 def test_unported_flags_are_refused(flag, tmp_path):
     with pytest.raises(SystemExit):
         run(tmp_path, flag)
