@@ -11,6 +11,7 @@ chunks of steps replayed as CUDA graphs from the dataset on the card, and
 trains the 64px angle-pairing model through its CLI both ways.
 
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
+    python3 chip_smoke.py --planted-fault   # the mesh's f32 gate, faults planted
 
 Phases, each fatal on failure (the run then exits non-zero), each timed:
   1. device   CUDA present; the card's name and power limit.
@@ -160,6 +161,32 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               inside each captured graph as many as the same kind's eager
               step; launches as PER_STEP; ms a step beside phase 7's. The
               runs keep their saves in memory (state_in_memory).
+  7c. mesh   tensor and spatial sharding (parallel/gspmd.py), after 7b.
+              (a) the distributed CLI at a world of one on NCCL with phase
+              7's flags under --parallel_mode gspmd --tp 1 one step a call
+              and on the chunked default, and --parallel_mode spatial --tp 1
+              one step a call: each run's path line naming its mesh, its log
+              lines and final train state equal to phase 7's bit for bit,
+              its all-reduces a step and in each captured graph counted, no
+              all-gather, saves in memory; then ops/sharding.py's
+              collectives over a one-rank NCCL group captured into a CUDA
+              graph and replayed, against their eager run, bit for bit
+              (check_nccl_capture). (b) two ranks sharing the card over
+              gloo (spawned), --tp 2, tensor parallelism then spatial
+              sharding, from a seeded 512px batch-8 state: in bf16, each
+              rank's launches by kernel and its kernel calls' shapes (K3
+              and K4 at the split layers' CO/2; K3's stem, K5f, K5b and K6
+              on the bands' rows), its state bytes and peak memory beside
+              the one process's and (a)'s, its D and G ms (gloo through host
+              memory on one card, not a multi-card speed); in f32 under
+              deterministic algorithms, one D and one G step's losses within
+              EQUIV_LOSS_REL of the one process's and each gradient within
+              max(EQUIV_GRAD_REL, MESH_FLOOR_FACTOR x its own change on the
+              images moved by one ulp), printed beside it. Phase 3 holds
+              K1-K6 at these shapes (MESH_PATHS, bf16).
+              `python3 chip_smoke.py --planted-fault` runs (b)'s f32 step
+              alone with MESH_FAULTS planted, and exits 0 only where the
+              gate refuses each.
   8. real data  an edges2shoes tree under the work directory (64 train
               and 8 test side-by-side 512x256 JPEGs from a numpy seed): one
               epoch of the host loader cold (decoding into the cache) and
@@ -335,6 +362,7 @@ KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
 }
 SERVING_KERNELS = ("bn_act", "conv_k4s2p1", "halo_conv_k4s2p1", "head_convt")
 KIND_KERNEL = {"conv_stats": "conv_k4s2p1"}  # case kind -> kernel, where they differ
+MESH_PATHS = ("mesh_tp", "mesh_band")  # phase 3's cases at the mesh's shapes (bf16)
 
 
 _phase_start = [None, None]
@@ -522,6 +550,7 @@ def kernel_cases():
             cases.append(("conv_k4s2p1_dw", f"enc{i} dw", (b, h, h, ci, co), tr, 4))
         h, ci = h // 2, co
     cases += train64_cases()
+    cases += mesh_cases()
 
     # K3 at every layer with and without its statistics at batch 1, 4 and 8
     # (the paths above hold the other halves), and its edge shapes
@@ -559,6 +588,66 @@ def kernel_cases():
     return cases
 
 
+def mesh_cases():
+    """Phase 3 at the mesh's shapes of a 512px batch-8 step at tp 2 (bf16),
+    as ``kernel_cases``' (kind, label, args, path, calls per rank's G
+    step). Path "mesh_tp": a rank's slices under tensor parallelism: K3
+    with its statistics and K4 at enc2-enc6's CO/2, K2 after them and after
+    dec0-dec4 on their halves, K1 on dec0-dec4's. Path "mesh_band": the
+    bands under spatial sharding: K3 (the stem, enc2-enc6) and K5f (enc1)
+    on a band of h/2 rows with two a side, K4/K5b on the same with dy's two
+    dropped rows zero, K1 and K2 on the kept rows, K6 (the head, and the
+    stem's input gradient) on a band with one row a side. A label ending
+    in "first" zeroes the rows above the first band (the image's edge),
+    "last" those below the last (``case_band``); the last band's cases are
+    held but not counted in the sums."""
+    b, t, cases = TRAIN_BATCH, MESH_TP, []
+    h, ci = 128, 128
+    for i, co in enumerate(CHANS[2:], start=2):
+        cases += [("conv_stats", f"enc{i} tp", (b, h, h, ci, co // t), "mesh_tp", 8),
+                  ("bn_act", f"enc{i} tp", (b, h // 2, h // 2, co // t, "leaky"), "mesh_tp", 8),
+                  ("conv_k4s2p1_dw", f"enc{i} dw tp", (b, h, h, ci, co // t), "mesh_tp", 4)]
+        h, ci = h // 2, co
+    h = 4
+    for j, c in enumerate(DEC_CHANS[:5]):  # dec0-dec4: out channels >= 256
+        cases += [("batch_stats", f"dec{j} tp", (b, h, h, c // t), "mesh_tp", 4),
+                  ("bn_act", f"dec{j} tp", (b, h, h, c // t, "relu"), "mesh_tp", 4)]
+        h *= 2
+    for band, calls in (("first", 8), ("last", 0)):
+        cases += [("conv_k4s2p1", f"enc0 band {band}",
+                   (b, SIZE // t + 4, SIZE, 3, 64, False, "leaky"), "mesh_band", calls),
+                  ("halo_conv_k4s2p1", f"enc1 band {band}",
+                   (b, SIZE // 2 // t + 4, SIZE // 2, 64, 128, False, None), "mesh_band",
+                   calls),
+                  ("conv_k4s2p1_dw", f"enc0 dw band {band}", (b, SIZE // t + 4, SIZE, 3, 64),
+                   "mesh_band", calls // 2),
+                  ("halo_conv_k4s2p1_dw", f"enc1 dw band {band}",
+                   (b, SIZE // 2 // t + 4, SIZE // 2, 64, 128), "mesh_band", calls // 2),
+                  ("head_convt", f"dec7 band {band}", (b, SIZE // 2 // t + 2, SIZE // 2, 64, 3),
+                   "mesh_band", calls)]  # the heads and the stems' dx: 4 + 4
+    h, ci = 128, 128
+    for i, co in enumerate(CHANS[2:], start=2):
+        cases += [("conv_k4s2p1", f"enc{i} band first", (b, h // t + 4, h, ci, co, False, None),
+                   "mesh_band", 8),
+                  ("conv_k4s2p1_dw", f"enc{i} dw band first", (b, h // t + 4, h, ci, co),
+                   "mesh_band", 4)]
+        h, ci = h // 2, co
+    h = SIZE // 2
+    for i, c in enumerate(CHANS[1:3], start=1):  # the kept rows of enc1 and enc2
+        cases += [("batch_stats", f"enc{i} band rows", (b, h // 2 // t, h // 2, c), "mesh_band",
+                   8),
+                  ("bn_act", f"enc{i} band rows", (b, h // 2 // t, h // 2, c, "leaky"),
+                   "mesh_band", 8)]
+        h //= 2
+    return cases
+
+
+def case_band(label: str):
+    """The band a mesh case's label names ("first" or "last"), or None."""
+    word = label.split()[-1]
+    return word if word in ("first", "last") else None
+
+
 def train64_cases():
     """The kernels' calls in one 64px G step at the angle trainer's batch
     (path "train64"), each with its calls per step."""
@@ -585,7 +674,7 @@ def train64_cases():
     return cases
 
 
-def run_case(kernel, args, dtype, timer, g):
+def run_case(kernel, args, dtype, timer, g, band=None):
     from torch.nn import grad as nn_grad
 
     from discogan_modernized_torch.ops.conv_k4s2p1 import (
@@ -637,7 +726,7 @@ def run_case(kernel, args, dtype, timer, g):
             affine, act = False, None
         else:
             n, h, w, ci, co, affine, act = args
-        x = rand(n, h, w, ci)
+        x = band_rows(rand(n, h, w, ci), band, 2)
         wt = rand(4, 4, ci, co, scale=(16 * ci) ** -0.5)
         s = torch.rand(co, device=dev, generator=g) + 0.5 if affine else None
         o = torch.randn(co, device=dev, generator=g) * 0.1 if affine else None
@@ -667,8 +756,11 @@ def run_case(kernel, args, dtype, timer, g):
             lib = lambda: F.conv2d(x_nchw, w_oihw, stride=2, padding=1)  # noqa: E731
     elif kernel in ("conv_k4s2p1_dw", "halo_conv_k4s2p1_dw"):
         n, h, w, ci, co = args
-        x = rand(n, h, w, ci)
+        x = band_rows(rand(n, h, w, ci), band, 2)
         dy = rand(n, h // 2, w // 2, co, scale=0.1)
+        if band is not None:  # the band's two dropped output rows take no cotangent
+            dy[:, 0] = 0
+            dy[:, -1] = 0
         fn, plain_fn = ((conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain)
                         if kernel == "conv_k4s2p1_dw" else
                         (halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain))
@@ -681,7 +773,7 @@ def run_case(kernel, args, dtype, timer, g):
         nbytes = (x.numel() + dy.numel() + 16 * ci * co) * size
     else:
         n, h, w, ci, co = args
-        x = rand(n, h, w, ci)
+        x = band_rows(rand(n, h, w, ci), band, 1)
         wt = rand(4, 4, ci, co, scale=(16 * co) ** -0.5)
         if dtype == torch.bfloat16 and ci % 16 == 0:  # the tensor-core path
             assert head_plan(n, h, w, ci, co, dtype) is not None
@@ -736,6 +828,16 @@ def run_case(kernel, args, dtype, timer, g):
     return out
 
 
+def band_rows(x: torch.Tensor, band, rows: int) -> torch.Tensor:
+    """x with its first (``band`` "first": the rows above the image's first
+    band) or last (``"last"``) ``rows`` rows zero."""
+    if band == "first":
+        x[:, :rows] = 0
+    elif band == "last":
+        x[:, -rows:] = 0
+    return x
+
+
 def check_kernels(timer):
     from discogan_modernized_torch.core.precision import BF16, F32, configure
 
@@ -747,7 +849,9 @@ def check_kernels(timer):
         configure(policy)
         dtype = policy.compute_dtype
         for kernel, label, args, path, calls in kernel_cases():
-            r = run_case(kernel, args, dtype, timer, g)
+            if path in MESH_PATHS and dtype != torch.bfloat16:
+                continue
+            r = run_case(kernel, args, dtype, timer, g, case_band(label))
             results[(KIND_KERNEL.get(kernel, kernel), label, dtype)] = dict(
                 r, path=path, calls=calls)
             print(f"{kernel:18} {label:12} {DTYPE_NAMES[dtype]:5} "
@@ -946,6 +1050,17 @@ def per_layer_lines(results) -> None:
         print(f"{what} summed over one {'G step' if path == 'train' else 'forward'} "
               f"(ms): kernel {total['ms']:.4f}, library {total['library_ms']:.4f}, "
               f"bound {total['bound_ms']:.4f}, clone {total['clone_ms']:.4f}")
+    # each kernel at the mesh's shapes, summed over a rank's G step at tp 2
+    for path in MESH_PATHS:
+        for kernel in KERNEL_INFO:
+            rows = [v for k, v in results.items() if k[2] == torch.bfloat16
+                    and k[0] == kernel and v["path"] == path]
+            if rows:
+                total, by = _sums(rows, lambda v: v["calls"])
+                print(f"{kernel} at the {path} shapes, summed over a rank's G step at tp "
+                      f"{MESH_TP} ({sum(v['calls'] for v in rows)} calls; ms): kernel "
+                      f"{total['ms']:.4f}, plain {total['plain_ms']:.4f}, library "
+                      f"{total['library_ms']:.4f}, bound {total['bound_ms']:.4f} ({by})")
     # each kernel over one 64px G step at the angle trainer's batch
     for kernel in ("conv_k4s2p1", "batch_stats", "bn_act", "head_convt", "conv_k4s2p1_dw"):
         rows = [v for k, v in results.items() if k[2] == torch.bfloat16 and k[0] == kernel
@@ -984,6 +1099,12 @@ def kernel_summary(results, launches, pair_ms):
                          ms_batch1=sum(v["ms"] for v in bf16 if v["path"] == "serve"))
         else:
             entry.update(train, bound_by=by_train)
+        for path in MESH_PATHS:
+            rows_ = [v for v in bf16 if v["path"] == path]
+            if rows_:
+                sums, by = _sums(rows_, lambda v: v["calls"])
+                entry.update({f"{path}_{k}": v for k, v in sums.items()},
+                             **{f"{path}_bound_by": by, f"{path}_cases": len(rows_)})
         entry.update({f"train_step_{k}": v for k, v in train.items()},
                      train_step_bound_by=by_train,
                      calls_per_g_step=PER_STEP["gen"][name],
@@ -2017,6 +2138,508 @@ def drive_distributed(work: Path, synthetic: dict) -> dict:
     del reference
     torch.cuda.empty_cache()
     return counts
+
+
+# -- the mesh phase: tensor and spatial sharding (parallel/gspmd.py) ---------
+
+# (a): the distributed CLI at a world of one on NCCL, phase 7's flags, on
+# the (data 1, model 1) mesh: tensor parallelism one step a call and
+# chunked, spatial sharding one step a call.
+MESH_RUNS = (("gspmd", "per-step"), ("gspmd", "chunked"), ("spatial", "per-step"))
+# (b): two ranks sharing the card over gloo, --tp 2, from the seeded state
+# MESH_SEED on the seeded batch MESH_DATA_SEED. In bf16 (phase 7's policy),
+# one D and one G step: each rank's launches, kernel shapes, collectives,
+# state and peak bytes, and ms. In f32 under deterministic algorithms, one D
+# and one G step's losses and gradients against the one process's on the
+# same batch, which rank 0 also takes on its images moved by one f32 ulp:
+# how far that moves each gradient is that gradient's own sensitivity, and
+# the mesh's may differ from the one process's by MESH_FLOOR_FACTOR times
+# it, or by EQUIV_GRAD_REL (F5's fixed floor) where that is larger, each
+# tensor against its own; the losses by EQUIV_LOSS_REL. (In bf16 one ulp
+# moves a gradient by ~0.4-0.5 of its norm, which no gate can see through.)
+# MESH_FAULTS plants a fault a mode (``--planted-fault``): the model ranks'
+# input gradients left unsummed (TP), the banded layers' gradients summed
+# over the data axis alone (spatial); the f32 gate must refuse both.
+MESH_SEED, MESH_DATA_SEED = 5, 6
+MESH_FLOOR_FACTOR = 3
+MESH_TP = 2
+MESH_MODES = ("gspmd", "spatial")
+MESH_FAULTS = {"gspmd": "_SumGrads's backward without its all-reduce",
+               "spatial": "the banded layers' gradients summed over the data axis only"}
+
+
+def mesh_config():
+    from discogan_modernized_torch.train.step import TrainConfig
+
+    return TrainConfig(image_size=SIZE, precision="bf16", slim_state="mv", remat=False)
+
+
+def mesh_batch():
+    rng = np.random.RandomState(MESH_DATA_SEED)
+    return tuple(torch.from_numpy(rng.rand(TRAIN_BATCH, SIZE, SIZE, 3).astype(np.float32))
+                 .cuda() for _ in range(2))
+
+
+def drive_mesh(work: Path, synthetic: dict) -> dict:
+    """(a) The distributed CLI at a world of one on NCCL (--distributed
+    --world_size 1 --tp 1) with phase 7's flags under --parallel_mode gspmd
+    one step a call and on the chunked default, and --parallel_mode spatial
+    one step a call (its chunks are declined): each run's path line naming
+    its mesh, its log lines and final train state equal to phase 7's bit for
+    bit, its all-reduces a step as phase 7b's under --bn_sync (BatchNorm is
+    global on a mesh) and inside each captured graph as many as the same
+    kind's eager step, no all-gather (nothing is split over one rank); its
+    launches as PER_STEP, saves kept in memory. (b) ``mesh_ranks``. Returns
+    the launches of (a)."""
+    from discogan_modernized_torch.cli import distributed_image_translation as dcli
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.parallel import collectives, reset_collectives
+    from discogan_modernized_torch.train import chunk
+
+    reference = torch.load(synthetic["model_path"] / "train_state.pt", map_location="cuda",
+                           weights_only=True)
+    theirs = TRAIN_LINE.findall((synthetic["result"] / "training_log.txt").read_text())
+    eager: dict = {}
+    counts: dict = {}
+    peaks = {}
+    for mode, path in MESH_RUNS:
+        tag = f"mesh_{mode}_{path}"
+        argv = [*SYNTHETIC_FLAGS, "--distributed", "--world_size=1", f"--parallel_mode={mode}",
+                "--tp=1", f"--results_dir={work / tag / 'results'}",
+                f"--models_dir={work / tag / 'models'}",
+                *(["--steps_per_call=1"] if path == "per-step" else [])]
+        observer = ChunkObserver() if path == "chunked" else DistStepObserver()
+        _build.reset_launches()
+        chunk.reset_replays()
+        reset_collectives()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tee = Tee(sys.stdout)
+        with state_in_memory(32) as kept, contextlib.redirect_stdout(tee):
+            result, _ = dcli.main(argv, observer=observer)
+        wall = time.perf_counter() - t0
+        peaks[tag] = torch.cuda.max_memory_allocated()
+        counts = _add([counts, _build.launches])
+        text = tee.text.getvalue()
+        if f"; mesh {mode} (data=1, model=1) over nccl" not in text:
+            raise AssertionError(f"{tag}: no mesh on NCCL in its path line")
+        if kept["layouts"] != [0, "final"] or kept["states"] != [1, 32]:
+            raise AssertionError(f"{tag}: saves {kept['layouts']} / {kept['states']}")
+        if collectives["all_gather"]:
+            raise AssertionError(f"{tag}: {collectives['all_gather']} all-gathers over a "
+                                 "model axis of one rank")
+        ms = observer.report()
+        if path == "chunked":
+            check_path_line(text.replace("; mesh gspmd (data=1, model=1) over nccl", ""),
+                            tag, CHUNK_K)
+            program = observer.program
+            for kind, n in program.collectives.items():
+                if n != eager[kind] or program.gathers[kind]:
+                    raise AssertionError(f"{tag}: the {kind} capture holds {n} all-reduces "
+                                         f"and {program.gathers[kind]} all-gathers (per "
+                                         f"step: {eager})")
+            print(f"{tag}: all-reduces captured in the graphs: {program.collectives}, "
+                  f"all-gathers {program.gathers}; {sum(chunk.replays.values())} replays; "
+                  f"{ms.get('replayed', 0):.3f} ms an iteration replayed; {wall:.1f} s "
+                  "(host clock)")
+        else:
+            for kind, ns in observer.reduces.items():
+                (n,) = ns
+                if n <= 2 or n != eager.setdefault(kind, n):
+                    raise AssertionError(f"{tag}: {kind} steps ran {ns} all-reduces")
+            print(f"{tag}: all-reduces a step {{{', '.join(f'{k}: {n}' for k, (n,) in observer.reduces.items())}}}, "
+                  f"no all-gather; D {ms['dis']:.3f} ms, G {ms['gen']:.3f} ms a step "
+                  f"(phase 7: D {synthetic['step_ms']['dis']:.3f}, G "
+                  f"{synthetic['step_ms']['gen']:.3f}); peak {peaks[tag] / 2**30:.2f} GiB "
+                  f"allocated; {wall:.1f} s (host clock)")
+        mine = TRAIN_LINE.findall((result / "training_log.txt").read_text())
+        if mine != theirs:
+            raise AssertionError(f"{tag}: log lines differ from phase 7's")
+        compare_states(kept["state"], reference, f"{tag} vs phase 7's run")
+        del kept["state"]
+        shutil.rmtree(work / tag)
+    del reference
+    torch.cuda.empty_cache()
+    check_nccl_capture()
+    mesh_ranks(work, peaks["mesh_gspmd_per-step"])
+    return counts
+
+
+def mesh_ranks(work: Path, world1_peak: int | None, faults: bool = False) -> dict:
+    """(b) Two ranks sharing the card over gloo (spawned; ``mesh_rank``),
+    --tp 2, under tensor parallelism and then spatial sharding. In bf16: each
+    rank's launches by kernel, with K3 at the split layers' CO/2 and K4 on
+    their slices under tensor parallelism, and K3's stem, K5f and K6 on the
+    bands' rows under spatial sharding; each rank's state bytes and peak
+    memory beside the one process's and (a)'s; each rank's step ms (gloo
+    through host memory on one card: not a multi-card speed). In f32: one D
+    and one G step's losses and gradients held against the one process's,
+    each gradient within its own gate (``mesh_gate``). With ``faults``, the
+    f32 run alone, with MESH_FAULTS planted: each mode's gate must refuse
+    it. Returns the f32 readings, by mode and step."""
+    import torch.multiprocessing as mp
+
+    from discogan_modernized_torch.core.distributed import free_port
+
+    out_dir = work / ("mesh_faults" if faults else "mesh_ranks")
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(MESH_TP, free_port(), str(out_dir), faults),
+                       nprocs=MESH_TP, start_method="spawn")
+    print(f"mesh ranks{' (faults planted)' if faults else ''}: "
+          f"{time.perf_counter() - t0:.1f} s (host clock, the two processes' start and "
+          "the state's making on the CPU included)")
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(MESH_TP)]
+    shutil.rmtree(out_dir)
+    if not faults:
+        mesh_bf16_report(ranks, world1_peak)
+    readings = {}
+    for mode in MESH_MODES:
+        for which in ("dis", "gen"):
+            c = ranks[0]["f32"][mode][which]
+            readings[f"{mode}.{which}"] = c
+            name, rel, floor, limit = c["worst"]
+            print(f"{mode} tp {MESH_TP}, f32 {which} step{' (fault: ' + MESH_FAULTS[mode] + ')' if faults else ''}: "
+                  f"relative loss difference {c['loss_rel']:.3e} (limit {EQUIV_LOSS_REL:.0e}; "
+                  f"one-ulp sensitivity {c['loss_floor']:.3e}); nearest its gate: {name} "
+                  f"||diff||/||g|| {rel:.3e} (limit {limit:.3e}, one-ulp sensitivity "
+                  f"{floor:.3e}); largest ||diff||/||g|| {c['largest'][1]:.3e} "
+                  f"({c['largest'][0]}); largest sensitivity {c['floor_max'][1]:.3e} "
+                  f"({c['floor_max'][0]}); {len(c['outside'])} of {c['tensors']} tensors "
+                  "outside their gates")
+        outside = [ranks[0]["f32"][mode][w]["outside"] or
+                   ranks[0]["f32"][mode][w]["loss_rel"] > EQUIV_LOSS_REL for w in ("dis", "gen")]
+        if faults and not any(outside):
+            raise AssertionError(f"{mode} tp {MESH_TP}: the gate let the planted fault "
+                                 f"({MESH_FAULTS[mode]}) through")
+        if not faults and any(outside):
+            raise AssertionError(f"{mode} tp {MESH_TP}: the f32 step is outside its gate: "
+                                 + "; ".join(str(ranks[0]["f32"][mode][w]["outside"][:4])
+                                             for w in ("dis", "gen")))
+    return readings
+
+
+def mesh_bf16_report(ranks: list, world1_peak: int) -> None:
+    """Print and check (b)'s bf16 readings."""
+    ref = ranks[0]["reference"]
+    ref_peak = ref["peak"] - ref["held"]
+    print(f"one process (the world of one's bits): state {ref['state_bytes'] / 2**30:.2f} GiB, "
+          f"peak {ref_peak / 2**30:.2f} GiB over one D and one G step's gradients (above the "
+          f"batch it held before); (a)'s CLI run peaked at {world1_peak / 2**30:.2f} GiB (the "
+          f"dataset on the card included); {smi_line()}")
+    for mode in MESH_MODES:
+        for r, res in enumerate(ranks):
+            m = res[mode]
+            print(f"{mode} rank {r}: launches D {m['launches']['dis']}, G "
+                  f"{m['launches']['gen']}; collectives D {m['collectives']['dis']}, G "
+                  f"{m['collectives']['gen']}")
+            peak = m["peak"] - m["held"]
+            print(f"{mode} rank {r}: state {m['state_bytes'] / 2**30:.2f} GiB "
+                  f"({m['state_bytes'] / ref['state_bytes']:.3f} of the one process's), peak "
+                  f"{peak / 2**30:.2f} GiB ({peak / ref_peak:.3f} of the one process's; "
+                  "torch.cuda.max_memory_allocated above what the rank held before "
+                  f"placing its state); its first D and G step in bf16: D "
+                  f"{m['ms']['dis']:.1f} ms, G {m['ms']['gen']:.1f} ms a step (CUDA events; "
+                  "gloo through host memory, two ranks on one card: not a multi-card speed)")
+            check_mesh_shapes(mode, m["shapes"])
+
+
+def check_mesh_shapes(mode: str, shapes: dict) -> None:
+    """The kernels ran at the mesh's shapes: under tensor parallelism K3 with
+    each split encoder layer's CO/2 and K4 with its slice of dy; under
+    spatial sharding K3's stem on the 512px input's band of 256 rows with
+    two a side (260), K5f on enc1's band (128 + 4 rows) and K6 on the head's
+    band (128 + 2 rows)."""
+    calls = shapes["gen"]
+    if mode == "gspmd":
+        want = {co // MESH_TP for co in CHANS[2:]}
+        k3 = {w[-1] for kernel, x, w in calls if kernel == "conv"}
+        k4 = {dy[-1] for kernel, x, dy in calls if kernel == "conv_dw"}
+        if not (want <= k3 and want <= k4):
+            raise AssertionError(f"gspmd: K3's output channels {sorted(k3)}, K4's "
+                                 f"{sorted(k4)}; want CO/{MESH_TP} of enc2-enc6 {sorted(want)}")
+    else:
+        rows = {(kernel, x[1]) for kernel, x, _ in calls}
+        want = {("conv", SIZE // MESH_TP + 4), ("halo", SIZE // 2 // MESH_TP + 4),
+                ("halo_dw", SIZE // 2 // MESH_TP + 4), ("head", SIZE // 2 // MESH_TP + 2)}
+        if not want <= rows:
+            raise AssertionError(f"spatial: band rows {sorted(rows)}; want {sorted(want)}")
+    print(f"{mode}: the kernels ran at the mesh's shapes ({len(calls)} kernel calls in a G "
+          "step checked)")
+
+
+def plant_faults() -> None:
+    """MESH_FAULTS, in this process: ops/sharding.py's ``_SumGrads`` passes
+    each rank's own input gradient back, and parallel/gspmd.py's
+    ``banded_layers`` names no layer, so that the banded layers' gradients
+    are summed over the data axis only."""
+    from discogan_modernized_torch.ops import sharding
+    from discogan_modernized_torch.parallel import gspmd
+
+    sharding._SumGrads.backward = staticmethod(lambda ctx, g: (g, None))
+    gspmd.banded_layers = lambda image_size, tp: {"gen": set(), "dis": set()}
+
+
+def mesh_rank(rank: int, world: int, port: int, out_dir: str, faults: bool) -> None:
+    """A rank of ``mesh_ranks`` (spawned): on card 0, in a gloo group of
+    ``world``."""
+    import torch.distributed as dist
+
+    from discogan_modernized_torch.train.step import init_train_state
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        if faults:
+            plant_faults()
+        whole = init_train_state(MESH_SEED, mesh_config(), "cpu")
+        A, B = mesh_batch()
+        out = {"f32": mesh_rank_f32(rank, world, whole, A, B)}
+        torch.use_deterministic_algorithms(False)
+        if not faults:
+            out.update(mesh_rank_bf16(rank, world, whole, A, B))
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+
+
+def _step_names(ts, cfg, which) -> list:
+    from discogan_modernized_torch.train.graph import trainable_subsets
+
+    keys = trainable_subsets(cfg.model_arch)[0 if which == "gen" else 1]
+    return [(k, n) for k in keys for n, _ in ts.models[k].named_parameters()]
+
+
+def _one_process(whole, cfg):
+    """``whole`` (a CPU state) copied onto the card as one process holds it."""
+    import copy
+
+    from discogan_modernized_torch.train.step import TrainState, make_optimizers
+
+    models = {k: m.to("cuda") for k, m in copy.deepcopy(whole.models).items()}
+    return TrainState(models, *make_optimizers(models, cfg))
+
+
+def mesh_rank_bf16(rank: int, world: int, whole, A, B) -> dict:
+    """(b)'s bf16 run on this rank, after the f32 one: rank 0 first takes
+    one D and one G step's gradients as one process (its state and peak
+    bytes); then per mode, the state placed, one D and one G train step,
+    each timed and its launches, collectives and kernel calls' shapes
+    counted."""
+    import copy
+
+    from discogan_modernized_torch.core.mesh import make_mesh
+    from discogan_modernized_torch.core.precision import configure, default_policy
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops import autograd as ag
+    from discogan_modernized_torch.parallel import collectives, reset_collectives
+    from discogan_modernized_torch.parallel.gspmd import (MeshParallel,
+                                                          make_gspmd_train_steps,
+                                                          place_train_state)
+    from discogan_modernized_torch.train.step import loss_and_grads
+
+    cfg = mesh_config()
+    policy = default_policy("bf16", torch.device("cuda"))
+    configure(policy)
+    calls = []
+    kernels = dict(ag.KERNEL_OPS)
+    for key, fn in kernels.items():
+        def recorded(x, *args, _key=key, _fn=fn, **kwargs):
+            w = args[0] if args and isinstance(args[0], torch.Tensor) else None
+            calls.append((_key, tuple(x.shape), None if w is None else tuple(w.shape)))
+            return _fn(x, *args, **kwargs)
+        ag.KERNEL_OPS[key] = recorded
+    out = {}
+    try:
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            one = _one_process(whole, cfg)
+            state_bytes = torch.cuda.memory_allocated() - base
+            for which in ("dis", "gen"):
+                loss_and_grads(one, A, B, 0.01, cfg, policy, which)
+            torch.cuda.synchronize()
+            out["reference"] = {"state_bytes": state_bytes, "held": base,
+                                "peak": torch.cuda.max_memory_allocated()}
+            del one
+        for mode in MESH_MODES:
+            mp = MeshParallel(make_mesh(1, world), spatial=mode == "spatial")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ts = place_train_state(copy.deepcopy(whole), mp, cfg, "cuda")
+            res = {"state_bytes": torch.cuda.memory_allocated() - base, "launches": {},
+                   "collectives": {}, "shapes": {}, "held": base, "ms": {}}
+            gen_step, dis_step = make_gspmd_train_steps(cfg, mp, policy)
+            for which, step in (("dis", dis_step), ("gen", gen_step)):  # one reading each
+                reset_collectives()
+                before = dict(_build.launches)
+                calls.clear()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                step(ts, A, B, 0.01)
+                end.record()
+                end.synchronize()
+                res["ms"][which] = start.elapsed_time(end)
+                res["launches"][which] = {k: v - before[k] for k, v in _build.launches.items()
+                                          if v != before[k]}
+                res["collectives"][which] = dict(collectives)
+                res["shapes"][which] = sorted(set(calls))
+            res["peak"] = torch.cuda.max_memory_allocated()
+            out[mode] = res
+            del ts
+    finally:
+        ag.KERNEL_OPS.update(kernels)
+    return out
+
+
+def mesh_rank_f32(rank: int, world: int, whole, A, B) -> dict:
+    """(b)'s f32 run on this rank, under deterministic algorithms: rank 0
+    takes one D and one G step as one process on (A, B) and on their images
+    moved by one ulp; then per mode, the state placed and one D and one G
+    step, the split gradients gathered onto rank 0, which holds them
+    against its own (``mesh_gate``). Rank 0's readings by mode and step."""
+    import copy
+
+    from discogan_modernized_torch.core.mesh import make_mesh
+    from discogan_modernized_torch.core.precision import F32, configure
+    from discogan_modernized_torch.parallel.dp import gather
+    from discogan_modernized_torch.parallel.gspmd import MeshParallel, place_train_state
+    from discogan_modernized_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(mesh_config(), precision="f32")
+    configure(F32)
+    torch.use_deterministic_algorithms(True)
+    ref = {}
+    if rank == 0:
+        one = _one_process(whole, cfg)
+        nudged = [torch.nextafter(t, torch.full_like(t, 2.0)) for t in (A, B)]
+        for which in ("dis", "gen"):
+            ref[which] = [loss_and_grads(one, a, b, 0.01, cfg, F32, which)
+                          for a, b in ((A, B), nudged)]
+        names = {which: _step_names(one, cfg, which) for which in ("dis", "gen")}
+        del one
+    out = {}
+    for mode in MESH_MODES:
+        mp = MeshParallel(make_mesh(1, world), spatial=mode == "spatial")
+        torch.cuda.empty_cache()
+        ts = place_train_state(copy.deepcopy(whole), mp, cfg, "cuda")
+        out[mode] = {}
+        for which in ("dis", "gen"):
+            losses, grads = loss_and_grads(ts, A, B, 0.01, cfg, F32, which, dp=mp)
+            whole_grads = []
+            for (k, n), g in zip(_step_names(ts, cfg, which), grads):
+                dim = mp.shards[k].get(n)
+                if dim is not None:
+                    parts = gather(g, mp.mesh.model_group)
+                    g = torch.cat(parts, dim).cuda() if parts is not None else None
+                whole_grads.append(g)
+            del grads
+            if rank == 0:
+                (want_l, want_g), (nudged_l, nudged_g) = ref[which]
+                out[mode][which] = mesh_gate(names[which], losses, whole_grads, want_l,
+                                             want_g, nudged_l, nudged_g)
+            del whole_grads
+        del ts
+    return out
+
+
+def mesh_gate(names, losses, grads, want_l, want_g, nudged_l, nudged_g) -> dict:
+    """Each gradient's ||diff||/||g|| against the one process's beside its
+    own one-ulp sensitivity and its limit, max(EQUIV_GRAD_REL,
+    MESH_FLOOR_FACTOR x that sensitivity); the worst relative loss
+    difference, and the one process's own on its nudged images."""
+    def rel(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    def loss_rel(a):
+        return max(abs(float(a[k]) - float(v)) / max(abs(float(v)), 1e-30)
+                   for k, v in want_l.items())
+
+    rows = []
+    for (k, n), g, r, nu in zip(names, grads, want_g, nudged_g):
+        got, floor = rel(g, r), rel(nu, r)
+        rows.append((f"{k}.{n}", got, floor, max(EQUIV_GRAD_REL, MESH_FLOOR_FACTOR * floor)))
+    return {"loss_rel": loss_rel(losses), "loss_floor": loss_rel(nudged_l),
+            "worst": max(rows, key=lambda row: row[1] / row[3]),
+            "largest": max(((r[0], r[1]) for r in rows), key=lambda r: r[1]),
+            "floor_max": max(((r[0], r[2]) for r in rows), key=lambda r: r[1]),
+            "outside": [r[0] for r in rows if r[1] > r[3]], "tensors": len(rows)}
+
+
+def check_nccl_capture() -> None:
+    """The mesh's collectives on NCCL under CUDA graph capture, which (a)
+    does not issue (nothing splits over one rank) and (b) cannot (gloo):
+    ops/sharding.py's ``_SumGrads``, ``_Gather`` and ``_Halo`` forward and
+    backward over the model group of a one-rank NCCL mesh, captured into
+    one CUDA graph, replayed on new inputs and held against the same calls
+    run eagerly and against what they compute, bit for bit; the collectives
+    counted at the capture. Then parallel/dp.py's ``gather`` (the saves';
+    it lands on the CPU, so it is not captured) on NCCL."""
+    import torch.distributed as dist
+
+    from discogan_modernized_torch.core.distributed import free_port
+    from discogan_modernized_torch.core.mesh import make_mesh
+    from discogan_modernized_torch.ops.sharding import _Gather, _Halo, _SumGrads
+    from discogan_modernized_torch.parallel import collectives
+    from discogan_modernized_torch.parallel.dp import gather
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, 1)
+        group = mesh.model_group
+
+        def f(x, g):
+            x = x.detach().requires_grad_()
+            y = _Gather.apply(_SumGrads.apply(x * 2, group), group, 0, -1)
+            h = _Halo.apply(y, mesh, 1)
+            (dx,) = torch.autograd.grad(h, x, g)
+            return h.detach(), dx
+
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        shape, halo_shape = (2, 8, 16, 32), (2, 12, 16, 32)
+
+        def inputs():
+            return (torch.randn(shape, device="cuda", generator=gen, dtype=torch.bfloat16),
+                    torch.randn(halo_shape, device="cuda", generator=gen, dtype=torch.bfloat16))
+
+        static = inputs()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            f(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(collectives)
+        with torch.cuda.graph(graph):
+            h, dx = f(*static)
+        captured = {k: v - before[k] for k, v in collectives.items()}
+        x, g = inputs()
+        for t, new in zip(static, (x, g)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = f(x, g)
+        zero = torch.zeros_like(x[:, :1])
+        plain = (torch.cat([zero, zero, 2 * x, zero, zero], 1), 2 * g[:, 2:10])
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip((h, dx), eager, plain)):
+            raise AssertionError("NCCL collectives replayed from a CUDA graph differ from "
+                                 "their eager run or from what they compute")
+        if captured != {"all_reduce": 1, "all_gather": 3, "gather": 0}:
+            raise AssertionError(f"the capture counted {captured}")
+        before = collectives["gather"]
+        (part,) = gather(x, group)
+        if not torch.equal(part, x.cpu()) or collectives["gather"] != before + 1:
+            raise AssertionError("parallel.dp.gather on NCCL")
+        print(f"NCCL under capture: _SumGrads, _Gather and _Halo over a one-rank model "
+              f"group, captured ({captured}) and replayed = eager = their plain values "
+              "bit for bit; dp.gather on NCCL ✓")
+    finally:
+        dist.destroy_process_group()
 
 
 def steady_img_s(observer, step_ms) -> float:
@@ -3075,7 +3698,28 @@ def drive_angle(work: Path) -> dict:
     return launches, chunk_launches
 
 
-def main() -> int:
+def planted_fault() -> int:
+    """``--planted-fault``: (b)'s f32 gate with MESH_FAULTS planted; 0 where
+    it refuses the fault of each mode."""
+    phase("mesh: the f32 gate against planted faults")
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        readings = mesh_ranks(work, None, faults=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"planted_fault": MESH_FAULTS, "refused": True, "readings": {
+        k: {"loss_rel": v["loss_rel"], "worst": v["worst"], "outside": len(v["outside"]),
+            "tensors": v["tensors"]} for k, v in readings.items()}}))
+    print(smi_line())
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--planted-fault"]):
+        print("usage: python3 chip_smoke.py [--planted-fault]", file=sys.stderr)
+        return 2
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3091,6 +3735,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    if argv:
+        return planted_fault()
 
     phase("kernels against their plain versions")
     timer = Timer()
@@ -3151,6 +3797,9 @@ def main() -> int:
         phase("distributed: world 1 on NCCL")
         dist_counts = drive_distributed(work, synthetic)
 
+        phase("mesh: tensor and spatial sharding, world 1 on NCCL and 2 ranks over gloo")
+        mesh_counts = drive_mesh(work, synthetic)
+
         phase("train: the step's graph variants at 512px, batch 8, bf16")
         _build.reset_launches()
         variants = drive_variants()
@@ -3181,7 +3830,8 @@ def main() -> int:
     phase("report")
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
                     "export": export_counts.get(k, 0), "train": train_counts[k],
-                    "distributed": dist_counts.get(k, 0), "variants": variant_counts[k],
+                    "distributed": dist_counts.get(k, 0), "mesh": mesh_counts.get(k, 0),
+                    "variants": variant_counts[k],
                     "variant_cli": variant_cli_counts[k], "real_data": real_counts[k],
                     "chunks": chunk_counts[k], "real_data_chunks": real_chunk_counts[k],
                     "angle": angle_counts[k], "angle_chunks": angle_chunk_counts.get(k, 0)}

@@ -120,9 +120,7 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
     parallel trainer's own flags are ``distributed_parser``'s. Refused:
     --xla_copts, which sets XLA flags and has no CUDA meaning, and
     --ckpt_backend, since the port writes its train state with torch.save
-    only (the JAX package's orbax backend has no counterpart here); and
-    the mesh modes' --parallel_mode gspmd|spatial and --tp, which the
-    distributed trainer refuses with a message until they are ported."""
+    only (the JAX package's orbax backend has no counterpart here)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
@@ -283,11 +281,15 @@ def distributed_parser() -> argparse.ArgumentParser:
                         'visible cards; 1 on the CPU)')
     p.add_argument('--parallel_mode', type=str, default='dp',
                    choices=['dp', 'gspmd', 'spatial'],
-                   help='(extension) dp = data parallelism; gspmd and spatial '
-                        '(tensor and spatial sharding) are not ported yet')
+                   help='(extension) dp = data parallelism; gspmd = data x '
+                        'tensor parallelism (wide conv weights split by output '
+                        'channel over the model axis); spatial = data x '
+                        'spatial (image rows split over the model axis); '
+                        'BatchNorm global on either mesh')
     p.add_argument('--tp', type=int, default=None,
-                   help='(extension) model-axis size of gspmd/spatial (not '
-                        'ported yet)')
+                   help='(extension) model-axis size of gspmd/spatial (default: '
+                        '2 on an even world larger than 1, else 1; must divide '
+                        'the world)')
     p.add_argument('--load_gen_A', type=str, default=None,
                    help='Path to a gen_A checkpoint (.pth) to start from')
     p.add_argument('--load_gen_B', type=str, default=None,

@@ -1,12 +1,16 @@
 """Data-parallel trainer CLI (ref distributed_image_translation.py), on the
 card by default: one process a rank, NCCL between cards, gloo on the CPU
-(core/distributed.py, parallel/dp.py).
+(core/distributed.py, parallel/dp.py), and tensor or spatial sharding on a
+mesh of the ranks (parallel/gspmd.py).
 
     torchrun --nproc_per_node=<cards> -m \\
         discogan_modernized_torch.cli.distributed_image_translation --distributed \\
         --task_name=edges2shoes --image_size=512 --batch_size=16
     python -m discogan_modernized_torch.cli.distributed_image_translation \\
         --distributed --world_size=2 --device=cpu --task_name=synthetic ...
+    torchrun --nproc_per_node=4 -m \\
+        discogan_modernized_torch.cli.distributed_image_translation --distributed \\
+        --parallel_mode=gspmd --tp=2 --task_name=edges2shoes --image_size=512
 
 ``--distributed`` turns data parallelism on; LOCAL_RANK in the
 environment (torchrun) forces it (ref :617-620). Without a launcher it
@@ -20,8 +24,12 @@ ranks each take their rows of it, so W ranks on one host train on the
 batches one process takes (train/loop.py). ``--bn_sync`` makes the BatchNorm
 statistics the global batch's. The weights-only ``--load_gen_A`` ...
 ``--load_dis_B`` and the full-state ``--resume`` load on every rank.
-``--parallel_mode gspmd|spatial`` and ``--tp`` (tensor and spatial
-sharding, slice M10 of the port) are refused.
+``--parallel_mode gspmd`` (tensor parallelism) and ``spatial`` (the
+images' rows split) put the ranks on a (data, model) mesh with ``--tp``
+ranks on the model axis (default 2 on an even world larger than one, else
+1; it must divide the world), BatchNorm global (train/loop.py,
+parallel/gspmd.py). Ranks of a host that outnumber its cards share them
+over gloo (core/distributed.py).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch.multiprocessing as mp
 
 from ..core import distributed
 from ..core.device import resolve_device
+from ..parallel.gspmd import resolve_tp
 from ..train.loop import run_training
 from .common import distributed_parser, parse_with_config
 
@@ -56,11 +65,6 @@ def main(argv=None, *, observer=None):
     if "LOCAL_RANK" in os.environ:
         args.local_rank = int(os.environ["LOCAL_RANK"])
         args.distributed = True
-    if args.parallel_mode != "dp" or args.tp is not None:
-        raise SystemExit(f"--parallel_mode {args.parallel_mode}"
-                         + (f" --tp {args.tp}" if args.tp is not None else "")
-                         + ": tensor and spatial sharding are not ported yet (slice M10 "
-                           "of the port); use --parallel_mode dp")
     if args.multihost and not args.distributed:
         raise SystemExit("--multihost requires --distributed: a multi-host run shards "
                          "the global batch over the ranks, which only the distributed "
@@ -71,6 +75,8 @@ def main(argv=None, *, observer=None):
     if not (distributed.from_launcher() or args.multihost):
         world = args.world_size or (torch.cuda.device_count() if device.type == "cuda"
                                     else 1)
+        if args.parallel_mode != "dp":
+            resolve_tp(args.tp, world)  # refuse a --tp that does not divide before any rank starts
         if world > 1:
             try:
                 mp.start_processes(_rank, args=(argv, world, distributed.free_port()),

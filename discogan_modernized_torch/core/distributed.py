@@ -3,7 +3,10 @@
 ``core/mesh.py`` and of its trainer's rendezvous, train/loop.py:205-235).
 
 The backend follows the device: NCCL on the card, gloo on the CPU. A run on
-the card without NCCL raises; it never falls back to gloo there.
+the card without NCCL raises. Ranks of one host that outnumber its cards
+share them (rank r on card r mod cards), and then talk over gloo, since
+NCCL refuses two ranks on one device: what the process finds decides it,
+and it prints the choice.
 
 Where the ranks come from, in order:
 - torchrun (or any launcher that sets RANK, WORLD_SIZE, LOCAL_RANK,
@@ -14,7 +17,7 @@ Where the ranks come from, in order:
   (``torch.multiprocessing``), each with the launcher's variables set; a
   world of 1 joins a group of its own in this process.
 
-A rank's device is ``cuda:<local rank>`` on the card. The ranks of one host
+A rank's device is ``cuda:<local rank mod cards>`` on the card. The ranks of one host
 (``local_world``: torchrun's LOCAL_WORLD_SIZE; one a process under
 ``--multihost``, where a process is a host) split that host's batch, as the
 devices of a host's mesh split it in the JAX package; the hosts take shards
@@ -111,9 +114,14 @@ def init(device_type: str, *, multihost: bool = False, coordinator_address=None,
                          f"{local_world}")
     device = torch.device("cpu")
     if device_type == "cuda":
-        device = torch.device("cuda", local_rank)
+        cards = torch.cuda.device_count()
+        device = torch.device("cuda", local_rank % cards)
         torch.cuda.set_device(device)
-    kwargs = {"device_id": device} if device_type == "cuda" else {}
+        if local_world > cards:
+            backend = "gloo"
+            print(f"rank {rank}: {local_world} ranks share this host's {cards} card(s); "
+                  f"{device} over gloo (NCCL refuses two ranks on one device)")
+    kwargs = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=method, world_size=world, rank=rank,
                             timeout=TIMEOUT, **kwargs)
     return Ranks(rank, world, local_rank, device, backend, local_world)

@@ -19,7 +19,8 @@ NHWC. Per layer, as in the generator's encoder (models/generator.py):
 ``discriminator_train`` runs the train form for one discriminator, or for
 two at once on a pair axis (one kernel launch a layer for both, each
 member with its own weights and BatchNorm), in the rematerialized regions
-of ``remat`` (models/regions.py). ``forward_pair`` is the JAX package's
+of ``remat`` (models/regions.py), on a mesh's shards where the ops table
+holds one (ops/sharding.py; the features are whole maps). ``forward_pair`` is the JAX package's
 ``discriminator_apply_pair``: one discriminator's real and fake forwards
 as one pass, the two halves on the pair axis, BatchNorm statistics per
 half.
@@ -32,10 +33,11 @@ from torch import nn
 
 from ..core.precision import F32, Policy
 from ..ops.activations import sigmoid
-from ..ops.autograd import conv, conv_batch_stats, mm_fn, train_bn_act, train_ops
+from ..ops.autograd import mm_fn, train_ops
 from ..ops.batchnorm import batchnorm, fold_bn
 from ..ops.conv import init_conv_, latent_conv
 from ..ops.halo_conv import takes_halo
+from ..ops.sharding import conv_layer, mesh_of, to_band, whole
 from .geometry import KERNEL, encoder_channels
 from .regions import materialize, run_regions
 
@@ -101,6 +103,7 @@ class Discriminator(nn.Module):
         round)."""
         ops = train_ops(plain, stats_dp)
         shared = not any(p.requires_grad for p in self.parameters())
+        x_real, x_fake = (to_band(x, mesh_of(ops)) for x in (x_real, x_fake))
         prob, feats = discriminator_train((self, self), torch.stack([x_real, x_fake]),
                                           policy, ops, remat, shared=shared)
         return (prob[0], [f[0] for f in feats]), (prob[1], [f[1] for f in feats])
@@ -146,15 +149,18 @@ def discriminator_train(dises, x, policy: Policy, ops, remat: str | None = None,
     def weights():
         return discriminator_weights(dises, cd, shared)
 
-    def whole(x, w=None):
+    mp = mesh_of(ops)
+
+    def whole_net(x, w=None):
         w = weights() if w is None else w
-        h = conv(x, w[0], ops, act="leaky")
+        h = conv_layer(x, w[0], None, "leaky", ops)
         feats = []
         for wi, bn in zip(w[1:-1], bns):
-            h = train_bn_act(bn, *conv_batch_stats(h, wi, ops), "leaky", ops)
-            feats.append(h)
+            h = conv_layer(h, wi, bn, "leaky", ops)
+            feats.append(whole(h, mp))
+        h = feats[-1] if feats else whole(h, mp)
         lead, head = h.shape[:-3], w[-1]
         logits = mm_fn(h.reshape(*lead, -1), head.reshape(*head.shape[:-4], -1, 1))
         return sigmoid(logits.reshape(*lead, 1, 1, 1).float()), feats
 
-    return run_regions(remat, x.to(cd).contiguous(), whole, weights)
+    return run_regions(remat, to_band(x, mp).to(cd).contiguous(), whole_net, weights)

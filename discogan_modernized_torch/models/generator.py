@@ -31,7 +31,9 @@ The train form runs under autograd (ops/autograd.py: K4 / K5b weight
 gradients, K6 for the stem's input gradient) and advances the BN running
 statistics in place. ``generator_train`` runs it for one generator, or for
 two at once on a pair axis ((2,N,H,W,3): one kernel launch a layer for
-both, each member with its own weights and BatchNorm); ``remat`` splits it
+both, each member with its own weights and BatchNorm), on a mesh's shards
+where the ops table holds one (ops/sharding.py: a whole x is cut into this
+rank's band under spatial sharding, and the output is the band's); ``remat`` splits it
 into rematerialized regions (train/graph.py's policies): "full" one region,
 "latent" the encoder to the latent and the decoder, "conv" one region that
 keeps every convolution's output and rebuilds only the BatchNorm and
@@ -50,13 +52,14 @@ from torch import nn
 
 from ..core.precision import F32, Policy
 from ..ops.activations import sigmoid
-from ..ops.autograd import (PLAIN_OPS, batch_stats_fn, conv, conv_batch_stats,
-                            conv_transpose_fn, head_fn, mm_fn, train_bn_act, train_ops)
+from ..ops.autograd import PLAIN_OPS, batch_stats_fn, mm_fn, train_bn_act, train_ops
 from ..ops.batchnorm import batchnorm, fold_bn
 from ..ops.conv import (conv_transpose2d, init_conv_, latent_conv,
                         latent_conv_transpose)
 from ..ops.halo_conv import takes_halo
 from ..ops.library import SERVING_OPS
+from ..ops.sharding import (conv_layer, convt_layer, dec0_layer, head_layer, mesh_of,
+                            to_band, whole)
 from .geometry import KERNEL, LATENT_CH, encoder_channels
 from .regions import materialize, run_regions
 
@@ -227,26 +230,27 @@ def generator_weights(gens, dtype: torch.dtype, part: str | None = None) -> dict
 
 def _encode(h, w, bns, ops):
     """The encoder and the latent conv: x in the compute dtype -> the
-    latent after its BatchNorm and LeakyReLU."""
+    latent after its BatchNorm and LeakyReLU. Under a mesh the layers run
+    on shards (ops/sharding.py), and the latent's input is whole."""
     enc_bn, latent_bn, _ = bns
-    h = conv(h, w["enc"][0], ops, act="leaky")
+    h = conv_layer(h, w["enc"][0], None, "leaky", ops)
     for wi, bn in zip(w["enc"][1:], enc_bn):
-        h = train_bn_act(bn, *conv_batch_stats(h, wi, ops), "leaky", ops)
+        h = conv_layer(h, wi, bn, "leaky", ops)
+    h = whole(h, mesh_of(ops))
     lead = h.shape[:-3]
     y = mm_fn(h.reshape(*lead, -1), w["latent"]).reshape(*lead, 1, 1, -1)
     return train_bn_act(latent_bn, y, *batch_stats_fn(y, ops), "leaky", ops)
 
 
 def _decode(h, w, bns, ops):
-    """The decoder and the head: the latent -> the image in [0, 1], f32."""
+    """The decoder and the head: the latent -> the image in [0, 1], f32
+    (under spatial sharding this rank's band of it)."""
     for j, bn in enumerate(bns[2]):
         if j == 0:  # 1 -> 4: one product
-            lead = h.shape[:-3]
-            y = mm_fn(h.reshape(*lead, -1), w["dec0"]).reshape(*lead, 4, 4, -1)
+            h = dec0_layer(h, w["dec0"], bn, ops)
         else:
-            y = conv_transpose_fn(h, w["dec"][j - 1])
-        h = train_bn_act(bn, y, *batch_stats_fn(y, ops), "relu", ops)
-    return sigmoid(head_fn(h, w["head"], ops).float())
+            h = convt_layer(h, w["dec"][j - 1], bn, "relu", ops)
+    return sigmoid(head_layer(h, w["head"], ops).float())
 
 
 def generator_train(gens, x, policy: Policy, ops, remat: str | None = None):
@@ -263,11 +267,12 @@ def generator_train(gens, x, policy: Policy, ops, remat: str | None = None):
     def weights(part=None):
         return generator_weights(gens, cd, part)
 
-    def whole(x, w=None):
+    def whole_net(x, w=None):
         w = weights() if w is None else w
         return _decode(_encode(x, w, bns, ops), w, bns, ops)
 
-    return run_regions(remat, x.to(cd).contiguous(), whole, weights,
+    x = to_band(x, mesh_of(ops))
+    return run_regions(remat, x.to(cd).contiguous(), whole_net, weights,
                        lambda x: _encode(x, weights("enc"), bns, ops),
                        lambda z: _decode(z, weights("dec"), bns, ops))
 

@@ -6,9 +6,10 @@ Every function takes ``ops``, the table of kernel wrappers
 run on the card can hold the kernels' path against the plain one. Under
 data parallelism with cross-rank BatchNorm the table also holds
 ``"stats_dp"``, the parallel.DataParallel whose ranks' global batch the
-statistics are taken over (``train_ops``): a rematerialized region closes
-over the table, so its rebuild in the backward takes the same statistics
-and the same all-reduces as its first forward. Per function, forward and
+statistics are taken over (``train_ops``), and on a mesh ``"mesh"``
+(ops/sharding.py's layers): a rematerialized region closes over the
+table, so its rebuild in the backward takes the same statistics and the
+same collectives as its first forward. Per function, forward and
 backward:
 
 - ``conv`` (k4/s2/p1): K3, or K5f on the ``takes_halo`` route, with an
@@ -81,9 +82,15 @@ def train_ops(plain: bool = False, stats_dp=None) -> dict:
     """The table a train forward takes: the kernels' wrappers (their plain
     versions with ``plain``), and with ``stats_dp`` (a
     parallel.DataParallel) the ranks whose global batch the BatchNorm
-    statistics span."""
+    statistics span; where that is a mesh's (parallel.gspmd.MeshParallel),
+    under ``"mesh"`` too (ops/sharding.py)."""
     ops = PLAIN_OPS if plain else KERNEL_OPS
-    return ops if stats_dp is None else dict(ops, stats_dp=stats_dp)
+    if stats_dp is None:
+        return ops
+    ops = dict(ops, stats_dp=stats_dp)
+    if getattr(stats_dp, "mesh", None) is not None:
+        ops["mesh"] = stats_dp
+    return ops
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:

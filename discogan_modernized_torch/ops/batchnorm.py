@@ -46,15 +46,21 @@ def batchnorm_train(bn: nn.BatchNorm2d, mean, var, count: int):
     and return the (scale, offset) that normalizes with them. Like
     nn.BatchNorm2d, it refuses one value per channel. A region's
     rebuilt forward only returns the (scale, offset)."""
+    advance_running_stats(bn, mean, var, count)
+    return fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
+
+
+def advance_running_stats(bn: nn.BatchNorm2d, mean, var, count: int) -> None:
+    """``batchnorm_train``'s update of the running statistics (none while a
+    region rebuilds its forward); refuses one value per channel."""
     if count <= 1:
         raise ValueError("Expected more than 1 value per channel when "
                          f"training, got {count}")
     if recompute.recomputing():
-        return fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
+        return
     with torch.no_grad():
         m = bn.momentum
         unbiased = var * (count / max(count - 1, 1))
         bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
         bn.running_var.copy_((1.0 - m) * bn.running_var + m * unbiased)
         bn.num_batches_tracked.add_(1)
-    return fold_bn(bn.weight, bn.bias, mean, var, bn.eps)

@@ -27,9 +27,13 @@ replay. The gradients are reduced in their own dtype (bf16 under slim
 state "all"), as JAX reduces them. The logged losses are the ranks' means
 in both modes (JAX ``dp.py:95-99``).
 
-``collectives`` counts the all-reduces issued, as ``ops/_build.launches``
-counts the kernels' launches: a captured step's are counted at its
-capture (``train/chunk.py``), not at its replays.
+``collectives`` counts the collectives issued, one key a kind
+(``all_reduce``, and the mesh modes' ``all_gather`` and the saves'
+``gather``, parallel/gspmd.py),
+as ``ops/_build.launches`` counts the kernels' launches: a captured step's
+are counted at its capture (``train/chunk.py``), not at its replays.
+``Group`` is the ranks of one process group and their means, which
+``DataParallel`` and the mesh's groups build on.
 """
 
 from __future__ import annotations
@@ -37,11 +41,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-collectives = {"all_reduce": 0}
+collectives = {"all_reduce": 0, "all_gather": 0, "gather": 0}
 
 
 def reset_collectives() -> None:
-    collectives["all_reduce"] = 0
+    for kind in collectives:
+        collectives[kind] = 0
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -49,6 +54,42 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     collectives["all_reduce"] += 1
     return t
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' ``t``s stacked on a new leading axis, in group rank order,
+    counted. NCCL gathers into one buffer on the card; gloo gathers through
+    host memory (it has no all-gather of CUDA tensors), so a rank on a card
+    it shares over gloo copies its part out and the result back."""
+    t = t.contiguous()
+    n = dist.get_world_size(group)
+    if dist.get_backend(group) == "nccl":
+        out = torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+    else:
+        src = t.cpu()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.stack(parts).to(t.device)
+    collectives["all_gather"] += 1
+    return out
+
+
+def gather(t: torch.Tensor, group) -> list | None:
+    """The ranks' ``t``s on the group's first rank, on the CPU, in group rank
+    order (None on the other ranks), counted. Under NCCL the first rank
+    receives them on its card, one tensor's parts at a time; gloo gathers
+    through host memory."""
+    t = t.contiguous()
+    n = dist.get_world_size(group)
+    first = dist.get_global_rank(group, 0)
+    mine = dist.get_rank() == first
+    if dist.get_backend(group) != "nccl":
+        t = t.cpu()
+    parts = [torch.empty_like(t) for _ in range(n)] if mine else None
+    dist.gather(t, parts, dst=first, group=group)
+    collectives["gather"] += 1
+    return [p.cpu() for p in parts] if mine else None
 
 
 class _RankMean(torch.autograd.Function):
@@ -66,15 +107,12 @@ class _RankMean(torch.autograd.Function):
         return ctx.dp.mean(g.contiguous().clone()), None
 
 
-class DataParallel:
-    """The ranks of ``group`` (the default group when None) and their
-    gradient buffers; ``bn_sync``: cross-rank BatchNorm statistics."""
+class Group:
+    """The ranks of ``group`` (the default group when None)."""
 
-    def __init__(self, group=None, *, bn_sync: bool = False):
+    def __init__(self, group=None):
         self.group = group
         self.world = dist.get_world_size(group)
-        self.bn_sync = bn_sync
-        self._flat: dict = {}  # (subset, dtype) -> flat gradient buffer
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' mean of ``t``, in place (not differentiable)."""
@@ -84,27 +122,42 @@ class DataParallel:
         """The ranks' mean of ``t`` inside the autograd graph."""
         return _RankMean.apply(t, self)
 
+
+class DataParallel(Group):
+    """The ranks of ``group`` (the default group when None) and their
+    gradient buffers; ``bn_sync``: cross-rank BatchNorm statistics."""
+
+    def __init__(self, group=None, *, bn_sync: bool = False):
+        super().__init__(group)
+        self.bn_sync = bn_sync
+        self._flat: dict = {}  # (subset, dtype[, group]) -> flat gradient buffer
+
+    def _reduce(self, key, grads: list, idx: list, out: list, group) -> None:
+        """Sum grads[i] for i in ``idx`` (one dtype) over ``group`` through
+        the flat buffer ``key``, and put views of it into ``out``."""
+        numel = sum(grads[i].numel() for i in idx)
+        flat = self._flat.get(key)
+        if flat is None or flat.numel() != numel or flat.device != grads[idx[0]].device:
+            flat = self._flat[key] = torch.empty(numel, dtype=grads[idx[0]].dtype,
+                                                 device=grads[idx[0]].device)
+        torch.cat([grads[i].reshape(-1) for i in idx], out=flat)
+        all_reduce_sum(flat, group)
+        if not self.bn_sync:
+            flat.div_(self.world)
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view(grads[i].shape)
+
     @torch.no_grad()
-    def reduce_grads(self, subset: str, grads) -> list:
+    def reduce_grads(self, subset: str, grads, params=None) -> list:
         """The ranks' sum (bn_sync) or mean (local BN) of ``grads``, through
         one flat buffer per dtype of ``subset``'s gradients; returns views of
-        it, one a gradient, valid until the subset's next reduction."""
+        it, one a gradient, valid until the subset's next reduction.
+        ``params`` (the gradients' parameters) is the mesh's business."""
         grads = list(grads)
         out = [None] * len(grads)
         for dtype in dict.fromkeys(g.dtype for g in grads):
             idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
-            numel = sum(grads[i].numel() for i in idx)
-            key = (subset, dtype)
-            flat = self._flat.get(key)
-            if flat is None or flat.numel() != numel or flat.device != grads[idx[0]].device:
-                flat = self._flat[key] = torch.empty(numel, dtype=dtype,
-                                                     device=grads[idx[0]].device)
-            torch.cat([grads[i].reshape(-1) for i in idx], out=flat)
-            all_reduce_sum(flat, self.group)
-            if not self.bn_sync:
-                flat.div_(self.world)
-            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
-                out[i] = part.view(grads[i].shape)
+            self._reduce((subset, dtype), grads, idx, out, self.group)
         return out
 
     @torch.no_grad()

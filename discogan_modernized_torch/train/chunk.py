@@ -50,7 +50,11 @@ its own program over its shard of the dataset, and the steps' all-reduces
 the steps: on the card NCCL's collectives are captured into the graphs
 with the kernels, after the eager warm-up has made the communicator, and
 each capture's all-reduces are counted (``ChunkProgram.collectives``); on
-the CPU gloo's run eagerly.
+the CPU gloo's run eagerly. Under tensor parallelism on a mesh (``dp`` a
+parallel.gspmd.MeshParallel, every rank on one host) the same holds, with
+the model axis's all-gathers and all-reduces inside the steps too (each
+capture's all-gathers: ``ChunkProgram.gathers``); a data row's model ranks
+gather the same batch rows.
 """
 
 from __future__ import annotations
@@ -112,6 +116,7 @@ class ChunkProgram:
         self.graphs: dict = {}    # kind -> torch.cuda.CUDAGraph
         self.launches: dict = {}  # kind -> the kernel launches of its capture
         self.collectives: dict = {}  # kind -> the all-reduces of its capture
+        self.gathers: dict = {}  # kind -> the all-gathers of its capture (a mesh's)
         self.stream = torch.cuda.Stream(device) if graphs else None
         self._copied = None  # the event after the last table copy
 
@@ -172,12 +177,13 @@ class ChunkProgram:
         for kind in sorted(self.kinds):
             graph = torch.cuda.CUDAGraph()
             before = dict(_build.launches)
-            reduces = dp_counts.collectives["all_reduce"]
+            issued = dict(dp_counts.collectives)
             with torch.cuda.graph(graph, pool=pool, stream=self.stream):
                 self.bodies[kind]()
             self.launches[kind] = {k: v - before[k] for k, v in _build.launches.items()
                                    if v != before[k]}
-            self.collectives[kind] = dp_counts.collectives["all_reduce"] - reduces
+            self.collectives[kind] = dp_counts.collectives["all_reduce"] - issued["all_reduce"]
+            self.gathers[kind] = dp_counts.collectives["all_gather"] - issued["all_gather"]
             self.graphs[kind] = graph
 
     def __call__(self, idx_A, idx_B, iters0: int) -> torch.Tensor:

@@ -35,7 +35,10 @@ forward carries in its ops table) the BatchNorm statistics and the
 feature-matching means are the global batch's, and the reported losses are
 the ranks' means (JAX ``graph.py:165-168``, there ``pmean`` of each
 component; here one all-reduce of them all after the backward,
-``parallel.DataParallel.mean_losses``).
+``parallel.DataParallel.mean_losses``). On a mesh (``stats_dp`` a
+parallel.gspmd.MeshParallel) the same holds over its data axis, the
+networks run on their shards (ops/sharding.py), and under spatial sharding
+the reconstructions' bands are gathered whole for their losses.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..models.discriminator import discriminator_train
 from ..models.generator import generator_train
 from ..ops.autograd import train_ops
 from ..ops.losses import feature_matching_loss, gan_losses, mse_loss
+from ..ops.sharding import mesh_from, whole
 
 ARCH_MODES = ("discogan", "recongan", "gan")
 
@@ -133,8 +137,9 @@ def discogan_losses(models: dict, A: torch.Tensor, B: torch.Tensor, *,
     else:
         ABA = models["gen_A"](AB, remat=g_remat, **kw)
         BAB = models["gen_B"](BA, remat=g_remat, **kw)
-        recon_A = mse_loss(ABA, A)
-        recon_B = mse_loss(BAB, B)
+        mp = mesh_from(stats_dp)
+        recon_A = mse_loss(whole(ABA, mp), A)
+        recon_B = mse_loss(whole(BAB, mp), B)
 
     if concat_dis:
         (A_real, A_feats_real), (A_fake, A_feats_fake) = models["dis_A"].forward_pair(
@@ -172,7 +177,8 @@ def discogan_losses_paired(models: dict, A: torch.Tensor, B: torch.Tensor, *,
     if dis_only:
         recon_A = recon_B = _zero(A)
     else:
-        out2 = generator_train((gen_A, gen_B), out1, policy, ops, g_remat)
+        out2 = whole(generator_train((gen_A, gen_B), out1, policy, ops, g_remat),
+                     mesh_from(stats_dp))
         recon_A = mse_loss(out2[0], A)
         recon_B = mse_loss(out2[1], B)
     real, real_feats = discriminator_train((dis_A, dis_B), AB_in, policy, ops, d_remat)

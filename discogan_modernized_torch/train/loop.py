@@ -69,6 +69,22 @@ their running statistics take the same updates as a single process's.
 ``--resume`` and the weights-only ``--load_gen_A`` ... ``--load_dis_B``
 (the distributed CLI's; JAX loop.py:278-290) load on every rank.
 
+A (data, model) mesh (``--parallel_mode gspmd|spatial``, the JAX package's
+train/loop.py:292-341 and :515-559): ``--tp`` ranks on the model axis (by
+default 2 on an even world larger than one, else 1; it must divide the
+world, and the ranks of a host), the rest on the data axis, whose ranks
+split a host's batch as above while a data row's model ranks take the same
+rows. The whole state is made and loaded on the CPU, then each rank takes
+its part onto its device (parallel/gspmd.py ``place_train_state``); the
+steps take a ``MeshParallel``, BatchNorm global whatever ``--bn_sync``
+says; saves gather the whole state onto rank 0's CPU (its data row's
+ranks send their slices; no rank holds a whole copy on its card), which
+writes it in the layout a one-process run writes, so a save moves
+between meshes of any shape and a one-process run. Tensor parallelism runs
+chunks where every rank is on one host; spatial sharding one step a call
+(``chunks_declined``). The path line names the mode, the mesh and the
+backend.
+
 ``run_training`` takes an optional ``observer``. On the per-step path it
 is called with ``begin(iters, kind)`` and ``end(iters, kind, losses)``
 (kind "dis", "lean" (a lean D step) or "gen", losses the step's device
@@ -100,7 +116,10 @@ from ..data.pipeline import (DEVICE_BUDGET_SHARE, DeviceDataset, HostLoader,
                              rank_shard)
 from ..data.preprocess import read_images
 from ..data.resolvers import get_task_data, task_domains
+from ..core.mesh import make_mesh
 from ..parallel import DataParallel
+from ..parallel.gspmd import (MeshParallel, gather_train_state, place_train_state,
+                              resolve_tp)
 from .checkpoint import (load_train_state, save_reference_layout,
                          save_train_state, train_state_meta)
 from .chunk import LOSS_KEYS, ChunkProgram
@@ -174,17 +193,44 @@ def use_device_dataset(args, device, n_a: int, n_b: int) -> tuple[bool, str]:
     return False, "off (the CPU)"
 
 
-def resolve_steps_per_call(args, cfg: TrainConfig, device, dataset) -> tuple[int, str]:
+def chunks_declined(args, ranks) -> str | None:
+    """Why a run takes one step a call whatever --steps_per_call says, or
+    None. Spatial sharding is not routed to chunks (JAX train/loop.py:538-550:
+    under its scan the latent and enc0 gradients drift 0.013-0.033 in Adam's
+    first moment, JAX parallel/gspmd.py:221-229); tensor parallelism is,
+    where every rank is on one host; a card that ranks share over gloo takes
+    none, since gloo's collectives do not capture into CUDA graphs."""
+    mode = getattr(args, "parallel_mode", "dp") or "dp"
+    if ranks is None:
+        return None
+    if mode == "spatial":
+        return ("spatial sharding is not routed to chunks: JAX measured its scan's latent "
+                "and enc0 gradients 0.013-0.033 off the per-step path's in Adam's first "
+                "moment, and declines it")
+    if mode == "gspmd" and ranks.hosts > 1:
+        return "tensor parallelism runs chunks only where every rank is on one host"
+    if ranks.backend == "gloo" and ranks.device.type == "cuda":
+        return "the ranks share a card over gloo, whose collectives CUDA graphs cannot capture"
+    return None
+
+
+def resolve_steps_per_call(args, cfg: TrainConfig, device, dataset,
+                           declined: str | None = None) -> tuple[int, str]:
     """(iterations a call, how it was decided): --steps_per_call as set, else
     ``auto_steps_per_call`` of the resolved config with the dataset on the
     card (not under --debug, whose anomaly checks read the device inside a
-    step), else 1. Above 1 it needs the dataset on the device."""
+    step), else 1. Above 1 it needs the dataset on the device; where chunks
+    are ``declined`` (``chunks_declined``), the default is 1 and more is
+    refused."""
     k, how = args.steps_per_call, "set"
     if k is None:
-        auto = dataset is not None and device.type == "cuda" and not args.debug
+        auto = (dataset is not None and device.type == "cuda" and not args.debug
+                and declined is None)
         k, how = (auto_steps_per_call(cfg, args.image_size) if auto else 1), "auto"
     if k < 1:
         raise SystemExit(f"--steps_per_call must be at least 1, got {k}")
+    if k > 1 and declined is not None:
+        raise SystemExit(f"--steps_per_call {k}: {declined}")
     if k > 1 and dataset is None:
         raise SystemExit("--steps_per_call above 1 gathers its batches from the dataset "
                          "on the device, which is off for this run")
@@ -239,10 +285,18 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
     result_path, model_path = build_paths(args, timestamp, angle_variant)
     data_A, data_B, test_A, test_B = get_task_data(args)
     rows, batch, global_batch = None, args.batch_size, args.batch_size
+    mode = getattr(args, "parallel_mode", "dp") or "dp"
+    tp = 1
     if ranks is not None:
+        if mode != "dp":
+            tp = resolve_tp(args.tp, ranks.world)
+            if ranks.local_world % tp:
+                raise SystemExit(f"--tp {tp}: the model axis lies within a host, and "
+                                 f"{tp} does not divide the {ranks.local_world} ranks of one")
         if ranks.hosts > 1:
             data_A, data_B = (rank_shard(d, ranks.host, ranks.hosts) for d in (data_A, data_B))
-        rows = host_rows(args.batch_size, ranks.part, ranks.local_world)
+        # the data axis splits a host's batch; a data row's model ranks share its rows
+        rows = host_rows(args.batch_size, ranks.part // tp, ranks.local_world // tp)
         batch, global_batch = rows.stop - rows.start, ranks.hosts * args.batch_size
     test_A, test_B = preprocess_test_set(args, test_A, test_B, angle_variant)
     n_samples = min(5, len(test_A), len(test_B))
@@ -274,24 +328,42 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
     cfg, remat_line = resolve_remat(cfg, batch, device, free_bytes,
                                     compute_itemsize=policy.compute_dtype.itemsize)
     print(remat_line)
-    steps_per_call, how = resolve_steps_per_call(args, cfg, device, dataset)
+    declined = chunks_declined(args, ranks)
+    steps_per_call, how = resolve_steps_per_call(args, cfg, device, dataset, declined)
     graphs = steps_per_call > 1 and device.type == "cuda"
+    dp = mp = None
+    mesh_line = ""
+    if ranks is not None and mode != "dp":
+        mp = dp = MeshParallel(make_mesh(ranks.world // tp, tp), spatial=mode == "spatial")
+        mesh_line = (f"; mesh {mode} ("
+                     + ", ".join(f"{axis}={n}" for axis, n in mp.mesh.shape.items())
+                     + f") over {ranks.backend}")
     print(f"train path: dataset {dataset_line}; steps_per_call {steps_per_call} ({how}); "
           f"CUDA graphs {'on' if graphs else 'off'}; remat "
-          f"{'on' if cfg.use_remat else 'off'}")
-    dp = None
-    if ranks is not None:
+          f"{'on' if cfg.use_remat else 'off'}{mesh_line}")
+    if declined is not None and args.steps_per_call is None and dataset is not None:
+        print(f"one step a call: {declined}")
+    if mp is not None:
+        print(f"mesh: rank {ranks.rank} of {ranks.world} at (data {mp.mesh.d}, model "
+              f"{mp.mesh.m}) ({ranks.backend}, {device}); BatchNorm global"
+              + (" (--bn_sync changes nothing on a mesh)" if cfg.bn_sync else "")
+              + f"; global batch {global_batch}, {batch} on this rank's data row")
+    elif ranks is not None:
         dp = DataParallel(bn_sync=cfg.bn_sync)
         print(f"data parallel: rank {ranks.rank} of {ranks.world} ({ranks.backend}, "
               f"{device}); BatchNorm {'synced' if cfg.bn_sync else 'per rank'}; "
               f"global batch {global_batch}, {batch} on this rank")
 
-    ts = init_train_state(args.seed, cfg, device)
+    # On a mesh the whole state is made (and loaded) on the CPU, then each
+    # rank takes its part of it onto its device.
+    ts = init_train_state(args.seed, cfg, "cpu" if mp is not None else device)
     start_iters = 0
     if args.resume:
         start_iters = load_train_state(args.resume, ts, cfg)
         print(f"전체 학습 상태 복원: {args.resume} (iter {start_iters})")
     load_weights(args, ts.models)
+    if mp is not None:
+        ts = place_train_state(ts, mp, cfg, device)
     if main_rank:
         result_path.mkdir(parents=True, exist_ok=True)
         model_path.mkdir(parents=True, exist_ok=True)
@@ -304,7 +376,7 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
                                steps_per_call,
                                kinds_in_range(cfg, start_iters, total_iterations - start_iters),
                                graphs=graphs, dp=dp)
-    sample_fn = make_sample_fn(cfg, policy)
+    sample_fn = make_sample_fn(cfg, policy, None if mp is None else mp.for_samples())
     test_A_t = torch.from_numpy(test_A).to(device)
     test_B_t = torch.from_numpy(test_B).to(device)
     logger = TrainingLogger(result_path / "training_log.txt", timestamp,
@@ -342,15 +414,24 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
             logger.log(i, total_iterations, vals, fm=not angle_variant)
         if i % args.image_save_interval == 0:
             dump_samples(i)
-        if i % args.model_save_interval == 0 and main_rank:
-            save_reference_layout(model_path, ts.models, i)
-            # The state holds iteration i: a resume from it trains i + 1 next.
-            save_train_state(model_path, ts, i + 1, meta)
+        if i % args.model_save_interval == 0:
+            state = whole_state()
+            if main_rank:
+                save_reference_layout(model_path, state.models, i)
+                # The state holds iteration i: a resume from it trains i + 1 next.
+                save_train_state(model_path, state, i + 1, meta)
+
+    def whole_state():
+        """The state a save writes: under tensor parallelism gathered from
+        the slices onto rank 0's CPU (a collective of its data row's ranks;
+        None on the other ranks, which write nothing)."""
+        return ts if mp is None else gather_train_state(ts, mp)
 
     def preempt(iters: int):
+        state = whole_state()
         if main_rank:
-            save_train_state(model_path, ts, iters, dict(meta, preempted=True))
-            save_reference_layout(model_path, ts.models, iters)
+            save_train_state(model_path, state, iters, dict(meta, preempted=True))
+            save_reference_layout(model_path, state.models, iters)
             print(f"SIGTERM: 학습 상태 저장 후 종료 (iter {iters}) — "
                   f"--resume {model_path} 로 재개")
         return result_path, model_path
@@ -428,9 +509,11 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
                     return preempt(iters)
         profiler.stop()
 
+    state = whole_state()
     if main_rank:
-        save_reference_layout(model_path, ts.models, "final")
-        save_train_state(model_path, ts, iters, meta)
+        save_reference_layout(model_path, state.models, "final")
+        save_train_state(model_path, state, iters, meta)
+    del state
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t_start

@@ -27,7 +27,8 @@ murmur3's 32-bit finalizer, in int32 tensor ops), so a step captured in a
 CUDA graph draws new bits at every replay from the seeds it is given; on
 the CPU they come from ``torch.randint`` under a CPU generator seeded with
 the seed word, as before the card had graphs. Either way a resumed run
-draws what the uninterrupted one drew. The bits are not JAX's threefry:
+draws what the uninterrupted one drew, and a parameter split over a mesh's
+model axis (``Adam.shards``) draws its elements' bits of the whole tensor. The bits are not JAX's threefry:
 the two packages round the same value to the same pair of neighbours but
 not always to the same one.
 
@@ -69,13 +70,31 @@ _GOLDEN = seed_word(0x9E3779B1)
 _FMIX = ((16, seed_word(0x85EBCA6B)), (13, seed_word(0xC2B2AE35)), (16, None))
 
 
-def rounding_bits(n: int, seed, device) -> torch.Tensor:
+def global_index(shape, shard, device) -> torch.Tensor:
+    """The flat indices in its whole tensor of each element of a slice of
+    ``shape``: ``shard`` = (the whole tensor's shape, the sliced axis, the
+    slice's first index on it); int32."""
+    whole, dim, start = shard
+    inner = 1
+    for s in whole[dim + 1:]:
+        inner *= s
+    block = shape[dim] * inner
+    n = 1
+    for s in shape:
+        n *= s
+    local = torch.arange(n, dtype=torch.int32, device=device)
+    return (local // block) * (whole[dim] * inner) + local % block + start * inner
+
+
+def rounding_bits(n: int, seed, device, index: torch.Tensor | None = None) -> torch.Tensor:
     """n values in [0, 2^16): element e's is the top half of murmur3's
     finalizer of e * golden + seed, in int32 arithmetic that wraps as
     uint32's does (the shifts masked to be logical). ``seed`` is a seed
     word (``seed_word``), a Python int or an int32 tensor of one value on
-    ``device``."""
-    h = torch.arange(n, dtype=torch.int32, device=device)
+    ``device``. ``index``: each element's e where it is not its place
+    (a slice of a tensor: ``global_index``)."""
+    h = (torch.arange(n, dtype=torch.int32, device=device) if index is None
+         else index.clone())
     h.mul_(_GOLDEN).add_(seed)
     for shift, mul in _FMIX:
         h.bitwise_xor_(h.bitwise_right_shift(shift).bitwise_and_((1 << (32 - shift)) - 1))
@@ -84,19 +103,27 @@ def rounding_bits(n: int, seed, device) -> torch.Tensor:
     return h.bitwise_right_shift_(16).bitwise_and_(0xFFFF)
 
 
-def stochastic_round_bf16(x: torch.Tensor, seed) -> torch.Tensor:
+def stochastic_round_bf16(x: torch.Tensor, seed, shard=None) -> torch.Tensor:
     """Unbiased f32 -> bf16 rounding: add 16 random bits below bf16's
     mantissa cutoff to the f32 word, then truncate. A carry out of the
     mantissa is exactly the round-up to the next representable value, so
     the rule holds across exponent boundaries. ``seed``: a seed word (a
     Python int, or an int32 tensor of one value on x's device); the bits
-    are ``rounding_bits`` on the card, a CPU generator's on the CPU."""
+    are ``rounding_bits`` on the card, a CPU generator's on the CPU.
+    ``shard``: x is a slice of a whole tensor (``global_index``'s), and
+    takes the bits of its elements' places there."""
     bits = x.float().contiguous().view(torch.int32)
     if x.device.type == "cpu":
         gen = torch.Generator().manual_seed(int(seed) & 0xFFFFFFFF)
-        rnd = torch.randint(0, 1 << 16, x.shape, dtype=torch.int32, generator=gen)
+        if shard is None:
+            rnd = torch.randint(0, 1 << 16, x.shape, dtype=torch.int32, generator=gen)
+        else:
+            whole, dim, start = shard
+            rnd = torch.randint(0, 1 << 16, whole, dtype=torch.int32,
+                                generator=gen).narrow(dim, start, x.shape[dim])
     else:
-        rnd = rounding_bits(x.numel(), seed, x.device).view(x.shape)
+        index = None if shard is None else global_index(x.shape, shard, x.device)
+        rnd = rounding_bits(x.numel(), seed, x.device, index).view(x.shape)
     bits = (bits + rnd) & -65536  # 0xFFFF0000 as an int32
     return bits.view(torch.float32).to(torch.bfloat16)
 
@@ -119,6 +146,9 @@ class Adam:
         self.m = [torch.zeros_like(p, dtype=mv_dtype) for p in self.params]
         self.v = [torch.zeros_like(p, dtype=mv_dtype) for p in self.params]
         self.step = 0
+        # Per parameter: None, or where it is a slice of a whole tensor (a
+        # mesh's tensor parallelism: stochastic_round_bf16's ``shard``).
+        self.shards: list = [None] * len(self.params)
 
     def step_scalars(self, step: int):
         """(bc1, bc2, seeds) of Adam step ``step``: the bias corrections
@@ -157,7 +187,7 @@ class Adam:
             upd = self.lr * (m_new / bc1) / ((v_new / bc2).sqrt() + self.eps)
             if p.dtype == torch.bfloat16:
                 # Not p.sub_, which would round to nearest in bf16.
-                p.copy_(stochastic_round_bf16(p32 - upd, seeds[i]))
+                p.copy_(stochastic_round_bf16(p32 - upd, seeds[i], self.shards[i]))
             else:
                 p.sub_(upd)
             m.copy_(m_new)

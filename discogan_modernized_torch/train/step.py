@@ -28,7 +28,9 @@ in every forward's ops table, so a rematerialized region's rebuild in the
 backward takes them too), and
 ``loss_and_grads`` reduces the gradients over the ranks after
 ``torch.autograd.grad`` and reports the ranks' mean losses (the JAX
-package's ``make_dp_train_steps``).
+package's ``make_dp_train_steps``). On a (data, model) mesh ``dp`` is a
+parallel.gspmd.MeshParallel: the same step, its forwards on the mesh's
+shards (ops/sharding.py), BatchNorm global.
 """
 
 from __future__ import annotations
@@ -200,12 +202,12 @@ def loss_and_grads(ts: TrainState, A, B, rate, cfg: TrainConfig,
     total = gen_total if which == "gen" else dis_total
     if dp is not None and dp.bn_sync:  # the rank's share; the ranks' sum is the mean
         total = total / dp.world
-    grads = torch.autograd.grad(total, subset_params(ts.models, keys),
-                                materialize_grads=True)
+    params = subset_params(ts.models, keys)
+    grads = torch.autograd.grad(total, params, materialize_grads=True)
     losses = {k: v.detach() for k, v in
               dict(losses, gen_total=gen_total, dis_total=dis_total).items()}
     if dp is not None:
-        grads = dp.reduce_grads(which, grads)
+        grads = dp.reduce_grads(which, grads, params)
         losses = dp.mean_losses(losses)
     return losses, grads
 
@@ -433,17 +435,20 @@ def resolve_remat(cfg: TrainConfig, batch: int, device,
     return dataclasses.replace(cfg, remat=bool(remat), remat_dis=remat_dis), line
 
 
-def make_sample_fn(cfg: TrainConfig, policy: Policy | None = None):
+def make_sample_fn(cfg: TrainConfig, policy: Policy | None = None, stats_dp=None):
     """(models, test_A, test_B) -> (AB, BA, ABA, BAB): the reference's
     torch.no_grad() pass with the models left in train mode (ref
     image_translation.py:170-176), so batch statistics normalize and the
-    running statistics advance."""
+    running statistics advance. ``stats_dp``: the forwards' ranks (a
+    tensor-parallel mesh's, parallel.gspmd.MeshParallel.for_samples)."""
     policy = policy or default_policy(cfg.precision)
 
     @torch.no_grad()
     def sample(models: dict, test_A, test_B):
-        AB = models["gen_B"](test_A, policy=policy)
-        BA = models["gen_A"](test_B, policy=policy)
-        return AB, BA, models["gen_A"](AB, policy=policy), models["gen_B"](BA, policy=policy)
+        def g(name, x):
+            return models[name](x, policy=policy, stats_dp=stats_dp)
+
+        AB, BA = g("gen_B", test_A), g("gen_A", test_B)
+        return AB, BA, g("gen_A", AB), g("gen_B", BA)
 
     return sample

@@ -17,7 +17,8 @@ DP path bit for bit, under slim states mv and all. The distributed CLI
 trains both BatchNorm modes with rank 0 alone writing, and its two local
 ranks take the halves of the batches the one-process trainer takes with
 the same flags (``--batch_size`` is one host's batch, as in JAX); unequal
-shards are truncated; the refused flags exit; ``--load_*`` loads the
+shards are truncated; the refused flags exit (a --tp that does not divide
+the world, as JAX train/loop.py:309-314 refuses it); ``--load_*`` loads the
 weights.
 """
 
@@ -300,9 +301,12 @@ def test_rank_shards_are_truncated_to_equal_length():
 
 @pytest.mark.parametrize("flags, match", [
     (["--multihost"], "requires --distributed"),
-    (["--distributed", "--parallel_mode=gspmd"], "M10"),
-    (["--distributed", "--parallel_mode=spatial"], "M10"),
-    (["--distributed", "--tp=2"], "M10"),
+    (["--distributed", "--world_size=2", "--parallel_mode=gspmd", "--tp=3"],
+     "--tp 3 does not divide the 2-rank mesh"),
+    (["--distributed", "--world_size=2", "--parallel_mode=gspmd", "--tp=4"],
+     "--tp 4 does not divide the 2-rank mesh"),
+    (["--distributed", "--world_size=2", "--parallel_mode=spatial", "--tp=3"],
+     "--tp 3 does not divide the 2-rank mesh"),
 ])
 def test_refused_flags_exit(flags, match, tmp_path):
     with pytest.raises(SystemExit, match=match):

@@ -51,7 +51,13 @@ MULTISTEP_MODULES = ["discogan_modernized_torch.train.chunk",
                      "discogan_modernized_torch.train.profiling"]
 
 
-@pytest.mark.parametrize("module", VARIANT_MODULES + MULTISTEP_MODULES)
+# And those of the (data, model) mesh.
+MESH_MODULES = ["discogan_modernized_torch.core.mesh",
+                "discogan_modernized_torch.ops.sharding",
+                "discogan_modernized_torch.parallel.gspmd"]
+
+
+@pytest.mark.parametrize("module", VARIANT_MODULES + MULTISTEP_MODULES + MESH_MODULES)
 def test_variant_modules_are_checked(module):
     assert module in port_modules()
     path = PKG / Path(*module.split(".")[1:]).with_suffix(".py")

@@ -8,6 +8,7 @@ test's process.
 """
 
 import functools
+import hashlib
 import os
 import pickle
 import socket
@@ -42,8 +43,11 @@ def run(fn: str, payload: dict, tmp_path, world: int = 2) -> list:
     mp.spawn(_entry, args=(world, port, tmp_path, fn), nprocs=world, join=True)
     out = []
     for rank in range(world):
-        with open(os.path.join(tmp_path, f"result{rank}.pkl"), "rb") as f:
+        path = os.path.join(tmp_path, f"result{rank}.pkl")
+        with open(path, "rb") as f:
             out.append(pickle.load(f))
+        os.remove(path)
+    os.remove(os.path.join(tmp_path, "payload.pkl"))
     return out
 
 
@@ -168,3 +172,242 @@ def agree(rank, world, p) -> list:
     each r of ``p["set_on"]``, then on no rank."""
     ranks = Ranks(rank, world, rank, torch.device("cpu"), "gloo")
     return [any_rank(rank == r, ranks) for r in p["set_on"]] + [any_rank(False, ranks)]
+
+
+# -- the (data, model) mesh (tests/test_torch_mesh.py, test_torch_spatial.py) --
+
+def _arrays(ts) -> dict:
+    """``state_arrays`` copied (an f32 tensor's array shares its memory)."""
+    return {k: np.array(v, copy=True) for k, v in state_arrays(ts).items()}
+
+
+def digest(arrays: dict) -> dict:
+    """Each array's bytes, hashed: two states' digests are equal where their
+    arrays are equal bit for bit."""
+    return {k: hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def _states(rank, states: dict) -> dict:
+    """What a mesh rank hands back of its states (a value None where the
+    rank holds none: a gathered state off rank 0): their digests, and on
+    rank 0 the arrays too (a 64px state is ~260 MB)."""
+    out = {f"{k}_digest": digest(v) for k, v in states.items() if v is not None}
+    if rank == 0:
+        out.update(states)
+    return out
+
+
+def _gathered(ts, mp):
+    """The whole state parallel/gspmd.py ``gather_train_state`` puts on rank
+    0, as numpy; None on the other ranks."""
+    from discogan_modernized_torch.parallel.gspmd import gather_train_state
+
+    whole = gather_train_state(ts, mp)
+    return None if whole is None else _arrays(whole)
+
+
+def _own(ts, mp) -> dict:
+    """This rank's own tensors of a placed state: their digest, shapes and
+    place on the model axis (``not_pieces`` reads them)."""
+    own = _arrays(ts)
+    return {"digest": digest(own), "shapes": {k: v.shape for k, v in own.items()},
+            "m": mp.mesh.m}
+
+
+def not_pieces(own: dict, whole: dict) -> list:
+    """The names of ``own``'s (``_own``'s) tensors that are not their rank's
+    piece of the whole state ``whole`` (arrays): along the axis where their
+    shapes differ, piece m of equal pieces; whole where they agree."""
+    piece = {}
+    for k, w in whole.items():
+        shape = own["shapes"][k]
+        dim = next((i for i, (a, b) in enumerate(zip(shape, w.shape)) if a != b), None)
+        piece[k] = w if dim is None else np.take(
+            w, np.arange(own["m"] * shape[dim], (own["m"] + 1) * shape[dim]), axis=dim)
+    got = digest(piece)
+    return [k for k in got if got[k] != own["digest"][k]]
+
+
+def _mesh(world, p):
+    from discogan_modernized_torch.core.mesh import make_mesh
+    from discogan_modernized_torch.parallel.gspmd import MeshParallel
+
+    tp = p.get("tp", world)
+    return MeshParallel(make_mesh(world // tp, tp), spatial=p.get("spatial", False))
+
+
+def _mesh_state(p, cfg, mp):
+    """The state to place: the JAX state ``p["jts"]``, else seed ``p["seed"]``'s."""
+    from discogan_modernized_torch.parallel.gspmd import place_train_state
+
+    ts = (train_state_from_jax(p["jts"], cfg) if "jts" in p
+          else init_train_state(p.get("seed", 0), cfg))
+    return place_train_state(ts, mp, cfg, "cpu")
+
+
+def _mesh_run(ts, cfg, mp, batches, kinds, counts=None) -> list:
+    """The steps of ``kinds`` on this rank's rows of the global ``batches``
+    (the data axis's shard); the losses of each, and each step's collectives
+    appended to ``counts``."""
+    from discogan_modernized_torch.parallel import collectives, reset_collectives
+    from discogan_modernized_torch.parallel.gspmd import (make_gspmd_lean_dis_step,
+                                                          make_gspmd_train_steps)
+
+    gen_step, dis_step = make_gspmd_train_steps(cfg, mp, F32)
+    steps = {"gen": gen_step, "dis": dis_step,
+             "lean": make_gspmd_lean_dis_step(cfg, mp, F32)}
+    d, n_data = mp.mesh.d, mp.mesh.n_data
+    log = []
+    for it, ((A, B), kind) in enumerate(zip(batches, kinds)):
+        reset_collectives()
+        losses = steps[kind](ts, rank_rows(A, d, n_data), rank_rows(B, d, n_data),
+                             cfg.rate_for(it))
+        log.append({k: float(v) for k, v in losses.items()})
+        if counts is not None:
+            counts.append(dict(collectives))
+    return log
+
+
+def mesh_steps(rank, world, p) -> dict:
+    """``p["kinds"]`` steps on a mesh of ``p["tp"]`` model ranks
+    (``p["spatial"]``), from the placed state; with ``p["same_state"]`` each
+    step from its own placement of that state. The losses, each step's
+    collectives, this rank's own final tensors (``_own``), and on rank 0
+    the whole state(s) gathered, as numpy."""
+    cfg = TrainConfig(**p["cfg"])
+    mp = _mesh(world, p)
+    out = {"log": [], "counts": [], "states": [], "own": []}
+    runs = ([[b, k] for b, k in zip(p["batches"], p["kinds"])] if p.get("same_state")
+            else [[p["batches"], p["kinds"]]])
+    for run_ in runs:
+        batches, kinds = (([run_[0]], [run_[1]]) if p.get("same_state") else run_)
+        ts = _mesh_state(p, cfg, mp)
+        out["log"] += _mesh_run(ts, cfg, mp, batches, kinds, out["counts"])
+        out["own"].append(_own(ts, mp))
+        state = _gathered(ts, mp)
+        if rank == 0:
+            out["states"].append(state)
+    out["digests"] = [own["digest"] for own in out["own"]]
+    out["split"] = {k: sorted(v) for k, v in mp.shards.items()}
+    return out
+
+
+def mesh_place_gather(rank, world, p) -> dict:
+    """A seeded state placed on the mesh and gathered back (on rank 0), as
+    numpy, with the state before placing; the names of this rank's placed
+    tensors that are not its pieces of that state."""
+    cfg = TrainConfig(**p["cfg"])
+    mp = _mesh(world, p)
+    whole = _arrays(init_train_state(p["seed"], cfg))
+    ts = _mesh_state(p, cfg, mp)
+    local = {n: tuple(t.shape) for n, t in ts.models["gen_A"].named_parameters()}
+    return {"local": local, "not_pieces": not_pieces(_own(ts, mp), whole),
+            **_states(rank, {"whole": whole, "gathered": _gathered(ts, mp)})}
+
+
+def mesh_chunks(rank, world, p) -> dict:
+    """``p["n"]`` iterations on a tensor-parallel mesh from one seeded state,
+    per step and through the chunk program in chunks of ``p["chunks"]``, on
+    this rank's data row's shard of a seeded dataset: both final states
+    (this rank's own tensors; on rank 0 the whole, gathered) and the losses
+    of both."""
+    cfg = TrainConfig(**p["cfg"])
+    mp = _mesh(world, p)
+    size, b = cfg.image_size, p["batch"]
+    rng = np.random.RandomState(1)
+    n_data, d = mp.mesh.n_data, mp.mesh.d
+    data = [torch.from_numpy(rng.rand(12, size, size, 3).astype(np.float32)[d::n_data])
+            for _ in range(2)]
+    ia, ib = (rng.randint(0, 12 // n_data, size=(p["n"], b)) for _ in range(2))
+    per_step = _mesh_state(p, cfg, mp)
+    gen_step, dis_step = make_train_steps(cfg, F32, mp)
+    steps_ = {"gen": gen_step, "dis": dis_step, "lean": make_lean_dis_step(cfg, F32, mp)}
+    want = []
+    for i in range(p["n"]):
+        losses = steps_[cfg.step_kind(i)](per_step, data[0][ia[i]], data[1][ib[i]],
+                                          cfg.rate_for(i))
+        want.append([float(losses[k]) for k in LOSS_KEYS])
+    mp_chunk = _mesh(world, p)
+    chunked = _mesh_state(p, cfg, mp_chunk)
+    program = ChunkProgram(chunked, cfg, F32, *data, b, max(p["chunks"]),
+                           kinds_in_range(cfg, 0, p["n"]), dp=mp_chunk)
+    got, i = [], 0
+    for k in p["chunks"]:
+        got += program(ia[i:i + k], ib[i:i + k], i).tolist()
+        i += k
+    return {"want": want, "got": got, "own": [_own(t, mp) for t in (per_step, chunked)],
+            **_states(rank, {"per_step": _gathered(per_step, mp),
+                             "chunked": _gathered(chunked, mp_chunk)})}
+
+
+def mesh_resume(rank, world, p) -> dict:
+    """Saves moved between meshes: on a mesh of ``p["tp_from"]`` model ranks,
+    ``p["n"]`` steps from a seeded state, its whole state saved as the
+    trainer saves it (gathered onto rank 0, which writes it); then on a
+    mesh of ``p["tp_to"]`` model ranks that save loaded into a fresh state
+    and placed, gathered at once (``loaded``) and after ``p["n"]`` more
+    steps (``resumed``), beside the same ``p["n"]`` steps from the first
+    mesh's state placed on the second without the disk (``continued``; rank
+    0 sends every rank the gathered state). Every rank's own tensors of the
+    resumed and the continued state, too."""
+    from discogan_modernized_torch.parallel.gspmd import (gather_train_state,
+                                                          place_train_state)
+    from discogan_modernized_torch.train.checkpoint import (load_train_state,
+                                                            save_train_state,
+                                                            train_state_meta)
+
+    cfg = TrainConfig(**p["cfg"])
+    first = _mesh(world, dict(p, tp=p["tp_from"]))
+    ts = _mesh_state(p, cfg, first)
+    _mesh_run(ts, cfg, first, p["batches"], p["kinds"])
+    saved = gather_train_state(ts, first)
+    if rank == 0:
+        save_train_state(p["dir"], saved, p["n"], train_state_meta(cfg))
+    sent = [saved if rank == 0 else None]
+    dist.broadcast_object_list(sent, src=0)
+    saved = sent[0]
+    out = {"saved": _arrays(saved) if rank == 0 else None}
+    second = _mesh(world, dict(p, tp=p["tp_to"]))
+    fresh = init_train_state(99, cfg)
+    assert load_train_state(p["dir"], fresh, cfg) == p["n"]
+    loaded = place_train_state(fresh, second, cfg, "cpu")
+    out["loaded"] = _gathered(loaded, second)
+    _mesh_run(loaded, cfg, second, p["batches"], p["kinds"])
+    out["resumed"] = _gathered(loaded, second)
+    continued = place_train_state(_plain_copy(saved, cfg), second, cfg, "cpu")
+    _mesh_run(continued, cfg, second, p["batches"], p["kinds"])
+    out["continued"] = _gathered(continued, second)
+    return {"own": [_own(t, second) for t in (loaded, continued)], **_states(rank, out)}
+
+
+def _plain_copy(state, cfg):
+    """A one-process TrainState holding ``state``'s tensors (a gathered
+    state), as ``load_train_state`` would restore them."""
+    ts = init_train_state(99, cfg)
+    with torch.no_grad():
+        for k, m in ts.models.items():
+            m.load_state_dict(state.models[k].state_dict(), strict=True)
+        for mine, theirs in ((ts.opt_gen, state.opt_gen), (ts.opt_dis, state.opt_dis)):
+            for a, b in zip(mine.m + mine.v, theirs.m + theirs.v):
+                a.copy_(b)
+            mine.step = theirs.step
+    return ts
+
+
+def mesh_cli(rank, world, p) -> list:
+    """The distributed trainer on this rank, once for each flag list of
+    ``p["argvs"]`` (run_training with this process's ranks); the printed
+    lines of each run."""
+    import contextlib
+    import io
+
+    out = []
+    for argv in p["argvs"]:
+        args = parse_with_config(distributed_parser(), argv)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            run_training(args, ranks=Ranks(rank, world, rank, torch.device("cpu"), "gloo",
+                                           world))
+        out.append(text.getvalue())
+    return out
