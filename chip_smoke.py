@@ -8,7 +8,8 @@ the data-parallel CLI at a world of one on NCCL), under the train step's
 graph variants (--paired, --lean_dis, --remat, concat_dis) and on an
 edges2shoes tree (stopped by SIGTERM and resumed), one step a call and in
 chunks of steps replayed as CUDA graphs from the dataset on the card, and
-trains the 64px angle-pairing model through its CLI both ways.
+trains the 64px angle-pairing model through its CLI both ways. Before the
+paths it runs the port's tools, the read probe P among them.
 
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
     python3 chip_smoke.py --planted-fault   # the mesh's f32 gate, faults planted
@@ -72,6 +73,27 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               pair launch counted once, each pair's outputs bit for bit a
               single launch's, within the tolerances above of the plain pair
               version, and timed beside the two single launches.
+  3b. tools   the port's tools (M11), each through its main() with its
+              launches counted and its kernels phase 3's: the read probe P
+              (tools/pipe_probe.py, csrc/pipe_probe.cu) at its six block
+              geometries of a seeded (32, 256, 256, 64) bf16 tensor, each
+              case's block maxima equal to the plain version's and its value
+              the last block's, timed beside x.clone(), torch.amax and the
+              80.1 us bound; kernel_bench; conv_kernel_bench --dw --fused,
+              fwd_profile and layer_ab (enc1, fwd/dx/dw, kernel against
+              library) at 512px batch 8; step_itemize (its parts replayed
+              as CUDA graphs, forward < forward and backward < step) and
+              roofline --measure at 64px batch 64 (every time positive, every
+              roofline or peak share at most SHARE_LIMIT); memory_report at
+              512px batch 8, its model beside the measured peak;
+              batch_size_optimization --image_size 512 --train_step in its
+              own process, bracketed two steps either side of BATCH_ANSWER,
+              its answer within one step of it; the monitor, confined to
+              this run's jobs, on a live 64px trainer it launched
+              (nvidia-smi, the trainer's memory sidecar, a SIGTERM, the
+              restart with --resume, the finished run's log from the saved
+              iteration); hyperparameter_search with one 64px trial on the
+              card.
   4. path     two seeded 512px generators (running statistics calibrated on
               seeded images) saved as gen_A/gen_B_final.pth; the inference
               CLI on 8 seeded PNGs at batch 4; launch counts checked per
@@ -144,20 +166,21 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               auto-remat decision at batch 8 and 64 and one D and G step at
               batch 64 as it decides. Then the trainer CLI as above with
               --paired --lean_dis --remat=on --remat_policy=conv
-              --log_interval=4 --steps_per_call=1: launches per step, finite
-              losses, every
-              logged line with nonzero RECON, iteration 0's line and the
-              final parameters and moments equal to the plain run's.
+              --log_interval=4 --steps_per_call=1, its saves kept in memory:
+              launches per step, finite losses, every logged line with
+              nonzero RECON, iteration 0's line and the final parameters and
+              moments equal to the plain run's.
   7b. distributed  the data-parallel CLI (--distributed --world_size 1, a
               world of one on NCCL in this process), run between phase 7's
               CLI run and its variants, with phase 7's flags: one step a call
-              and on the chunked default, each with and without --bn_sync,
-              and one step a call under --bn_sync --remat=on; every run's
-              log lines and final train state equal to phase 7's CLI run's
-              bit for bit; its all-reduces counted, 2 a step under per-rank
-              BatchNorm (the gradients, the losses), more under --bn_sync
-              (the statistics), more again under remat on the steps whose
-              backward rebuilds a region, and on the chunked path
+              with and without --bn_sync, one step a call under --bn_sync
+              --remat=on, and on the chunked default with BatchNorm per rank
+              (7c (a)'s gspmd chunked run captures global BatchNorm's
+              all-reduces); every run's log lines and final train state equal
+              to phase 7's CLI run's bit for bit; its all-reduces counted, 2 a
+              step under per-rank BatchNorm (the gradients, the losses), more
+              under --bn_sync (the statistics), more again under remat on the
+              steps whose backward rebuilds a region, and on the chunked path
               inside each captured graph as many as the same kind's eager
               step; launches as PER_STEP; ms a step beside phase 7's. The
               runs keep their saves in memory (state_in_memory).
@@ -203,7 +226,8 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               differ between two runs of a step, and the phase fails);
               img/s and peak memory against phase 7's, the loader's wait
               per step (the trainer's own line); the uninterrupted run
-              goes first, the stopped and the resumed run after it; then
+              goes first, the stopped and the resumed run after it (the
+              stopped run saves to the disk, the other two in memory); then
               the steps from one slim_state=all state fed an epoch at a
               time from the real tree's loader, the synthetic task's
               loader, the real batches in pinned memory (copied at each
@@ -221,12 +245,13 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               0; its log lines and final train state equal to phase 7's,
               bit for bit; peak memory allocated and reserved beside phase
               7's; the trace (iterations 3-14, all replayed) holding a
-              cudaGraphLaunch and kernels of all seven of K1-K6. Phase 8's
-              edges2shoes run under slim_state=all on the defaults: equal to
-              phase 8's per-step run from the host loader; phase 8's run
-              stopped by SIGTERM (saved at the misaligned iteration 8)
-              resumed on the defaults: a first chunk of 1 back to the
-              period's start, and equal to the uninterrupted chunked run.
+              cudaGraphLaunch and kernels of all seven of K1-K6; its saves
+              kept in memory. Phase 8's edges2shoes run under slim_state=all
+              on the defaults: equal to phase 8's per-step run from the host
+              loader; phase 8's run stopped by SIGTERM (saved at the
+              misaligned iteration 8) resumed on the defaults: a first chunk
+              of 1 back to the period's start, and equal to the
+              uninterrupted chunked run; both keep their saves in memory.
               The variants under capture: --paired --lean_dis --remat=on
               --remat_policy=conv, two chunks of 4 (the second replayed)
               against the same chunks run eagerly, bit for bit.
@@ -281,8 +306,9 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = Path(__file__).resolve().parent
 # The port must come from this checkout, never from an installed copy.
 sys.path.insert(0, str(ROOT))
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from discogan_modernized_torch.tools.timing import (  # noqa: E402
+    HBM_BYTES_PER_S, PEAK_FLOPS, Timer, bound_ms, smi_line)
+
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Whole forward, kernels vs plain versions: (max, mean) absolute error of
 # outputs in [0,1], for the translation and the reconstruction (both
@@ -379,54 +405,6 @@ def phase(name):
               "disk in use", flush=True)
     _phase_start[:] = [name, now]
     print(f"\n== {name}", flush=True)
-
-
-def smi_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
-
-
-# -- timing ------------------------------------------------------------------
-
-class Timer:
-    """CUDA-event medians with L2 evicted before each timed run, by a write
-    of 96 MB (or with ``clean``, a read of it, which leaves no dirty lines
-    for the timed call to write back). A device sleep (about 0.1 ms) before
-    the start event lets the host enqueue the call while the device waits,
-    so a call of a few small kernels is timed on the device and not on the
-    host's launch path."""
-
-    SLEEP_CYCLES = 200_000
-
-    def __init__(self, reps: int = 20, clean: bool = False):
-        self.reps = reps
-        self.flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
-        self.evict = self.flush.amax if clean else self.flush.zero_
-
-    def ms(self, fn) -> float:
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(self.reps):
-            self.evict()
-            torch.cuda._sleep(self.SLEEP_CYCLES)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
-
-def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    """dtype: the type of the math (bf16 on the tensor cores, or f32)."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -1998,23 +1976,27 @@ class DistStepObserver(StepObserver):
 
 
 @contextlib.contextmanager
-def state_in_memory(total: int):
+def state_in_memory(total: int, device=None):
     """The trainer's saves kept in memory instead of on disk for the block:
     the final train state (iteration ``total``) as ``save_train_state``
-    would write it, copied on the card, and the tags of the
-    reference-layout saves. A 512px run writes several GiB a save, and the
-    card machine's disk takes 45 GiB of writes a call in all."""
+    would write it, copied on the card (or to ``device``: "cpu" leaves the
+    run's peak memory as it was), and the tags of the reference-layout
+    saves. A 512px run writes several GiB a save, and the card machine's
+    disk takes 45 GiB of writes a call in all."""
     from discogan_modernized_torch.train import loop
 
     kept = {"layouts": [], "states": []}
+
+    def copy(t):
+        return t.detach().clone() if device is None else t.detach().to(device, copy=True)
 
     def save_train_state(model_path, ts, iters, meta=None):
         kept["states"].append(iters)
         if iters == total:
             kept["state"] = {
-                "models": {n: {k: v.detach().clone() for k, v in m.state_dict().items()}
+                "models": {n: {k: copy(v) for k, v in m.state_dict().items()}
                            for n, m in ts.models.items()},
-                **{key: {"m": [t.clone() for t in opt.m], "v": [t.clone() for t in opt.v],
+                **{key: {"m": [copy(t) for t in opt.m], "v": [copy(t) for t in opt.v],
                          "step": opt.step}
                    for key, opt in (("opt_gen", ts.opt_gen), ("opt_dis", ts.opt_dis))}}
 
@@ -2031,17 +2013,42 @@ def state_in_memory(total: int):
 
 # One step a call first: its steps' all-reduces are what each capture must hold,
 # and what a remat run's steps add to.
-DIST_RUNS = (("per-step", True), ("per-step", False), ("remat", True), ("chunked", True),
-             ("chunked", False))
+# The chunked run under --bn_sync is 7c (a)'s gspmd chunked run: global
+# BatchNorm's all-reduces captured at a world of one.
+DIST_RUNS = (("per-step", True), ("per-step", False), ("remat", True), ("chunked", False))
+
+
+@contextlib.contextmanager
+def synthetic_once():
+    """The synthetic task's arrays (data/pipeline.py::synthetic_pair) drawn
+    once a process and copied out at each call: a 512px task is 1.6 GB of
+    seeded numpy draws, several seconds of host time, and a dozen runs here
+    draw the same ones. The values are the same either way."""
+    from discogan_modernized_torch.data import pipeline
+
+    made: dict = {}
+    draw = pipeline.synthetic_pair
+
+    def synthetic_pair(n: int, image_size: int, seed: int = 0):
+        if (n, image_size, seed) not in made:
+            made[n, image_size, seed] = draw(n, image_size, seed)
+        return tuple(a.copy() for a in made[n, image_size, seed])
+
+    pipeline.synthetic_pair = synthetic_pair
+    try:
+        yield
+    finally:
+        pipeline.synthetic_pair = draw
 
 
 def drive_distributed(work: Path, synthetic: dict) -> dict:
     """The distributed CLI at a world of one on NCCL (--distributed
-    --world_size 1, in this process) with phase 7's flags, on the chunked
-    default and one step a call, with and without --bn_sync, and one step
-    a call under --bn_sync --remat=on: each run's log lines and final train
-    state equal to phase 7's bit for bit (an all-reduce over one rank is
-    the identity); its all-reduces counted, 2 a step (the gradients, the
+    --world_size 1, in this process) with phase 7's flags, one step a call
+    with and without --bn_sync, one step a call under --bn_sync --remat=on,
+    and on the chunked default with BatchNorm per rank (7c (a)'s gspmd
+    chunked run captures global BatchNorm's all-reduces): each run's log
+    lines and final train state equal to phase 7's bit for bit (an
+    all-reduce over one rank is the identity); its all-reduces counted, 2 a step (the gradients, the
     losses) under per-rank BatchNorm and more under bn_sync (the
     statistics), under remat more again on the steps whose backward
     rebuilds a region (the rebuild takes the statistics over the ranks
@@ -2879,7 +2886,8 @@ def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) ->
     each logged line in the log's format with nonzero RECON (the logged D
     iterations take the full graph), iteration 0's line the same as phase
     7's; the final parameters and moments the same, bit for bit, as phase
-    7's run's (the generators' running statistics differ under lean)."""
+    7's run's (the generators' running statistics differ under lean). Its
+    saves are kept in memory (``state_in_memory``)."""
     from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
     from discogan_modernized_torch.train.loop import config_from_args, run_training
     from discogan_modernized_torch.train.step import resolve_remat
@@ -2896,7 +2904,10 @@ def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) ->
     observer = StepObserver(variant_per_step(paired=True, remat="conv",
                                              remat_dis=cfg.remat_dis))
     torch.cuda.reset_peak_memory_stats()
-    result, model_path = run_training(args, observer=observer)
+    with state_in_memory(32, "cpu") as kept:
+        result, model_path = run_training(args, observer=observer)
+    if "state" not in kept:
+        raise AssertionError(f"variant CLI: saves at {kept['states']}, none at iteration 32")
     step_ms = observer.report()
     log = (result / "training_log.txt").read_text()
     lines = TRAIN_LINE.findall(log)
@@ -2910,7 +2921,7 @@ def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) ->
     if first not in log.splitlines():
         raise AssertionError(f"variant CLI: iteration 0's line differs from phase 7's: {first}")
     a = torch.load(plain_model_path / "train_state.pt", map_location="cpu", weights_only=True)
-    b = torch.load(model_path / "train_state.pt", map_location="cpu", weights_only=True)
+    b = kept.pop("state")
     differ = []
     for name in a["models"]:
         for k, t in a["models"][name].items():
@@ -2928,7 +2939,7 @@ def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) ->
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if differ:
         raise AssertionError(f"variant CLI's final state differs from phase 7's: {differ[:6]}")
-    shutil.rmtree(model_path)
+    shutil.rmtree(model_path, ignore_errors=True)
 
 
 # -- phase 8: a real-data task at 512px, slim_state=all, SIGTERM and resume --
@@ -3073,8 +3084,10 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     slim_state=all, 2 epochs (16 iterations): uninterrupted, then stopped
     by SIGTERM at the end of iteration SIGTERM_AT and resumed to the end;
     every step's launches checked, the two final train states compared.
-    Returns the uninterrupted run's launches and the uninterrupted and the
-    stopped run's model directories."""
+    The uninterrupted and the resumed run keep their saves in memory
+    (``state_in_memory``); the stopped run saves to the disk. Returns the
+    uninterrupted run's launches and final state and the stopped run's
+    model directory."""
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.train.loop import run_training
 
@@ -3087,18 +3100,21 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     full = StepObserver()
+    total = REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH
     t0 = time.perf_counter()
-    _, uninterrupted = run_training(real_args(work, "uninterrupted"), observer=full)
+    with state_in_memory(total, "cpu") as kept:
+        run_training(real_args(work, "uninterrupted"), observer=full)
     wall = time.perf_counter() - t0
+    uninterrupted = kept.pop("state")
     launches = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
-    keep_train_state(uninterrupted)
     step_ms = full.report()
     img_s = steady_img_s(full, step_ms)
     print(f"real data, slim_state=all: {len(full.steps)} iterations in {wall:.1f} s "
-          f"(host clock, decode from the cache, sample forwards and saves included); "
-          f"{img_s:.1f} img/s at the median step times against {synthetic['img_s']:.1f} "
-          f"for phase 7's synthetic run under mv (D {step_ms['dis']:.3f} / G "
+          f"(host clock, decode from the cache and sample forwards included, saves kept "
+          f"in memory); {img_s:.1f} img/s at the median step times against "
+          f"{synthetic['img_s']:.1f} for phase 7's synthetic run under mv (D "
+          f"{step_ms['dis']:.3f} / G "
           f"{step_ms['gen']:.3f} ms against {synthetic['step_ms']['dis']:.3f} / "
           f"{synthetic['step_ms']['gen']:.3f})")
     print(f"peak memory: slim_state=all {peak / 2**30:.2f} GiB, phase 7's mv "
@@ -3116,13 +3132,13 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
           f"iteration {meta['iters']} and returned; the caller's handler is back")
     stop.report()
     resume = StepObserver()
-    _, resumed = run_training(real_args(work, "resumed", f"--resume={stopped}"),
-                              observer=resume)
+    with state_in_memory(total, "cpu") as kept:
+        run_training(real_args(work, "resumed", f"--resume={stopped}"), observer=resume)
     done = [s[0] for s in resume.steps]
     if done != list(range(SIGTERM_AT + 1, REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH)):
         raise AssertionError(f"the resumed run trained iterations {done}")
     resume.report()
-    compare_states(resumed, uninterrupted)
+    compare_states(kept.pop("state"), uninterrupted)
     shutil.rmtree(work / "resumed")
     return launches, uninterrupted, stopped
 
@@ -3256,7 +3272,7 @@ def optimizer_share() -> None:
 
 CHUNK_K = 6  # auto_steps_per_call at 512px without remat: two [D, G, G] periods
 ANGLE_K = 24  # auto_steps_per_call at 64px
-CHUNK_ROUNDS = 3  # timed blocks of CHUNK_K iterations a path, in turns
+CHUNK_ROUNDS = 2  # timed blocks of CHUNK_K iterations a path, in turns
 TIMING_IMAGES = 64  # a domain, for the timed blocks (8 batches an epoch)
 VARIANT_CHUNK = 4  # the variants under capture: [D, G, G, lean D] warms all three kinds
 PATH_LINE = re.compile(r"^train path: dataset (.*); steps_per_call (\d+) \((\w+)\); "
@@ -3421,8 +3437,9 @@ def drive_chunked_cli(work: Path, synthetic: dict) -> dict:
     card, chunks of CHUNK_K replayed as CUDA graphs) with --profile: its
     path line; its launches and replays (``ChunkObserver``); its log lines
     and final train state equal to phase 7's per-step run's, bit for bit;
-    its peak memory beside phase 7's; the trace's kernels. Returns its
-    launches."""
+    its peak memory beside phase 7's; the trace's kernels. Its saves are
+    kept in memory (``state_in_memory``; phase 10's chunked angle run saves
+    from the chunked path to disk). Returns its launches."""
     from discogan_modernized_torch.cli.common import parse_with_config, translation_parser
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.train import chunk
@@ -3436,11 +3453,11 @@ def drive_chunked_cli(work: Path, synthetic: dict) -> dict:
     _build.reset_launches()
     chunk.reset_replays()
     t0 = time.perf_counter()
-    result, model_path, text = run_captured(args, observer=observer)
+    with state_in_memory(32, "cpu") as kept:
+        result, model_path, text = run_captured(args, observer=observer)
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
-    keep_train_state(model_path)
     check_path_line(text, "chunked CLI", CHUNK_K)
     ms = observer.report()
     iters = sum(len(c[1]) for c in observer.chunks)
@@ -3455,46 +3472,49 @@ def drive_chunked_cli(work: Path, synthetic: dict) -> dict:
     if mine != theirs or not mine:
         raise AssertionError(f"log lines differ from phase 7's: {mine} vs {theirs}")
     print(f"chunked CLI: the same {len(mine)} log lines as phase 7's")
-    compare_states(model_path, synthetic["model_path"], "chunked vs phase 7's per-step run")
+    compare_states(kept.pop("state"), synthetic["model_path"],
+                   "chunked vs phase 7's per-step run")
     check_trace(work / "trace", observer)
     shutil.rmtree(work / "trace")
-    shutil.rmtree(model_path)
+    shutil.rmtree(model_path, ignore_errors=True)
     return launches
 
 
-def drive_real_chunks(work: Path, per_step_run: Path, stopped: Path) -> dict:
+def drive_real_chunks(work: Path, per_step_run: dict, stopped: Path) -> dict:
     """The edges2shoes run under slim_state=all on the trainer's defaults:
     uninterrupted (its final state equal to phase 8's per-step run from
     the host loader), then --resume of phase 8's run stopped by SIGTERM
     (saved at the misaligned iteration SIGTERM_AT + 1): its chunks start
     with one that restores the period's alignment, and it ends equal to the
-    uninterrupted chunked run, bit for bit. Returns the uninterrupted run's
-    launches."""
+    uninterrupted chunked run, bit for bit. Both keep their saves in memory
+    (``state_in_memory``). Returns the uninterrupted run's launches."""
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.train import chunk
 
+    total = REAL_EPOCHS * REAL_TRAIN // TRAIN_BATCH
     _build.reset_launches()
     chunk.reset_replays()
     full = ChunkObserver()
-    _, uninterrupted, text = run_captured(real_args(work, "chunked", per_step=False),
-                                          observer=full)
+    with state_in_memory(total, "cpu") as kept:
+        _, _, text = run_captured(real_args(work, "chunked", per_step=False), observer=full)
+    uninterrupted = kept.pop("state")
     launches = dict(_build.launches)
-    keep_train_state(uninterrupted)
     check_path_line(text, "chunked edges2shoes", CHUNK_K)
     full.report()
     compare_states(uninterrupted, per_step_run,
                    "chunked from the card's dataset vs phase 8's per-step run from the loader")
     at = json.loads((stopped / "train_state_meta.json").read_text())["iters"]
     resume = ChunkObserver()
-    _, resumed, _ = run_captured(real_args(work, "chunk_resumed", f"--resume={stopped}",
-                                           per_step=False), observer=resume)
+    with state_in_memory(total, "cpu") as kept:
+        run_captured(real_args(work, "chunk_resumed", f"--resume={stopped}", per_step=False),
+                     observer=resume)
     starts = [(c[0], len(c[1])) for c in resume.chunks]
     if not at % 3 or starts[0] != (at, 3 - at % 3):
         raise AssertionError(f"resumed from iteration {at}: chunks {starts}")
     resume.report()
     print(f"chunked resume of phase 8's SIGTERM-stopped run (saved at the misaligned "
           f"iteration {at}): chunks (start, size) {starts}")
-    compare_states(resumed, uninterrupted, "chunked: resumed vs uninterrupted")
+    compare_states(kept.pop("state"), uninterrupted, "chunked: resumed vs uninterrupted")
     for tag in ("chunked", "chunk_resumed"):
         shutil.rmtree(work / tag)
     return launches
@@ -3698,6 +3718,303 @@ def drive_angle(work: Path) -> dict:
     return launches, chunk_launches
 
 
+# -- the tools phase (M11): the port's tools and the read probe P -------------
+
+P_SOURCE = "discogan_modernized_torch/csrc/pipe_probe.cu"
+P_REPLACES = "benchmarks/pipe_probe.py:38"
+P_CASE = "4d_th32_lane64"  # the kernels line's case: 128-byte rows, 32 a block
+BATCH_ANSWER, BATCH_STEP = 192, 16  # PR 11's largest 512px batch without remat
+# 512 iterations, about 6 s on the card: the SIGTERM lands a poll or two
+# (about 100 iterations) after the monitor has read MONITOR_SEEN
+MONITOR_FLAGS = ("--image_size=64", "--batch_size=8", "--epochs=16", "--log_interval=10",
+                 "--model_save_interval=200", "--image_save_interval=100000")
+MONITOR_SEEN = 20  # the iteration the monitor must have read before the SIGTERM
+# the kernels each tool's run must launch (phase 3's routes at its shapes)
+TOOL_KERNELS = {
+    "pipe_probe": {"pipe_probe"},
+    "kernel_bench": {"batch_stats", "bn_act"},
+    "conv_kernel_bench": {"conv_k4s2p1", "conv_k4s2p1_dw", "halo_conv_k4s2p1_dw", "bn_act"},
+    "fwd_profile": {"conv_k4s2p1", "halo_conv_k4s2p1", "batch_stats", "bn_act"},
+    "layer_ab": {"halo_conv_k4s2p1", "halo_conv_k4s2p1_dw"},
+    "step_itemize": set(PER_STEP64["gen"]),
+    "roofline": set(PER_STEP64["gen"]),
+}
+SHARE_LIMIT = 1.05  # a roofline or peak share above this is a timing fault
+TRAIN_ITER = re.compile(r"Iter \[(\d+)/\d+\]")
+
+
+def _tool(name: str, argv: list):
+    """Run a tool's main() with its launches counted: (result, launches)."""
+    import importlib
+
+    from discogan_modernized_torch.ops import _build
+
+    module = importlib.import_module(f"discogan_modernized_torch.tools.{name}")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = module.main(argv)
+    torch.cuda.synchronize()
+    launched = {k for k, v in _build.launches.items() if v}
+    want = TOOL_KERNELS.get(name)
+    if want is not None and launched != want:
+        raise AssertionError(f"{name}: launched {sorted(launched)}, want {sorted(want)}")
+    print(f"-- tool {name}: {time.perf_counter() - t0:.1f} s; kernels {sorted(launched)}",
+          flush=True)
+    return out, dict(_build.launches)
+
+
+def _positive(what: str, values) -> None:
+    bad = [v for v in values if not v > 0]
+    if bad:
+        raise AssertionError(f"{what}: times not positive: {bad}")
+
+
+def _share(what: str, share: float) -> None:
+    if not 0 < share <= SHARE_LIMIT:
+        raise AssertionError(f"{what}: share {share:.3f} of a roofline or peak")
+
+
+def drive_pipe_probe() -> dict:
+    """P: the six cases at full size through tools/pipe_probe.py (each
+    case's block maxima equal to the plain version's, its value the last
+    block's, timed beside x.clone(), torch.amax and the bound); returns
+    P's entry of the kernels line."""
+    (out, launches) = _tool("pipe_probe", [])
+    n = launches["pipe_probe"]
+    if n < len(out):
+        raise AssertionError(f"pipe_probe: {n} launches for {len(out)} cases")
+    for name, r in out.items():
+        _positive(f"pipe_probe {name}", [r["us"], r["plain_us"], r["clone_us"], r["amax_us"]])
+        _share(f"pipe_probe {name}", r["bound_us"] / r["us"])
+    r = out[P_CASE]
+    return {"name": "pipe_probe", "route": "cuda", "source": P_SOURCE, "replaces": P_REPLACES,
+            "launches": n, "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+            "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+            "library_ms": r["amax_us"] / 1e3, "clone_ms": r["clone_us"] / 1e3,
+            "case": P_CASE, "cases": out}
+
+
+def drive_timing_tools() -> dict:
+    """kernel_bench, conv_kernel_bench --dw --fused, fwd_profile, layer_ab
+    (enc1, fwd/dx/dw, kernel and library), step_itemize and roofline, each
+    once through its main(): 512px batch 8 where a layer or call is short,
+    64px batch 64 for the whole steps. Every time positive, every roofline
+    or peak share at most SHARE_LIMIT, each tool's kernels phase 3's."""
+    from discogan_modernized_torch.tools.timing import PEAK_FLOPS
+
+    launches = {}
+    rows, launches["kernel_bench"] = _tool("kernel_bench", [])
+    for r in rows:
+        _positive(f"kernel_bench {r['shape']}", [r["kernel_us"], r["library_us"],
+                                                 r["stats_kernel_us"], r["stats_var_mean_us"]])
+        _share(f"kernel_bench {r['shape']}", r["bound_us"] / r["kernel_us"])
+    rows, launches["conv_kernel_bench"] = _tool(
+        "conv_kernel_bench", ["--size", str(SIZE), "--batch", str(TRAIN_BATCH), "--dw", "--fused"])
+    for r in rows:
+        _positive(f"conv_kernel_bench {r['layer']}",
+                  [v for k, v in r.items() if k.endswith("_us")])
+        _share(f"conv_kernel_bench {r['layer']}", r["kernel_tf"] * 1e12 / PEAK_FLOPS[torch.bfloat16])
+    rows, launches["fwd_profile"] = _tool(
+        "fwd_profile", ["--image_size", str(SIZE), "--batch", str(TRAIN_BATCH)])
+    for r in rows:
+        _positive(f"fwd_profile {r['layer']}", [r["ms"]])
+        _share(f"fwd_profile {r['layer']}", r["efficiency"])
+    rows, launches["layer_ab"] = _tool(
+        "layer_ab", ["--size", str(SIZE), "--batch", str(TRAIN_BATCH), "--layer", "enc1",
+                     "--modes", "fwd,dx,dw", "--impls", "kernel,library", "--rounds", "2"])
+    if len(rows) != 3:
+        raise AssertionError(f"layer_ab: {len(rows)} rows for enc1's three modes")
+    for r in rows:
+        _positive(f"layer_ab {r['layer']} {r['mode']}", r["us"].values())
+    out, launches["step_itemize"] = _tool(
+        "step_itemize", ["--image_size", str(SIZE64), "--batch", str(BATCH64), "--reps", "5"])
+    _positive("step_itemize", [v for k, v in out.items() if k.startswith("t_")])
+    for which, fwd in (("gen", "t_fwd_ms"), ("dis", "t_fwd_lean_ms")):
+        parts = [out[fwd], out[f"t_grad_{which}_ms"], out[f"t_step_{which}_ms"]]
+        if not parts[0] < parts[1] < parts[2]:  # replayed graphs: each part holds the last
+            raise AssertionError(f"step_itemize {which}: forward, forward and backward, step "
+                                 f"{parts} ms are not increasing")
+    _positive("step_itemize layers", [v for vs in out["per_layer"].values() for v in vs[:3]])
+    out, launches["roofline"] = _tool(
+        "roofline", ["--image_size", str(SIZE64), "--batch", str(BATCH64), "--lean",
+                     "--measure", "--json"])
+    for name, rep in out["programs"].items():
+        _positive(f"roofline {name}", [rep["measured_ms"], rep["roofline_lo_ms"]])
+        _share(f"roofline {name}", rep["light_speed"])
+    return launches
+
+
+def drive_memory_report() -> None:
+    """memory_report at 512px batch 8 under slim state mv: its model of a
+    one-process G step beside the step's measured peak."""
+    rep, _ = _tool("memory_report", ["--image_size", str(SIZE), "--batch", str(TRAIN_BATCH),
+                                     "--slim_state", "mv"])
+    m = rep["single_measured"]
+    _positive("memory_report", [m["measured_peak_bytes"], m["model_bytes"]])
+    print(f"memory_report: single-mode G step at {SIZE}px batch {TRAIN_BATCH}: model "
+          f"{m['model_bytes'] / 2**30:.2f} GiB, measured peak "
+          f"{m['measured_peak_bytes'] / 2**30:.2f} GiB; per rank of {rep['n_devices']}: "
+          + ", ".join(f"{k} {v['live_bytes'] / 2**30:.2f} GiB" for k, v in rep["modes"].items()))
+
+
+def drive_batch_size(work: Path) -> None:
+    """batch_size_optimization --image_size 512 --train_step in a process of
+    its own (the whole card), its bisection bracketed two steps either side
+    of BATCH_ANSWER (its first probe is BATCH_ANSWER; an answer at either
+    end of the bracket fails): its answer within one bisection step of
+    BATCH_ANSWER, under the trainer's default slim state."""
+    gc_collect()
+    out = work / "batch_size_results.json"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "discogan_modernized_torch.tools.batch_size_optimization",
+                        f"--image_size={SIZE}", "--train_step", f"--output={out}",
+                        f"--min_batch={BATCH_ANSWER - 2 * BATCH_STEP}",
+                        f"--max_batch={BATCH_ANSWER + 2 * BATCH_STEP}"],
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       capture_output=True, text=True, timeout=600)
+    print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+    if r.returncode:
+        raise AssertionError(f"batch_size_optimization exited {r.returncode}")
+    res = json.loads(out.read_text())
+    got = res["max_working_batch_size"]
+    print(f"batch_size_optimization: {got} at {SIZE}px with --train_step, slim state "
+          f"{res['slim_state']} "
+          f"(history {[(h['batch_size'], h['ok']) for h in res['history']]}); "
+          f"{BATCH_ANSWER} measured in PR 11; {time.perf_counter() - t0:.1f} s", flush=True)
+    if abs(got - BATCH_ANSWER) > BATCH_STEP:
+        raise AssertionError(f"batch_size_optimization found {got}, not within "
+                             f"{BATCH_STEP} of {BATCH_ANSWER}")
+
+
+def gc_collect() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _wait_for(what: str, cond, timeout: float, every: float = 0.5):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(every)
+    raise AssertionError(f"monitor: no {what} within {timeout:.0f} s")
+
+
+def drive_monitor(work: Path) -> None:
+    """A 64px port trainer started from the monitor's launch path; the
+    monitor finds it, reads nvidia-smi and the trainer's memory sidecar;
+    the job gets SIGTERM (it saves and returns); the monitor restarts it
+    with --resume within its cap; the restarted run finishes, its log
+    continuing from the saved iteration. The monitor sees only this
+    run's jobs (those writing to its --results_dir): it tracks and
+    restarts every trainer on the host, and others may share it."""
+    from discogan_modernized_torch.tools import monitor as mon_mod
+
+    mdir = work / "monitor"
+    results = f"--results_dir={mdir / 'results'}"
+    cmd = [*mon_mod.launch_command("synthetic", "discogan"), *MONITOR_FLAGS, results,
+           f"--models_dir={mdir / 'models'}"]
+    every_job = mon_mod.find_training_jobs
+
+    def ours():
+        return [j for j in every_job() if results in (j.get("argv") or j["cmdline"].split())]
+
+    mon = mon_mod.Monitor(mon_mod.parse_args([f"--log_dir={mdir / 'logs'}", "--no-interactive",
+                                              "--auto-restart"]))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with open(mdir.parent / "monitor_job.log", "w") as log:
+        job = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    mon_mod.find_training_jobs = ours
+    try:
+        def found():
+            snap = mon.poll_once()
+            mine = [j for j in snap["jobs"] if j["pid"] == job.pid]
+            ok = mine and mine[0].get("hbm") and (mine[0].get("iters") or 0) >= MONITOR_SEEN
+            return (snap, mine[0]) if ok else None
+
+        snap, seen = _wait_for("job with its sidecar and a log line", found, 240)
+        dev = snap["devices"][0]
+        if "error" in dev or not dev.get("bytes_limit"):
+            raise AssertionError(f"monitor: nvidia-smi gave {dev}")
+        rec = seen["hbm"]["devices"][0]
+        print(f"monitor: job {job.pid} at iteration {seen['iters']}; nvidia-smi {dev['kind']}, "
+              f"{dev['bytes_in_use'] / 2**30:.2f} of {dev['bytes_limit'] / 2**30:.2f} GiB, "
+              f"{dev['gpu_utilization']}% busy, {dev['power_w']} W; the trainer's sidecar at "
+              f"iteration {seen['hbm']['iter']}: {rec['bytes_in_use'] / 2**30:.3f} of "
+              f"{rec['bytes_limit'] / 2**30:.2f} GiB", flush=True)
+        job.send_signal(signal.SIGTERM)
+        if job.wait(timeout=120):
+            raise AssertionError(f"monitor: the job exited {job.returncode} after SIGTERM")
+        saved = json.loads(next((mdir / "models").rglob("train_state_meta.json")).read_text())
+        mon.poll_once()  # the job is gone: the monitor restarts it
+        if list(mon.restart_counts.values()) != [1]:
+            raise AssertionError(f"monitor: restart counts {mon.restart_counts}")
+
+        def restarted():
+            return [j for j in ours() if j["pid"] != job.pid]
+
+        (new,) = _wait_for("restarted job", restarted, 60, every=0.2)
+        _, status = os.waitpid(new["pid"], 0)
+        if os.waitstatus_to_exitcode(status):
+            raise AssertionError(f"monitor: the restarted job exited {status}")
+    finally:
+        mon_mod.find_training_jobs = every_job
+        if job.poll() is None:
+            job.kill()
+            job.wait()
+    (restart_log,) = (mdir / "logs").glob("restart_pid*_1.log")
+    text = restart_log.read_text()
+    if f"(iter {saved['iters']})" not in text or "Training completed" not in text:
+        raise AssertionError(f"monitor: the restarted run's output:\n{text[-2000:]}")
+    runs = sorted((mdir / "results").rglob("training_log.txt"), key=lambda p: p.stat().st_mtime)
+    first = TRAIN_ITER.findall(runs[-1].read_text())
+    if not first or int(first[0]) < saved["iters"]:
+        raise AssertionError(f"monitor: the restarted log starts at {first[:1]}, the save "
+                             f"holds iteration {saved['iters']}")
+    print(f"monitor: SIGTERM saved iteration {saved['iters']}; restarted with --resume "
+          f"({max(mon.restart_counts.values())} of {mon_mod.MAX_RESTARTS}); the restarted "
+          f"run's log starts at iteration {first[0]} and it finished", flush=True)
+    shutil.rmtree(mdir)
+
+
+def drive_hp_search(work: Path) -> None:
+    """hyperparameter_search: one 64px synthetic trial on the card, which
+    completes with an avg_recon_loss."""
+    from discogan_modernized_torch.tools import hyperparameter_search as hps
+
+    t0 = time.perf_counter()
+    analysis = hps.main(["--task_name=synthetic", "--trials=1", "--base_epochs=1",
+                         f"--image_size={SIZE64}", f"--output_dir={work / 'hp'}", "--seed=0",
+                         "--poll_interval=1"])
+    (trial,) = analysis["all_trials"]
+    info = json.loads((Path(trial["result_dir"]) / "trial_info.json").read_text())
+    if (trial["status"] != "completed" or info["device"] != "cuda:0"
+            or trial["metrics"].get("avg_recon_loss") is None):
+        raise AssertionError(f"hyperparameter_search: trial {trial} ({info})")
+    print(f"hyperparameter_search: trial 0 {trial['status']} on {info['device']}, "
+          f"avg_recon_loss {trial['metrics']['avg_recon_loss']:.4f}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(work / "hp")
+
+
+def drive_tools(work: Path) -> dict:
+    """The tools phase; returns P's entry of the kernels line and the
+    tools' launches."""
+    p_entry = drive_pipe_probe()
+    launches = drive_timing_tools()
+    drive_memory_report()
+    gc_collect()
+    drive_batch_size(work)
+    drive_monitor(work)
+    drive_hp_search(work)
+    return {"pipe_probe": p_entry, "launches": launches}
+
+
 def planted_fault() -> int:
     """``--planted-fault``: (b)'s f32 gate with MESH_FAULTS planted; 0 where
     it refuses the fault of each mode."""
@@ -3745,7 +4062,12 @@ def main(argv=None) -> int:
 
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    patches = contextlib.ExitStack()
     try:
+        patches.enter_context(synthetic_once())
+        phase("tools: the port's tools (M11) and the read probe P")
+        tools = drive_tools(work)
+
         phase("path: inference CLI at 512px")
         rng = np.random.RandomState(0)
         images = rng.rand(2 * BATCH, SIZE, SIZE, 3).astype(np.float32)
@@ -3825,6 +4147,7 @@ def main(argv=None) -> int:
         phase("train: the angle-pairing CLI at 64px")
         angle_counts, angle_chunk_counts = drive_angle(work)
     finally:
+        patches.close()
         shutil.rmtree(work, ignore_errors=True)
 
     phase("report")
@@ -3834,7 +4157,8 @@ def main(argv=None) -> int:
                     "variants": variant_counts[k],
                     "variant_cli": variant_cli_counts[k], "real_data": real_counts[k],
                     "chunks": chunk_counts[k], "real_data_chunks": real_chunk_counts[k],
-                    "angle": angle_counts[k], "angle_chunks": angle_chunk_counts.get(k, 0)}
+                    "angle": angle_counts[k], "angle_chunks": angle_chunk_counts.get(k, 0),
+                    "tools": sum(t.get(k, 0) for t in tools["launches"].values())}
                 for k in train_counts}
     per_layer_lines(results)
     summary = kernel_summary(results, launches, pair_ms)
@@ -3849,7 +4173,7 @@ def main(argv=None) -> int:
     print(f"G step {step_ms['gen']:.3f} ms, D step {step_ms['dis']:.3f} ms; the seven "
           f"kernels' phase-3 medians over one G step's calls sum to "
           f"{sum(k['train_step_ms'] for k in summary):.3f} ms")
-    print(json.dumps({"kernels": summary}))
+    print(json.dumps({"kernels": summary + [tools["pipe_probe"]]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

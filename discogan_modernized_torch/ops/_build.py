@@ -35,15 +35,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> count of launches
 launches = {"batch_stats": 0, "bn_act": 0, "conv_k4s2p1": 0,
             "conv_k4s2p1_dw": 0, "halo_conv_k4s2p1": 0,
-            "halo_conv_k4s2p1_dw": 0, "head_convt": 0}
+            "halo_conv_k4s2p1_dw": 0, "head_convt": 0, "pipe_probe": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# Each entry ends in the pair axis (pairs, then each operand's pair stride)
-# and the stream.
+# Each kernel entry ends in the pair axis (pairs, then each operand's pair
+# stride) and the stream; the read probe P has no pair axis.
 _SIGNATURES = {
     "discogan_batch_stats": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [_LL, _I, _I]
                              + [_I, _LL, _P]),
@@ -55,6 +55,7 @@ _SIGNATURES = {
     "discogan_halo_conv_k4s2p1": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _I] + [_I] + [_LL] * 3 + [_P]),
     "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 10 + [_LL] + [_I, _LL, _LL, _P]),
+    "discogan_pipe_probe": (_I, [_P, _P, _P, _LL, _LL] + [_I] * 4 + [_LL, _I, _P]),
 }
 
 _lock = threading.Lock()

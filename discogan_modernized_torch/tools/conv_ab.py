@@ -18,7 +18,7 @@ wrong; only their times count):
   2 blocks/SM   128 x 128 tiles with 3 stages, two blocks an SM (at most
                 128 registers a thread)
 Reference: ``F.conv2d`` (with ``torch.var_mean`` where the call takes the
-statistics). Times are chip_smoke's (median of 20 runs, L2 evicted, a
+statistics). Times are tools/timing.py's (median of 20 runs, L2 evicted, a
 device sleep before each), in turns (a, b, ..., b, a, ...).
 
     python -m discogan_modernized_torch.tools.conv_ab [--rounds 2]
@@ -132,15 +132,14 @@ def run(rounds) -> int:
     import torch
     import torch.nn.functional as F
 
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
     from ..ops import _build
     from ..ops.conv_k4s2p1 import CONV_PATH_CODES, conv2d_k4s2p1_plain, conv_plan
+    from .timing import Timer, smi_line
 
-    print(torch.cuda.get_device_name(0), "|", chip_smoke.smi_line(), flush=True)
+    print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
     fns = _build_variants()
     g = torch.Generator(device="cuda").manual_seed(0)
-    timer = chip_smoke.Timer()
+    timer = Timer()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, (n, h, w, ci, co), stats in SHAPES:
         x = torch.randn(n, h, w, ci, device="cuda", generator=g).bfloat16()

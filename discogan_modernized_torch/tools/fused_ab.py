@@ -41,7 +41,7 @@ References: ``F.batch_norm`` in eval form (K2), ``torch.var_mean`` (K1),
 ``x.clone()``, and for K1 ``torch.sum(x)``, a read of x and nothing else.
 The kernel and the references are also timed with L2 evicted by a read in
 place of a write ("clean L2"): the gap shows what writing back the dirty
-lines that the write leaves in L2 adds to each call. Times are chip_smoke's (median of 20 runs, L2 evicted, a
+lines that the write leaves in L2 adds to each call. Times are tools/timing.py's (median of 20 runs, L2 evicted, a
 device sleep before each), in turns (a, b, ..., b, a, ...).
 
     python -m discogan_modernized_torch.tools.fused_ab [--rounds 2]
@@ -278,14 +278,13 @@ def run(rounds) -> int:
     import torch
     import torch.nn.functional as F
 
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
     from ..ops.fused import STATS_MAX_TILES, batch_stats_plain, bn_act_plain
+    from .timing import Timer, smi_line
 
-    print(torch.cuda.get_device_name(0), "|", chip_smoke.smi_line(), flush=True)
+    print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
     fns = _build_variants()
     g = torch.Generator(device="cuda").manual_seed(0)
-    timer, clean = chip_smoke.Timer(), chip_smoke.Timer(clean=True)
+    timer, clean = Timer(), Timer(clean=True)
     for label, shape in K2_SHAPES:
         c = shape[-1]
         x = torch.randn(*shape, device="cuda", generator=g).bfloat16()

@@ -91,15 +91,14 @@ def run(batches, rounds) -> int:
     import torch
     import torch.nn.functional as F
 
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
     from ..ops import _build
     from ..ops.head import head_convt_plain, head_plan
+    from .timing import HBM_BYTES_PER_S, Timer, smi_line
 
-    print(torch.cuda.get_device_name(0), "|", chip_smoke.smi_line(), flush=True)
+    print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
     fns = _build_variants()
     g = torch.Generator(device="cuda").manual_seed(0)
-    timer = chip_smoke.Timer()
+    timer = Timer()
     for n in batches:
         h, w, ci, co = HEAD
         x = torch.randn(n, h, w, ci, device="cuda", generator=g).bfloat16()
@@ -132,7 +131,7 @@ def run(batches, rounds) -> int:
         for r in range(rounds):
             for name in (order if r % 2 == 0 else order[::-1]):
                 times[name].append(timer.ms(calls[name]))
-        bound = (x.numel() + y.numel()) * 2 / chip_smoke.HBM_BYTES_PER_S * 1e3
+        bound = (x.numel() + y.numel()) * 2 / HBM_BYTES_PER_S * 1e3
         print(f"batch {n} (plan {tuple(plan)}; bytes bound {bound:.4f} ms; the kernel's max "
               f"error {err:.3e}), ms per call in {rounds} rounds:", flush=True)
         for name, ts in times.items():

@@ -25,20 +25,12 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 
 import torch
 
 from ..core.device import resolve_device
 from ..core.precision import BF16, configure
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True, text=True,
-                       timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
+from .timing import smi_line
 
 
 def main(argv=None) -> dict:
@@ -63,7 +55,7 @@ def main(argv=None) -> dict:
     cfgs = {name: (dataclasses.replace(base, remat=False) if name == "off" else
                    dataclasses.replace(base, remat=True, remat_policy=name, remat_dis=True))
             for name in policies}
-    print(card_line())
+    print(smi_line())
     ts = init_train_state(0, base, device)
     g = torch.Generator(device=device).manual_seed(0)
     A, B = (torch.rand(args.batch, args.size, args.size, 3, device=device, generator=g)
@@ -98,7 +90,7 @@ def main(argv=None) -> dict:
                 continue
             peak[name] = max(peak[name], torch.cuda.max_memory_allocated(device))
             print(f"round {rnd} {name}: peak {peak[name] / 2**30:.2f} GiB", flush=True)
-    out = {"size": args.size, "batch": args.batch, "card": card_line(), "policies": {}}
+    out = {"size": args.size, "batch": args.batch, "card": smi_line(), "policies": {}}
     for name in policies:
         if name in dead:
             out["policies"][name] = {"failed": dead[name]}

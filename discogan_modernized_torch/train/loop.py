@@ -6,7 +6,10 @@ through the resolvers and the host loader, the test set preprocessed once,
 the epoch loop with independent A/B shuffles, D on
 ``iters % update_interval == 0`` and G otherwise with the curriculum rate,
 the training_log.txt contract, sample dumps and reference-layout ``.pth``
-checkpoints beside the full train state.
+checkpoints beside the full train state. At each save the trainer appends
+its memory on the card to ``hbm_telemetry.jsonl`` beside the log
+(``hbm_sample``, the JAX trainer's sidecar), which ``tools/monitor.py``
+reads; on the chunked path that falls at a chunk's end, outside its graphs.
 
 ``--resume <model dir>`` restores the full train state and continues to
 the run's original total (epochs x batches an epoch): finished epochs are
@@ -99,6 +102,7 @@ their kernel launches or check their losses.
 from __future__ import annotations
 
 import contextlib
+import json
 import signal
 import statistics
 import time
@@ -260,6 +264,34 @@ def sigterm_flag():
             signal.signal(signal.SIGTERM, old)
 
 
+def device_memory(device) -> list | None:
+    """This process's memory on ``device`` as the JAX trainer's sidecar
+    records a device's: the bytes its tensors hold
+    (``torch.cuda.memory_allocated``) and the card's total
+    (``torch.cuda.mem_get_info``); None on the CPU, which keeps no such
+    count (as JAX's backends without ``memory_stats``)."""
+    if device.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return [{"id": index, "bytes_in_use": torch.cuda.memory_allocated(index),
+             "bytes_limit": torch.cuda.mem_get_info(index)[1]}]
+
+
+def hbm_sample(result_path: Path, iters: int, device) -> None:
+    """Append ``{"t", "iter", "devices"}`` to ``hbm_telemetry.jsonl`` beside
+    the training log (the JAX trainer's sidecar, train/loop.py:386-408):
+    a monitor cannot see another process's allocator, so the trainer
+    reports its own. Nothing on the CPU; a failure never stops training."""
+    try:
+        devices = device_memory(device)
+        if devices:
+            with open(Path(result_path) / "hbm_telemetry.jsonl", "a") as f:
+                f.write(json.dumps({"t": time.time(), "iter": iters,
+                                    "devices": devices}) + "\n")
+    except Exception:  # noqa: BLE001 -- telemetry must never stop training
+        pass
+
+
 def load_weights(args, models: dict) -> None:
     """The weights-only ``--load_<name>`` flags: a reference-layout .pth
     into that network (strict), cast to its parameters' dtype."""
@@ -415,6 +447,8 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
         if i % args.image_save_interval == 0:
             dump_samples(i)
         if i % args.model_save_interval == 0:
+            if main_rank:
+                hbm_sample(result_path, i, device)
             state = whole_state()
             if main_rank:
                 save_reference_layout(model_path, state.models, i)

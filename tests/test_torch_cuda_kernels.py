@@ -638,3 +638,32 @@ def test_registered_op_fake_under_a_symbolic_batch(gen, name):
     fake = node.meta["val"]
     assert not isinstance(fake.shape[0], int)
     assert tuple(fake.shape[1:]) == tuple(real.shape[1:]) and fake.dtype == real.dtype
+
+
+# The read probe P (ops/pipe_probe.py): each block geometry of the TPU
+# probe at a small size and at a ragged one (rows off the block's row
+# groups, a row of 3 vectors, one block), bf16 and f32, with NaN and -inf
+# planted; the block maxima equal the plain version's bit for bit (max is
+# exact in any order), one launch each.
+PROBE_CASES = [((2, 8, 8, 16), (1, 4, 8, 16)), ((2, 8, 4, 32), (1, 2, 4, 32)),
+               ((2, 8, 128), (1, 4, 128)), ((32, 256, 16384), (1, 128, 16384)),
+               ((3, 37, 5, 24), (1, 37, 5, 24)), ((1, 6, 2048), (1, 6, 2048))]
+
+
+@pytest.mark.parametrize("shape,block", PROBE_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pipe_probe(gen, shape, block, dtype):
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.pipe_probe import (block_max, block_max_plain,
+                                                          probe_value)
+
+    x = _rand(gen, dtype, *shape).reshape(-1)
+    x[7] = float("-inf")
+    before = _build.launches["pipe_probe"]
+    got = block_max(x, shape, block)
+    assert _build.launches["pipe_probe"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, block_max_plain(x, shape, block))
+    assert torch.equal(probe_value(x, shape, block), got[-1])
+    x[-1] = float("nan")
+    assert torch.isnan(block_max(x, shape, block)[-1])
