@@ -14,9 +14,13 @@ paths it runs the port's tools, the read probe P among them.
     python3 chip_smoke.py            # one NVIDIA GPU (H100), no arguments
     python3 chip_smoke.py --planted-fault   # the mesh's f32 gate, faults planted
 
-Phases, each fatal on failure (the run then exits non-zero), each timed:
+Phases, each fatal on failure (the run then exits non-zero), each timed, with
+the disk in use and the bytes the run has written so far after each (the
+card machine ends a call after 45 GiB of writes):
   1. device   CUDA present; the card's name and power limit.
-  2. build    nvcc of csrc/*.cu into one library, timed.
+  2. build    nvcc of csrc/*.cu into one library, timed; then the A/B
+              tools' variant builds (tools/variants.py) start, to build
+              while phase 3 runs on the card.
   3. kernels  K2/K3/K5f/K6 at every shape of one 512px forward at batch 4
               (the CLI's) and at batch 1 (the daemon's, where K3 takes other
               split-K counts); all seven kernels (K1, K2, K3 with and
@@ -79,13 +83,17 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               geometries of a seeded (32, 256, 256, 64) bf16 tensor, each
               case's block maxima equal to the plain version's and its value
               the last block's, timed beside x.clone(), torch.amax and the
-              80.1 us bound; kernel_bench; conv_kernel_bench --dw --fused,
-              fwd_profile and layer_ab (enc1, fwd/dx/dw, kernel against
-              library) at 512px batch 8; step_itemize (its parts replayed
-              as CUDA graphs, forward < forward and backward < step) and
-              roofline --measure at 64px batch 64 (every time positive, every
-              roofline or peak share at most SHARE_LIMIT); memory_report at
-              512px batch 8, its model beside the measured peak;
+              80.1 us bound; the tools' plumbing at small shapes (phase
+              3's 512px times are the kernels' record): kernel_bench;
+              conv_kernel_bench --dw --fused, fwd_profile and layer_ab
+              (enc1, fwd/dx/dw, kernel against library) at TOOL_SIZE batch
+              TOOL_BATCH; step_itemize (its parts replayed as CUDA graphs, forward <
+              forward and backward < step) and roofline --measure at 64px
+              batch 64 (every time positive, every roofline or peak share at
+              most SHARE_LIMIT); the A/B tools conv_ab (K3's AB_VARIANTS at
+              AB_CONV_SHAPE) and head_ab (K6's at batch 1), one round each,
+              each kernel held against its plain version; memory_report at
+              TOOL_SIZE batch 8, its model beside the measured peak;
               batch_size_optimization --image_size 512 --train_step in its
               own process, bracketed two steps either side of BATCH_ANSWER,
               its answer within one step of it; the monitor, confined to
@@ -141,7 +149,8 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the 256-image synthetic task (32 iterations: 11 D,
               21 G; a line every 8), one step a call (--steps_per_call 1,
-              the batches gathered from the dataset on the card), with the
+              the batches gathered from the dataset on the card; its save
+              at iteration 0 not written, first_save_skipped), with the
               launch counts of every D and G step checked
               against PER_STEP, every loss finite, ms per D and per G step
               (CUDA events, median after the first two iterations), img/s
@@ -191,7 +200,11 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               one step a call: each run's path line naming its mesh, its log
               lines and final train state equal to phase 7's bit for bit,
               its all-reduces a step and in each captured graph counted, no
-              all-gather, saves in memory; then ops/sharding.py's
+              all-gather, saves in memory; the gspmd run one step a call
+              under --ckpt_backend orbax sent SIGTERM at the end of
+              iteration 7 (its save written as train_state_orbax/, timed)
+              and resumed from it: its final train state equal to phase 7's
+              bit for bit; then ops/sharding.py's
               collectives over a one-rank NCCL group captured into a CUDA
               graph and replayed, against their eager run, bit for bit
               (check_nccl_capture). (b) two ranks sharing the card over
@@ -201,7 +214,14 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               and K4 at the split layers' CO/2; K3's stem, K5f, K5b and K6
               on the bands' rows), its state bytes and peak memory beside
               the one process's and (a)'s, its D and G ms (gloo through host
-              memory on one card, not a multi-card speed); in f32 under
+              memory on one card, not a multi-card speed); after the tensor
+              parallel bf16 steps both ranks write one --ckpt_backend orbax
+              save of the state, each its own slices, and rank 0 an npz save
+              of it gathered (bytes, seconds on the host clock, each rank's
+              part); the orbax save loaded whole (tp 1) equals the
+              gathered state bit for bit, and so does it placed at tp 2 and
+              gathered; the saves deleted with the ranks' directory; in f32
+              under
               deterministic algorithms, one D and one G step's losses within
               EQUIV_LOSS_REL of the one process's and each gradient within
               max(EQUIV_GRAD_REL, MESH_FLOOR_FACTOR x its own change on the
@@ -227,7 +247,8 @@ Phases, each fatal on failure (the run then exits non-zero), each timed:
               img/s and peak memory against phase 7's, the loader's wait
               per step (the trainer's own line); the uninterrupted run
               goes first, the stopped and the resumed run after it (the
-              stopped run saves to the disk, the other two in memory); then
+              stopped run saves its SIGTERM's save to the disk, the other
+              two in memory); then
               the steps from one slim_state=all state fed an epoch at a
               time from the real tree's loader, the synthetic task's
               loader, the real batches in pinned memory (copied at each
@@ -394,15 +415,61 @@ MESH_PATHS = ("mesh_tp", "mesh_band")  # phase 3's cases at the mesh's shapes (b
 _phase_start = [None, None]
 
 
+class DiskWrites:
+    """The bytes this run has written to the checkout's file system,
+    reckoned from its usage: a thread samples ``shutil.disk_usage`` every
+    PERIOD seconds and adds up each rise. A file written and deleted
+    between two samples is missed (the large files here live for seconds),
+    and the machine's other writes to that file system are counted: in a
+    sealed machine, few. The card machine ends a call after 45 GiB of
+    writes, whatever is deleted."""
+
+    PERIOD = 0.2
+
+    def __init__(self):
+        self.total = 0
+        self._last = shutil.disk_usage(ROOT).used
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(self.PERIOD):
+            self.sample()
+
+    def sample(self) -> int:
+        with self._lock:
+            now = shutil.disk_usage(ROOT).used
+            self.total += max(0, now - self._last)
+            self._last = now
+            return self.total
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+_disk: list = [None]  # main()'s DiskWrites
+_started_builds: list = []  # (directory, nvcc process) of the A/B tools' variant builds
+
+
+def written_line() -> str:
+    if _disk[0] is None:
+        return "disk writes not counted"
+    return (f"{_disk[0].sample() / 2**30:.1f} GiB written since the start (its usage's "
+            "rises, sampled every 0.2 s)")
+
+
 def phase(name):
-    """Print the previous phase's duration and the disk the checkout's
-    filesystem has in use (the card machine takes 45 GiB of writes in
-    all), then this phase's header."""
+    """Print the previous phase's duration, the disk the checkout's
+    filesystem has in use and what this run has written (the card machine
+    takes 45 GiB of writes a call in all), then this phase's header."""
     now = time.perf_counter()
     if _phase_start[0] is not None:
         used = shutil.disk_usage(ROOT).used / 2**30
         print(f"-- {_phase_start[0]}: {now - _phase_start[1]:.1f} s; {used:.1f} GiB of "
-              "disk in use", flush=True)
+              f"disk in use; {written_line()}", flush=True)
     _phase_start[:] = [name, now]
     print(f"\n== {name}", flush=True)
 
@@ -1940,14 +2007,18 @@ def drive_trainer(work: Path):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    result, model_path = run_training(args, observer=observer)
+    with first_save_skipped() as skipped:
+        result, model_path = run_training(args, observer=observer)
     wall = time.perf_counter() - t0
+    if skipped != [("train state", 1), ("layout", 0)]:
+        raise AssertionError(f"trainer: its save at iteration 0 made {skipped}")
     launches = dict(_build.launches)
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     step_ms = observer.report()
     steady = steady_img_s(observer, step_ms)
     print(f"trainer: {len(observer.steps)} iterations in {wall:.1f} s (host clock, "
-          f"data, sample forwards and saves included); {steady:.1f} img/s at the "
+          f"data, sample forwards and the final save included; the save at iteration 0 "
+          f"not written); {steady:.1f} img/s at the "
           f"median step times; peak memory {peak / 2**30:.2f} GiB allocated, "
           f"{reserved / 2**30:.2f} GiB reserved (torch.cuda.max_memory_allocated, "
           f"max_memory_reserved)")
@@ -1976,22 +2047,30 @@ class DistStepObserver(StepObserver):
 
 
 @contextlib.contextmanager
-def state_in_memory(total: int, device=None):
+def state_in_memory(total: int, device=None, disk=None):
     """The trainer's saves kept in memory instead of on disk for the block:
     the final train state (iteration ``total``) as ``save_train_state``
     would write it, copied on the card (or to ``device``: "cpu" leaves the
     run's peak memory as it was), and the tags of the reference-layout
     saves. A 512px run writes several GiB a save, and the card machine's
-    disk takes 45 GiB of writes a call in all."""
+    disk takes 45 GiB of writes a call in all. ``disk(iters, meta)``: the
+    train-state saves that go to the disk all the same (their seconds on
+    the host clock in ``kept["disk_s"]``)."""
     from discogan_modernized_torch.train import loop
 
-    kept = {"layouts": [], "states": []}
+    kept = {"layouts": [], "states": [], "disk_s": []}
+    real = loop.save_train_state
 
     def copy(t):
         return t.detach().clone() if device is None else t.detach().to(device, copy=True)
 
-    def save_train_state(model_path, ts, iters, meta=None):
+    def save_train_state(model_path, ts, iters, meta=None, **kw):
         kept["states"].append(iters)
+        if disk is not None and disk(iters, meta or {}):
+            t0 = time.perf_counter()
+            real(model_path, ts, iters, meta, **kw)
+            kept["disk_s"].append(time.perf_counter() - t0)
+            return
         if iters == total:
             kept["state"] = {
                 "models": {n: {k: copy(v) for k, v in m.state_dict().items()}
@@ -2009,6 +2088,37 @@ def state_in_memory(total: int, device=None):
         yield kept
     finally:
         loop.save_train_state, loop.save_reference_layout = saved
+
+
+@contextlib.contextmanager
+def first_save_skipped():
+    """The trainer's save at iteration 0 (the train state that holds one
+    iteration, the reference layout tagged 0) recorded and not written:
+    nothing here reads it, the run's later saves write the same files
+    through the same functions, and a 512px save is 7-8 GB of the card
+    machine's 45 GiB of disk writes a call. Every other save is written."""
+    from discogan_modernized_torch.train import loop
+
+    skipped = []
+    real = loop.save_train_state, loop.save_reference_layout
+
+    def save_train_state(model_path, ts, iters, meta=None, **kw):
+        if iters == 1 and not (meta or {}).get("preempted"):
+            skipped.append(("train state", iters))
+        else:
+            real[0](model_path, ts, iters, meta, **kw)
+
+    def save_reference_layout(model_path, models, tag):
+        if tag == 0:
+            skipped.append(("layout", tag))
+        else:
+            real[1](model_path, models, tag)
+
+    loop.save_train_state, loop.save_reference_layout = save_train_state, save_reference_layout
+    try:
+        yield skipped
+    finally:
+        loop.save_train_state, loop.save_reference_layout = real
 
 
 # One step a call first: its steps' all-reduces are what each capture must hold,
@@ -2265,11 +2375,69 @@ def drive_mesh(work: Path, synthetic: dict) -> dict:
         compare_states(kept["state"], reference, f"{tag} vs phase 7's run")
         del kept["state"]
         shutil.rmtree(work / tag)
+    counts = _add([counts, mesh_orbax_resume(work, reference)])
     del reference
     torch.cuda.empty_cache()
     check_nccl_capture()
     mesh_ranks(work, peaks["mesh_gspmd_per-step"])
     return counts
+
+
+def mesh_orbax_resume(work: Path, reference: dict) -> dict:
+    """(a) under --ckpt_backend orbax: the gspmd run one step a call, world
+    1 on NCCL, sent SIGTERM at the end of iteration SIGTERM_AT (its save at
+    iteration 0 kept in memory; the SIGTERM's written, train_state_orbax/
+    with rank 0's one part and the index, timed), then --resume'd from that
+    directory to the end (its saves in memory): the resumed run trains the
+    rest, and its final train state equals phase 7's bit for bit. Returns
+    the launches of both runs."""
+    from discogan_modernized_torch.cli import distributed_image_translation as dcli
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.train.checkpoint import ORBAX_DIR
+
+    tag = "mesh_orbax"
+    base = [*SYNTHETIC_FLAGS, "--distributed", "--world_size=1", "--parallel_mode=gspmd",
+            "--tp=1", "--steps_per_call=1", "--ckpt_backend=orbax"]
+
+    def dirs(run):
+        return [f"--results_dir={work / tag / run / 'results'}",
+                f"--models_dir={work / tag / run / 'models'}"]
+
+    _build.reset_launches()
+    handler = signal.getsignal(signal.SIGTERM)
+    stop = SigtermObserver(SIGTERM_AT)
+    t0 = time.perf_counter()
+    with state_in_memory(32, disk=lambda iters, meta: meta.get("preempted")) as kept:
+        _, stopped = dcli.main([*base, *dirs("stopped")], observer=stop)
+    wall = time.perf_counter() - t0
+    meta = json.loads((stopped / "train_state_meta.json").read_text())
+    if not (meta.get("preempted") and meta["iters"] == SIGTERM_AT + 1
+            and meta.get("backend") == "orbax" and signal.getsignal(signal.SIGTERM) is handler
+            and kept["states"] == [1, SIGTERM_AT + 1] and len(kept["disk_s"]) == 1):
+        raise AssertionError(f"{tag}: SIGTERM at iteration {SIGTERM_AT}: meta {meta}, "
+                             f"saves {kept['states']}")
+    files = {f.name: f.stat().st_size for f in sorted((stopped / ORBAX_DIR).iterdir())}
+    if sorted(files) != ["index.json", "part_m0.pt"]:
+        raise AssertionError(f"{tag}: the save holds {sorted(files)}")
+    stop.report()
+    sizes = ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in files.items())
+    print(f"{tag}: SIGTERM at the end of iteration {SIGTERM_AT}: saved iteration "
+          f"{meta['iters']} as {ORBAX_DIR}/ ({sizes}) in {kept['disk_s'][0]:.2f} s (host clock, one rank: rank 0 writes the whole "
+          f"state); the run {wall:.1f} s", flush=True)
+    resume = DistStepObserver()
+    t0 = time.perf_counter()
+    with state_in_memory(32) as kept:
+        dcli.main([*base, *dirs("resumed"), f"--resume={stopped}"], observer=resume)
+    done = [s_[0] for s_ in resume.steps]
+    if done != list(range(SIGTERM_AT + 1, 32)):
+        raise AssertionError(f"{tag}: the resumed run trained iterations {done}")
+    resume.report()
+    print(f"{tag}: resumed from {ORBAX_DIR}/ and trained iterations {done[0]}-{done[-1]} in "
+          f"{time.perf_counter() - t0:.1f} s (host clock, the load included)", flush=True)
+    compare_states(kept.pop("state"), reference,
+                   f"{tag}: SIGTERM'd and resumed under orbax vs phase 7's run")
+    shutil.rmtree(work / tag)
+    return dict(_build.launches)
 
 
 def mesh_ranks(work: Path, world1_peak: int | None, faults: bool = False) -> dict:
@@ -2299,6 +2467,7 @@ def mesh_ranks(work: Path, world1_peak: int | None, faults: bool = False) -> dic
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(MESH_TP)]
     shutil.rmtree(out_dir)
     if not faults:
+        mesh_saves_report(ranks)
         mesh_bf16_report(ranks, world1_peak)
     readings = {}
     for mode in MESH_MODES:
@@ -2405,7 +2574,7 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str, faults: bool) -> N
         out = {"f32": mesh_rank_f32(rank, world, whole, A, B)}
         torch.use_deterministic_algorithms(False)
         if not faults:
-            out.update(mesh_rank_bf16(rank, world, whole, A, B))
+            out.update(mesh_rank_bf16(rank, world, whole, A, B, Path(out_dir)))
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         torch.use_deterministic_algorithms(False)
@@ -2429,12 +2598,12 @@ def _one_process(whole, cfg):
     return TrainState(models, *make_optimizers(models, cfg))
 
 
-def mesh_rank_bf16(rank: int, world: int, whole, A, B) -> dict:
+def mesh_rank_bf16(rank: int, world: int, whole, A, B, out_dir: Path) -> dict:
     """(b)'s bf16 run on this rank, after the f32 one: rank 0 first takes
     one D and one G step's gradients as one process (its state and peak
     bytes); then per mode, the state placed, one D and one G train step,
     each timed and its launches, collectives and kernel calls' shapes
-    counted."""
+    counted; under tensor parallelism then ``mesh_rank_saves``."""
     import copy
 
     from discogan_modernized_torch.core.mesh import make_mesh
@@ -2495,11 +2664,110 @@ def mesh_rank_bf16(rank: int, world: int, whole, A, B) -> dict:
                 res["collectives"][which] = dict(collectives)
                 res["shapes"][which] = sorted(set(calls))
             res["peak"] = torch.cuda.max_memory_allocated()
+            if mode == "gspmd":
+                res["saves"] = mesh_rank_saves(rank, world, ts, mp, whole, cfg, out_dir)
             out[mode] = res
             del ts
     finally:
         ag.KERNEL_OPS.update(kernels)
     return out
+
+
+def _state_dict(ts, device="cpu") -> dict:
+    """A TrainState as ``save_train_state``'s npz dict, on ``device``
+    (``compare_states`` reads it)."""
+    def on(t):
+        return t.detach().to(device)
+
+    return {"models": {n: {k: on(v) for k, v in m.state_dict().items()}
+                       for n, m in ts.models.items()},
+            **{key: {"m": [on(t) for t in opt.m], "v": [on(t) for t in opt.v],
+                     "step": opt.step}
+               for key, opt in (("opt_gen", ts.opt_gen), ("opt_dis", ts.opt_dis))}}
+
+
+def _tree_bytes(d: Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def mesh_rank_saves(rank: int, world: int, ts, mp, whole, cfg, out_dir: Path) -> dict:
+    """(b)'s saves on this rank, of the tp 2 state after its bf16 steps,
+    as the trainer saves it without the reference layout
+    (train/loop.py ``save_checkpoint``): under --ckpt_backend orbax, every
+    rank its own slices (its part's bytes; the save's seconds on rank 0's
+    host clock, fence to fence); under npz, the state gathered onto rank 0's
+    CPU (``gather_train_state``, kept) and written there (the gather and
+    the write timed). Then the orbax save loaded into a fresh whole state
+    (a copy of the seeded one): rank 0 holds it, as one process (tp 1)
+    loads it, against the gathered state, tensor by tensor, bit for bit;
+    then that state placed on a new tp 2 mesh and gathered, held against
+    it the same way."""
+    import copy
+
+    import torch.distributed as dist
+
+    from discogan_modernized_torch.core.mesh import make_mesh
+    from discogan_modernized_torch.parallel.gspmd import (MeshParallel, gather_train_state,
+                                                          place_train_state)
+    from discogan_modernized_torch.train.checkpoint import (ORBAX_DIR, load_train_state,
+                                                            save_train_state,
+                                                            train_state_meta)
+    from discogan_modernized_torch.train.loop import save_checkpoint
+
+    d = out_dir / "saves"
+    meta = train_state_meta(cfg)
+    out = {}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_checkpoint(d / "orbax", ts, mp, 2, meta, backend="orbax", every_rank=True,
+                    main=rank == 0)
+    out["orbax_s"] = time.perf_counter() - t0
+    out["part_bytes"] = (d / "orbax" / ORBAX_DIR / f"part_m{mp.mesh.m}.pt").stat().st_size
+    dist.barrier()
+    t0 = time.perf_counter()
+    gathered = gather_train_state(ts, mp)
+    if rank == 0:
+        save_train_state(d / "npz", gathered, 2, meta)
+    out["npz_s"] = time.perf_counter() - t0
+    dist.barrier()
+    if rank == 0:
+        out["orbax_bytes"] = _tree_bytes(d / "orbax" / ORBAX_DIR)
+        out["npz_bytes"] = (d / "npz" / "train_state.pt").stat().st_size
+    t0 = time.perf_counter()
+    fresh = copy.deepcopy(whole)
+    if load_train_state(d / "orbax", fresh, cfg) != 2:
+        raise AssertionError("the orbax save's iteration count")
+    out["load_s"] = time.perf_counter() - t0
+    if rank == 0:
+        compare_states(_state_dict(fresh), _state_dict(gathered),
+                       "the orbax save of the tp 2 state, loaded at tp 1 (whole), vs the "
+                       "state gathered")
+    t0 = time.perf_counter()
+    second = MeshParallel(make_mesh(1, world))
+    loaded = gather_train_state(place_train_state(fresh, second, cfg, "cuda"), second)
+    out["place_s"] = time.perf_counter() - t0
+    if rank == 0:
+        compare_states(_state_dict(loaded), _state_dict(gathered),
+                       "the orbax save of the tp 2 state, loaded and placed at tp 2, "
+                       "gathered, vs the state gathered")
+    del loaded, fresh, gathered
+    dist.barrier()
+    return out
+
+
+def mesh_saves_report(ranks: list) -> None:
+    """(b)'s saves: their bytes and seconds, each rank's part."""
+    s0 = ranks[0]["gspmd"]["saves"]
+    parts = ", ".join(f"rank {r} {res['gspmd']['saves']['part_bytes'] / 2**30:.3f} GiB"
+                      for r, res in enumerate(ranks))
+    print(f"tp {MESH_TP} saves of the {SIZE}px state (slim state mv, no reference layout): "
+          f"orbax {s0['orbax_bytes'] / 2**30:.3f} GiB in {s0['orbax_s']:.2f} s, the ranks' "
+          f"parts {parts} written at once; npz {s0['npz_bytes'] / 2**30:.3f} GiB in "
+          f"{s0['npz_s']:.2f} s (gathered onto rank 0's CPU and written there); the orbax "
+          f"save loaded whole in {s0['load_s']:.2f} s, placed at tp {MESH_TP} and gathered in "
+          f"{s0['place_s']:.2f} s; host clock on rank 0, two ranks sharing one card over "
+          f"gloo; {smi_line()}", flush=True)
 
 
 def mesh_rank_f32(rank: int, world: int, whole, A, B) -> dict:
@@ -3122,7 +3390,8 @@ def drive_real_data(work: Path, synthetic: dict) -> dict:
 
     handler = signal.getsignal(signal.SIGTERM)
     stop = SigtermObserver(SIGTERM_AT)
-    _, stopped = run_training(real_args(work, "stopped"), observer=stop)
+    with first_save_skipped():
+        _, stopped = run_training(real_args(work, "stopped"), observer=stop)
     keep_train_state(stopped)
     meta = json.loads((stopped / "train_state_meta.json").read_text())
     if not (meta.get("preempted") and meta["iters"] == SIGTERM_AT + 1
@@ -3740,6 +4009,14 @@ TOOL_KERNELS = {
     "roofline": set(PER_STEP64["gen"]),
 }
 SHARE_LIMIT = 1.05  # a roofline or peak share above this is a timing fault
+# the layer tools' image size and batch: plumbing, not the record (batch 2:
+# train-mode BatchNorm needs two values a channel at the 1x1 latent)
+TOOL_SIZE, TOOL_BATCH = 256, 2
+AB_CONV_SHAPE = "enc6 b1"  # conv_ab's shape: the wgmma path
+# the variants of conv_ab and head_ab built here: the kernel and its two
+# halves (13 nvcc runs of the two sources for all of them cost the next
+# phase ~25 s of the host's cores)
+AB_VARIANTS = ("kernel", "copies only", "no copies")
 TRAIN_ITER = re.compile(r"Iter \[(\d+)/\d+\]")
 
 
@@ -3798,9 +4075,12 @@ def drive_pipe_probe() -> dict:
 def drive_timing_tools() -> dict:
     """kernel_bench, conv_kernel_bench --dw --fused, fwd_profile, layer_ab
     (enc1, fwd/dx/dw, kernel and library), step_itemize and roofline, each
-    once through its main(): 512px batch 8 where a layer or call is short,
-    64px batch 64 for the whole steps. Every time positive, every roofline
-    or peak share at most SHARE_LIMIT, each tool's kernels phase 3's."""
+    once through its main(), at small shapes: the tools' plumbing is what
+    this checks, and phase 3's 512px times are the kernels' record.
+    TOOL_SIZE batch TOOL_BATCH for the layers and calls (K5f's route holds
+    enc1 there, as at 512px), 64px batch 64 for the whole steps. Every time
+    positive, every roofline or peak share at most SHARE_LIMIT, each
+    tool's kernels phase 3's."""
     from discogan_modernized_torch.tools.timing import PEAK_FLOPS
 
     launches = {}
@@ -3810,18 +4090,19 @@ def drive_timing_tools() -> dict:
                                                  r["stats_kernel_us"], r["stats_var_mean_us"]])
         _share(f"kernel_bench {r['shape']}", r["bound_us"] / r["kernel_us"])
     rows, launches["conv_kernel_bench"] = _tool(
-        "conv_kernel_bench", ["--size", str(SIZE), "--batch", str(TRAIN_BATCH), "--dw", "--fused"])
+        "conv_kernel_bench", ["--size", str(TOOL_SIZE), "--batch", str(TOOL_BATCH), "--dw",
+                              "--fused"])
     for r in rows:
         _positive(f"conv_kernel_bench {r['layer']}",
                   [v for k, v in r.items() if k.endswith("_us")])
         _share(f"conv_kernel_bench {r['layer']}", r["kernel_tf"] * 1e12 / PEAK_FLOPS[torch.bfloat16])
     rows, launches["fwd_profile"] = _tool(
-        "fwd_profile", ["--image_size", str(SIZE), "--batch", str(TRAIN_BATCH)])
+        "fwd_profile", ["--image_size", str(TOOL_SIZE), "--batch", str(TOOL_BATCH)])
     for r in rows:
         _positive(f"fwd_profile {r['layer']}", [r["ms"]])
         _share(f"fwd_profile {r['layer']}", r["efficiency"])
     rows, launches["layer_ab"] = _tool(
-        "layer_ab", ["--size", str(SIZE), "--batch", str(TRAIN_BATCH), "--layer", "enc1",
+        "layer_ab", ["--size", str(TOOL_SIZE), "--batch", str(TOOL_BATCH), "--layer", "enc1",
                      "--modes", "fwd,dx,dw", "--impls", "kernel,library", "--rounds", "2"])
     if len(rows) != 3:
         raise AssertionError(f"layer_ab: {len(rows)} rows for enc1's three modes")
@@ -3846,13 +4127,13 @@ def drive_timing_tools() -> dict:
 
 
 def drive_memory_report() -> None:
-    """memory_report at 512px batch 8 under slim state mv: its model of a
-    one-process G step beside the step's measured peak."""
-    rep, _ = _tool("memory_report", ["--image_size", str(SIZE), "--batch", str(TRAIN_BATCH),
-                                     "--slim_state", "mv"])
+    """memory_report at TOOL_SIZE batch 8 under slim state mv: its model of
+    a one-process G step beside the step's measured peak."""
+    rep, _ = _tool("memory_report", ["--image_size", str(TOOL_SIZE), "--batch",
+                                     str(TRAIN_BATCH), "--slim_state", "mv"])
     m = rep["single_measured"]
     _positive("memory_report", [m["measured_peak_bytes"], m["model_bytes"]])
-    print(f"memory_report: single-mode G step at {SIZE}px batch {TRAIN_BATCH}: model "
+    print(f"memory_report: single-mode G step at {TOOL_SIZE}px batch {TRAIN_BATCH}: model "
           f"{m['model_bytes'] / 2**30:.2f} GiB, measured peak "
           f"{m['measured_peak_bytes'] / 2**30:.2f} GiB; per rank of {rep['n_devices']}: "
           + ", ".join(f"{k} {v['live_bytes'] / 2**30:.2f} GiB" for k, v in rep["modes"].items()))
@@ -4002,11 +4283,42 @@ def drive_hp_search(work: Path) -> None:
     shutil.rmtree(work / "hp")
 
 
-def drive_tools(work: Path) -> dict:
+def start_ab_builds() -> dict:
+    """The A/B tools' variant builds (tools/variants.py), started after the
+    main build, to build while phase 3 runs: tool -> what its ``run``
+    takes."""
+    from discogan_modernized_torch.tools import conv_ab, head_ab
+
+    started = {"conv_ab": conv_ab.start_variants(AB_VARIANTS),
+               "head_ab": head_ab.start_variants(AB_VARIANTS)}
+    _started_builds.extend(b for builds in started.values() for b in builds.values())
+    return started
+
+
+def drive_ab_tools(started: dict) -> None:
+    """conv_ab (K3's AB_VARIANTS at AB_CONV_SHAPE) and head_ab (K6's, batch
+    1), one round each through their ``run``, from the builds started after
+    the build phase: each variant builds and launches, the kernel holds its
+    plain version (the tools check it)."""
+    from discogan_modernized_torch.tools import conv_ab, head_ab
+
+    for name, call in (("conv_ab", lambda: conv_ab.run(
+            1, [s_ for s_ in conv_ab.SHAPES if s_[0] == AB_CONV_SHAPE], started["conv_ab"])),
+                       ("head_ab", lambda: head_ab.run([1], 1, started["head_ab"]))):
+        t0 = time.perf_counter()
+        if call():
+            raise AssertionError(f"{name} exited non-zero")
+        torch.cuda.synchronize()
+        print(f"-- tool {name}: {time.perf_counter() - t0:.1f} s (the wait for its builds "
+              "included)", flush=True)
+
+
+def drive_tools(work: Path, ab_builds: dict) -> dict:
     """The tools phase; returns P's entry of the kernels line and the
     tools' launches."""
     p_entry = drive_pipe_probe()
     launches = drive_timing_tools()
+    drive_ab_tools(ab_builds)
     drive_memory_report()
     gc_collect()
     drive_batch_size(work)
@@ -4037,6 +4349,18 @@ def main(argv=None) -> int:
     if argv not in ([], ["--planted-fault"]):
         print("usage: python3 chip_smoke.py [--planted-fault]", file=sys.stderr)
         return 2
+    _disk[0] = DiskWrites()
+    try:
+        return run_phases(argv)
+    finally:
+        _disk[0].stop()
+        for _, proc in _started_builds:  # a phase failed before the tools waited for them
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(argv: list) -> int:
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4054,6 +4378,7 @@ def main(argv=None) -> int:
     print(f"built {lib_path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     if argv:
         return planted_fault()
+    ab_builds = start_ab_builds()  # they build while phase 3 runs on the card
 
     phase("kernels against their plain versions")
     timer = Timer()
@@ -4066,7 +4391,7 @@ def main(argv=None) -> int:
     try:
         patches.enter_context(synthetic_once())
         phase("tools: the port's tools (M11) and the read probe P")
-        tools = drive_tools(work)
+        tools = drive_tools(work, ab_builds)
 
         phase("path: inference CLI at 512px")
         rng = np.random.RandomState(0)

@@ -118,9 +118,13 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
     """The flags both trainers take (the JAX package's ``add_common_flags``,
     ``cli/common.py:81-235``), as far as the port has them; the data
     parallel trainer's own flags are ``distributed_parser``'s. Refused:
-    --xla_copts, which sets XLA flags and has no CUDA meaning, and
-    --ckpt_backend, since the port writes its train state with torch.save
-    only (the JAX package's orbax backend has no counterpart here)."""
+    --xla_copts, which sets XLA flags and has no CUDA meaning.
+    ``--ckpt_backend`` takes the JAX package's choices and default, and
+    names the same files (train/checkpoint.py): npz, the whole state in one
+    ``train_state.pt``; orbax, the ``train_state_orbax/`` directory that
+    every rank of a distributed run writes its slices into. The content is
+    the port's own format in both, which the JAX package does not read
+    (nor the port JAX's)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument('--device', type=str, default='cuda',
                    help='Device to use (cuda/cpu); cuda raises when no card '
@@ -191,9 +195,17 @@ def trainer_parser(description: str, *, task_default: str, epochs_default: int,
                         'f32 moments, all = moments and master parameters '
                         'in bf16, the parameters written back with '
                         'stochastic rounding')
+    p.add_argument('--ckpt_backend', type=str, default='npz',
+                   choices=['npz', 'orbax'],
+                   help='Full-train-state checkpoint backend: npz (one '
+                        'train_state.pt, the whole state written by rank 0) '
+                        'or orbax (the train_state_orbax/ directory: every '
+                        'rank writes its own slices, one file a place on the '
+                        'model axis; the port\'s format, not the JAX '
+                        'package\'s OCDBT). A resume reads either')
     p.add_argument('--resume', type=str, default=None,
                    help='(extension) model dir with a full train state '
-                        '(train_state.pt): resumes the networks, the '
+                        '(train_state.pt or train_state_orbax/): resumes the networks, the '
                         'optimizer state and the iteration count exactly, '
                         'and trains on to the run\'s original total')
     p.add_argument('--debug', action='store_true',

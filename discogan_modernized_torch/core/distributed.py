@@ -32,6 +32,7 @@ import dataclasses
 import datetime
 import os
 import socket
+import zlib
 
 import torch
 import torch.distributed as dist
@@ -153,3 +154,24 @@ def any_rank(flag: bool, ranks: Ranks) -> bool:
     t = torch.tensor([int(flag)], dtype=torch.int32, device=ranks.device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+def fence(tag: str, failed: bool = False) -> bool:
+    """A barrier over every rank of the default group (JAX's
+    ``sync_global_devices``) that also tells each rank whether any rank
+    came to it ``failed``; raises where the ranks came to it with other
+    tags (they are at different points of a protocol). Without a group, or
+    in a world of one, it returns ``failed``."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return failed
+    code = zlib.crc32(tag.encode())
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    # max over the ranks of (code, -code, failed): the codes agree where
+    # their max is minus the max of their negatives
+    t = torch.tensor([code, -code, int(failed)], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    hi, neg_lo, any_failed = t.tolist()
+    if hi != -neg_lo:
+        raise RuntimeError(f"fence {tag!r}: the ranks came to it with other tags")
+    return bool(any_failed)

@@ -48,6 +48,7 @@ from ..core.precision import Policy
 from ..models.geometry import n_halvings
 from ..models.generator import enc_bn_index, enc_conv_index
 from ..ops.sharding import splits
+from ..train.checkpoint import StateSlices, state_slices
 from ..train.graph import trainable_subsets
 from ..train.step import (TrainConfig, TrainState, make_lean_dis_step, make_optimizers,
                           make_train_steps)
@@ -219,14 +220,16 @@ class _Moments:
     step: int
 
 
-def gather_train_state(ts: TrainState, mp: MeshParallel) -> TrainState | None:
+def gather_train_state(ts: TrainState, mp: MeshParallel,
+                       moments: bool = True) -> TrainState | None:
     """The whole train state, on the CPU of rank 0, from the slices that
     ``place_train_state`` put on its data row's model ranks: each split
     parameter and its moments gathered one tensor at a time (a collective
     of that row's ranks). The other ranks return None and hold no whole
     tensor; what train/checkpoint.py saves reads the state as it reads a
     one-process one. A state with nothing split is returned as it is, on
-    every rank."""
+    every rank. ``moments`` False: the networks alone (the reference
+    layout's), the Adam states None."""
     if not any(mp.shards.values()):
         return ts
     if mp.mesh.d:  # another data row: its slices equal row 0's
@@ -248,10 +251,40 @@ def gather_train_state(ts: TrainState, mp: MeshParallel) -> TrainState | None:
         if root:
             memo.update((id(b), b.to("cpu", copy=True)) for b in net.buffers())
             models[k] = copy.deepcopy(net, memo)  # the CPU tensors in the module's place
-    opts = [_Moments(*([whole(t, s and s[1]) for t, s in zip(ts_, opt.shards)]
-                       for ts_ in (opt.m, opt.v)), opt.step)
-            for opt in (ts.opt_gen, ts.opt_dis)]
+    opts = ([_Moments(*([whole(t, s and s[1]) for t, s in zip(ts_, opt.shards)]
+                        for ts_ in (opt.m, opt.v)), opt.step)
+             for opt in (ts.opt_gen, ts.opt_dis)] if moments else [None, None])
     return TrainState(models, *opts) if root else None
+
+
+def local_train_state(ts: TrainState, mp: MeshParallel) -> StateSlices:
+    """This rank's slices of a placed state, for the orbax backend's
+    collective save (train/checkpoint.py): its parameters (a split one's
+    slice, with its axis and whole shape from ``mp.shards``), its buffers,
+    both Adam states' ``m`` and ``v`` (a split one's place from
+    ``Adam.shards``) and steps; its part is its place on the model axis
+    where anything is split (else every tensor is whole, and part 0 is the
+    one written), and only data row 0 writes. No collective."""
+    sl = state_slices(ts, writes=mp.mesh.d == 0)
+    split = any(mp.shards.values())
+    if not split:
+        sl.writes = sl.writes and mp.mesh.m == 0
+        return sl
+    sl.part, sl.parts = mp.mesh.m, mp.tp
+    for k, net in ts.models.items():
+        for n, p in net.named_parameters():
+            dim = mp.shards[k].get(n)
+            if dim is not None:
+                whole = list(p.shape)
+                whole[dim] *= mp.tp
+                sl.split[f"models/{k}/{n}"] = (dim, tuple(whole))
+    for key in ("opt_gen", "opt_dis"):
+        opt = getattr(ts, key)
+        for i, shard in enumerate(opt.shards):
+            if shard is not None:
+                for part in ("m", "v"):
+                    sl.split[f"{key}/{part}/{i}"] = (shard[1], tuple(shard[0]))
+    return sl
 
 
 def make_gspmd_train_steps(cfg: TrainConfig, mp: MeshParallel,

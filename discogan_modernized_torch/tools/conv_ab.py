@@ -30,9 +30,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -97,51 +94,59 @@ def _plan_constants(**values):
             setattr(k3, name, v)
 
 
-def _build_variants() -> dict:
-    """Each variant's C entry, from a patched copy of csrc/ built alone."""
+def start_variants(names=None) -> dict:
+    """Start the build of each variant (of ``names``, default all:
+    tools/variants.py); ``run`` times the variants built."""
+    from . import variants
+
+    return variants.start({name: ("conv_k4s2p1.cu", patches)
+                           for name, (patches, _) in VARIANTS.items()
+                           if names is None or name in names}, OUT)
+
+
+def _k3_call(fn, name, x, wt, y, st, act, sms):
+    """(plan, call) of one variant's C entry on (x, wt) into y (and st, the
+    statistics, where it is not None), with its own plan, passing the
+    arguments as ops/conv_k4s2p1.py's wrapper does (one problem on the pair
+    axis)."""
     from ..ops import _build
+    from ..ops.conv_k4s2p1 import CONV_PATH_CODES, conv_plan
 
-    src = _build.CSRC / "conv_k4s2p1.cu"
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {}
-    for i, (name, (patches, _)) in enumerate(VARIANTS.items()):
-        d = OUT / f"v{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC, d)
-        text = src.read_text()
-        for old, new in patches:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the patch does not match the source once: {old}")
-            text = text.replace(old, new)
-        (d / src.name).write_text(text)
-        procs[name] = (d, subprocess.Popen(
-            [_build._nvcc(), *flags, "-shared", str(d / src.name), "-o", str(d / "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (d, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        fn = ctypes.CDLL(str(d / "lib.so")).discogan_conv_k4s2p1
-        fn.restype, fn.argtypes = _build._SIGNATURES["discogan_conv_k4s2p1"]
-        fns[name] = fn
-    return fns
+    n, h, w, ci = x.shape
+    co = wt.shape[3]
+    with _plan_constants(**VARIANTS[name][1]):
+        plan = conv_plan(n, h, w, ci, co, x.dtype, sms)
+    ws = _build.workspace(plan.workspace_floats(co, st is not None), x)
+
+    def call():
+        err = fn(x.data_ptr(), wt.data_ptr(), None, None, y.data_ptr(),
+                 _build.ptr(ws), _build.ptr(st), n, h, w, ci, co, act,
+                 _build.DTYPE_CODES[x.dtype], CONV_PATH_CODES[plan.path],
+                 plan.tile[0], plan.tile[1], plan.stages, plan.splits,
+                 plan.steps_per_split, plan.grid[0], plan.grid[1],
+                 plan.smem_bytes, plan.stat_rows, 1, x.numel(), 0, 0,
+                 _build.stream_of(x))
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    return plan, call
 
 
-def run(rounds) -> int:
+def run(rounds, shapes=SHAPES, started=None) -> int:
+    """The A/B at ``shapes``; ``started``: ``start_variants()``'s builds
+    (started here where None)."""
     import torch
     import torch.nn.functional as F
 
-    from ..ops import _build
-    from ..ops.conv_k4s2p1 import CONV_PATH_CODES, conv2d_k4s2p1_plain, conv_plan
+    from ..ops.conv_k4s2p1 import conv2d_k4s2p1_plain
+    from . import variants
     from .timing import Timer, smi_line
 
     print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
-    fns = _build_variants()
+    fns = variants.load(started or start_variants(), "discogan_conv_k4s2p1")
     g = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, (n, h, w, ci, co), stats in SHAPES:
+    for label, (n, h, w, ci, co), stats in shapes:
         x = torch.randn(n, h, w, ci, device="cuda", generator=g).bfloat16()
         wt = (torch.randn(4, 4, ci, co, device="cuda", generator=g) * (16 * ci) ** -0.5).bfloat16()
         y = torch.empty(n, h // 2, w // 2, co, dtype=x.dtype, device="cuda")
@@ -149,20 +154,7 @@ def run(rounds) -> int:
         act = 0 if stats else 2  # the statistics' raw conv, or the serving leaky
 
         def variant(name):
-            with _plan_constants(**VARIANTS[name][1]):
-                plan = conv_plan(n, h, w, ci, co, x.dtype, sms)
-            ws = _build.workspace(plan.workspace_floats(co, stats), x)
-
-            def call():
-                err = fns[name](x.data_ptr(), wt.data_ptr(), None, None, y.data_ptr(),
-                                _build.ptr(ws), _build.ptr(st), n, h, w, ci, co, act,
-                                _build.DTYPE_CODES[x.dtype], CONV_PATH_CODES[plan.path],
-                                plan.tile[0], plan.tile[1], plan.stages, plan.splits,
-                                plan.steps_per_split, plan.grid[0], plan.grid[1],
-                                plan.smem_bytes, plan.stat_rows, _build.stream_of(x))
-                if err:
-                    raise RuntimeError(f"{name}: CUDA error {err} at launch")
-            return plan, call
+            return _k3_call(fns[name], name, x, wt, y, st, act, sms)
 
         plan, kernel = variant("kernel")
         kernel()
@@ -178,7 +170,7 @@ def run(rounds) -> int:
         else:
             def lib():
                 return F.conv2d(x_nchw, w_oihw, stride=2, padding=1)
-        calls = {name: variant(name)[1] for name in VARIANTS if plan.path == "wgmma"
+        calls = {name: variant(name)[1] for name in fns if plan.path == "wgmma"
                  or name == "kernel"}
         calls["library"] = lib
         times = {name: [] for name in calls}

@@ -53,9 +53,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -191,34 +188,12 @@ def _plan_constants(**values):
 
 def _build_variants() -> dict:
     """Each variant's C entry, from a patched copy of csrc/ built alone."""
-    from ..ops import _build
+    from . import variants
 
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {}
-    for i, (name, (source, patches, _)) in enumerate(VARIANTS.items()):
-        src = _build.CSRC / source
-        d = OUT / f"v{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC, d)
-        text = src.read_text()
-        for old, new in patches:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the patch does not match the source once: {old}")
-            text = text.replace(old, new)
-        (d / source).write_text(text)
-        procs[name] = (d, subprocess.Popen(
-            [_build._nvcc(), *flags, "-shared", str(d / source), "-o", str(d / "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (d, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        entry = "discogan_bn_act" if name.startswith("K2") else "discogan_batch_stats"
-        fn = getattr(ctypes.CDLL(str(d / "lib.so")), entry)
-        fn.restype, fn.argtypes = _build._SIGNATURES[entry]
-        fns[name] = fn
-    return fns
+    started = variants.start({name: (source, patches)
+                              for name, (source, patches, _) in VARIANTS.items()}, OUT)
+    return variants.load(started, lambda name: "discogan_bn_act" if name.startswith("K2")
+                         else "discogan_batch_stats")
 
 
 def _k2_call(fn, name, x, s, o, y):

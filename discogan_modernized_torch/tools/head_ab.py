@@ -28,9 +28,6 @@ Needs a CUDA card and nvcc; prints the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -56,47 +53,43 @@ VARIANTS = {
 }
 
 
-def _build_variants() -> dict:
-    """Each variant's C entry, from a patched copy of csrc/ built alone."""
+def start_variants(names=None) -> dict:
+    """Start the build of each variant (of ``names``, default all:
+    tools/variants.py); ``run`` times the variants built."""
+    from . import variants
+
+    return variants.start({name: ("head_convt.cu", patches)
+                           for name, patches in VARIANTS.items()
+                           if names is None or name in names}, OUT)
+
+
+def _k6_call(fn, x, wt, y, plan):
+    """One variant's C entry on (x, wt) into y with ``plan``
+    (ops/head.py's ``head_plan``), its arguments as ops/head.py's wrapper
+    passes them (one problem on the pair axis); returns y."""
     from ..ops import _build
 
-    src = _build.CSRC / "head_convt.cu"
-    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs = {}
-    for i, (name, patches) in enumerate(VARIANTS.items()):
-        d = OUT / f"v{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC, d)
-        text = src.read_text()
-        for old, new in patches:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the patch does not match the source once: {old}")
-            text = text.replace(old, new)
-        (d / src.name).write_text(text)
-        procs[name] = (d, subprocess.Popen(
-            [_build._nvcc(), *flags, "-shared", str(d / src.name), "-o", str(d / "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (d, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        fn = ctypes.CDLL(str(d / "lib.so")).discogan_head_convt
-        fn.restype, fn.argtypes = _build._SIGNATURES["discogan_head_convt"]
-        fns[name] = fn
-    return fns
+    n, h, w, ci = x.shape
+    err = fn(x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h, w, ci, wt.shape[3],
+             _build.DTYPE_CODES[x.dtype], *plan[:4], plan.smem_bytes, 1, x.numel(), 0,
+             _build.stream_of(x))
+    if err:
+        raise RuntimeError(f"CUDA error {err} at launch")
+    return y
 
 
-def run(batches, rounds) -> int:
+def run(batches, rounds, started=None) -> int:
+    """The A/B at each batch; ``started``: ``start_variants()``'s builds
+    (started here where None)."""
     import torch
     import torch.nn.functional as F
 
-    from ..ops import _build
     from ..ops.head import head_convt_plain, head_plan
+    from . import variants
     from .timing import HBM_BYTES_PER_S, Timer, smi_line
 
     print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
-    fns = _build_variants()
+    fns = variants.load(started or start_variants(), "discogan_head_convt")
     g = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
     for n in batches:
@@ -108,12 +101,7 @@ def run(batches, rounds) -> int:
                          .multi_processor_count)
 
         def variant(fn):
-            err = fn(x.data_ptr(), wt.data_ptr(), y.data_ptr(), n, h, w, ci, co,
-                     _build.DTYPE_CODES[x.dtype], *plan[:4], plan.smem_bytes,
-                     _build.stream_of(x))
-            if err:
-                raise RuntimeError(f"CUDA error {err} at launch")
-            return y
+            return _k6_call(fn, x, wt, y, plan)
 
         variant(fns["kernel"])
         want = head_convt_plain(x, wt)

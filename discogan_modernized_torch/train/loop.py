@@ -80,10 +80,16 @@ split a host's batch as above while a data row's model ranks take the same
 rows. The whole state is made and loaded on the CPU, then each rank takes
 its part onto its device (parallel/gspmd.py ``place_train_state``); the
 steps take a ``MeshParallel``, BatchNorm global whatever ``--bn_sync``
-says; saves gather the whole state onto rank 0's CPU (its data row's
-ranks send their slices; no rank holds a whole copy on its card), which
-writes it in the layout a one-process run writes, so a save moves
-between meshes of any shape and a one-process run. Tensor parallelism runs
+says. Under ``--ckpt_backend npz`` saves gather the whole state onto rank
+0's CPU (its data row's ranks send their slices; no rank holds a whole
+copy on its card), which writes it in the layout a one-process run
+writes; under ``orbax`` with more than one rank (the JAX trainer's
+``ckpt_all_procs``, loop.py:379-384) every rank enters the save and writes
+its own slices from its device, nothing gathering the Adam moments (rank 0
+still gathers the networks for the reference layout, which it alone
+writes). Either way a resume reads the whole state on the CPU and places
+it, so a save moves between meshes of any shape and a one-process run.
+Tensor parallelism runs
 chunks where every rank is on one host; spatial sharding one step a call
 (``chunks_declined``). The path line names the mode, the mesh and the
 backend.
@@ -122,10 +128,10 @@ from ..data.preprocess import read_images
 from ..data.resolvers import get_task_data, task_domains
 from ..core.mesh import make_mesh
 from ..parallel import DataParallel
-from ..parallel.gspmd import (MeshParallel, gather_train_state, place_train_state,
-                              resolve_tp)
+from ..parallel.gspmd import (MeshParallel, gather_train_state, local_train_state,
+                              place_train_state, resolve_tp)
 from .checkpoint import (load_train_state, save_reference_layout,
-                         save_train_state, train_state_meta)
+                         save_train_state, state_slices, train_state_meta)
 from .chunk import LOSS_KEYS, ChunkProgram
 from .graph import ARCH_MODES
 from .logging_ import TrainingLogger
@@ -303,6 +309,32 @@ def load_weights(args, models: dict) -> None:
             print(f"모델 로드 성공: {path}")
 
 
+def save_checkpoint(model_path, ts, mp, iters: int, meta: dict, tag=None, *,
+                    backend: str = "npz", every_rank: bool = False,
+                    main: bool = True) -> None:
+    """One save of the trainer: the train state (holding ``iters``
+    iterations) and, where ``tag`` is set, the reference layout
+    ``{name}_{tag}.pth``. ``mp``: the rank's mesh (None: a one-process or
+    data-parallel state, whole on every rank). ``every_rank`` (the orbax
+    backend over several ranks, a collective): each rank writes its own
+    slices, and rank 0 the reference layout from the networks gathered
+    alone; else the whole state, gathered under a mesh, written by the main
+    rank."""
+    if every_rank:
+        save_train_state(model_path, local_train_state(ts, mp) if mp is not None
+                         else state_slices(ts, writes=main), iters, meta, backend=backend)
+        if tag is not None:
+            models = ts if mp is None else gather_train_state(ts, mp, moments=False)
+            if main:
+                save_reference_layout(model_path, models.models, tag)
+        return
+    state = ts if mp is None else gather_train_state(ts, mp)
+    if main:
+        save_train_state(model_path, state, iters, meta, backend=backend)
+        if tag is not None:
+            save_reference_layout(model_path, state.models, tag)
+
+
 def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None):
     """Train as the flags say; returns (result_path, model_path). ``ranks``:
     this process's place in a data-parallel group (core/distributed.py)."""
@@ -419,6 +451,12 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
         print(f"Saving results to: {result_path}")
         print(f"Saving models to: {model_path}")
     meta = train_state_meta(cfg, task=args.task_name)
+    backend = getattr(args, "ckpt_backend", "npz")
+    every_rank = backend == "orbax" and ranks is not None and ranks.world > 1
+
+    def save(iters: int, tag, meta: dict) -> None:
+        save_checkpoint(model_path, ts, mp, iters, meta, tag, backend=backend,
+                        every_rank=every_rank, main=main_rank)
 
     def dump_samples(iters):
         # Train-mode forwards: the running statistics advance, as in the
@@ -449,23 +487,12 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
         if i % args.model_save_interval == 0:
             if main_rank:
                 hbm_sample(result_path, i, device)
-            state = whole_state()
-            if main_rank:
-                save_reference_layout(model_path, state.models, i)
-                # The state holds iteration i: a resume from it trains i + 1 next.
-                save_train_state(model_path, state, i + 1, meta)
-
-    def whole_state():
-        """The state a save writes: under tensor parallelism gathered from
-        the slices onto rank 0's CPU (a collective of its data row's ranks;
-        None on the other ranks, which write nothing)."""
-        return ts if mp is None else gather_train_state(ts, mp)
+            # The state holds iteration i: a resume from it trains i + 1 next.
+            save(i + 1, i, meta)
 
     def preempt(iters: int):
-        state = whole_state()
+        save(iters, iters, dict(meta, preempted=True))
         if main_rank:
-            save_train_state(model_path, state, iters, dict(meta, preempted=True))
-            save_reference_layout(model_path, state.models, iters)
             print(f"SIGTERM: 학습 상태 저장 후 종료 (iter {iters}) — "
                   f"--resume {model_path} 로 재개")
         return result_path, model_path
@@ -543,11 +570,7 @@ def run_training(args, *, observer=None, angle_variant: bool = False, ranks=None
                     return preempt(iters)
         profiler.stop()
 
-    state = whole_state()
-    if main_rank:
-        save_reference_layout(model_path, state.models, "final")
-        save_train_state(model_path, state, iters, meta)
-    del state
+    save(iters, "final", meta)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t_start

@@ -347,22 +347,59 @@ class _Entry:
         return 0
 
 
-def test_ab_tool_matches_the_sources_and_entries(monkeypatch):
-    """tools/fused_ab.py's variants are text patches of csrc/bn_act.cu and
-    csrc/batch_stats.cu: each matches its source once; and its calls of
-    the two C entries pass as many arguments as their signatures take (the
-    pair axis's included)."""
-    from discogan_modernized_torch.ops import _build
-    from discogan_modernized_torch.tools import fused_ab
+def _ab_patches(tool: str) -> list:
+    """(source file, text patch) of every variant of an A/B tool."""
+    from discogan_modernized_torch.tools import conv_ab, fused_ab, head_ab
 
-    for name, (source, patches, _) in fused_ab.VARIANTS.items():
-        text = (_build.CSRC / source).read_text()
-        for old, _ in patches:
-            assert text.count(old) == 1, (name, old)
-    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    if tool == "fused_ab":
+        return [(source, old) for source, patches, _ in fused_ab.VARIANTS.values()
+                for old, _ in patches]
+    if tool == "conv_ab":
+        return [("conv_k4s2p1.cu", old) for patches, _ in conv_ab.VARIANTS.values()
+                for old, _ in patches]
+    return [("head_convt.cu", old) for patches in head_ab.VARIANTS.values()
+            for old, _ in patches]
+
+
+def _ab_calls(tool: str) -> list:
+    """Each C entry an A/B tool calls, as an ``_Entry``, after one call
+    through the tool's own call function on small CPU tensors."""
+    from discogan_modernized_torch.ops.head import head_plan
+    from discogan_modernized_torch.tools import conv_ab, fused_ab, head_ab
+
     x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
-    k1, k2 = _Entry("discogan_batch_stats"), _Entry("discogan_bn_act")
-    fused_ab._k1_call(k1, "K1 kernel", x, torch.zeros(STATS_MAX_TILES, dtype=torch.int32))[1]()
-    s = torch.ones(64)
-    fused_ab._k2_call(k2, "K2 kernel", x, s, s, torch.empty_like(x))[1]()
-    assert (k1.got, k2.got) == (k1.want, k2.want)
+    if tool == "fused_ab":
+        k1, k2 = _Entry("discogan_batch_stats"), _Entry("discogan_bn_act")
+        fused_ab._k1_call(k1, "K1 kernel", x, torch.zeros(STATS_MAX_TILES,
+                                                          dtype=torch.int32))[1]()
+        s = torch.ones(64)
+        fused_ab._k2_call(k2, "K2 kernel", x, s, s, torch.empty_like(x))[1]()
+        return [k1, k2]
+    if tool == "conv_ab":
+        k3 = _Entry("discogan_conv_k4s2p1")
+        wt = torch.zeros(4, 4, 64, 128, dtype=torch.bfloat16)
+        y = torch.empty(2, 2, 2, 128, dtype=torch.bfloat16)
+        for name in conv_ab.VARIANTS:
+            conv_ab._k3_call(k3, name, x, wt, y, torch.empty(2, 128), 0, 132)[1]()
+        return [k3]
+    k6 = _Entry("discogan_head_convt")
+    wt = torch.zeros(4, 4, 64, 3, dtype=torch.bfloat16)
+    head_ab._k6_call(k6, x, wt, torch.empty(2, 8, 8, 3, dtype=torch.bfloat16),
+                     head_plan(2, 4, 4, 64, 3, torch.bfloat16, 132))
+    return [k6]
+
+
+@pytest.mark.parametrize("tool", ["fused_ab", "conv_ab", "head_ab"])
+def test_ab_tool_matches_the_sources_and_entries(tool, monkeypatch):
+    """An A/B tool's variants are text patches of its csrc/ sources
+    (tools/fused_ab.py: bn_act.cu and batch_stats.cu; conv_ab.py:
+    conv_k4s2p1.cu; head_ab.py: head_convt.cu): each matches its source
+    once; and its calls of the C entries pass as many arguments as their
+    signatures take (the pair axis's included)."""
+    from discogan_modernized_torch.ops import _build
+
+    for source, old in _ab_patches(tool):
+        assert (_build.CSRC / source).read_text().count(old) == 1, (tool, source, old)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    for entry in _ab_calls(tool):
+        assert entry.got == entry.want, (tool, entry.got, entry.want)

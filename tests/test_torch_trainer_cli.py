@@ -62,10 +62,22 @@ def test_trainer_end_to_end(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--parallel_mode=gspmd", "--xla_copts=a=b",
-                                  "--ckpt_backend=npz"])
+                                  "--ckpt_backend=bogus"])
 def test_unported_flags_are_refused(flag, tmp_path):
     with pytest.raises(SystemExit):
         run(tmp_path, flag)
+
+
+def test_both_trainers_take_each_ckpt_backend():
+    """--ckpt_backend takes the JAX package's choices and default (npz) on
+    the translation trainer, its data-parallel CLI and the angle trainer."""
+    from discogan_modernized_torch.cli.common import (angle_parser, distributed_parser,
+                                                      translation_parser)
+
+    for parser in (translation_parser, distributed_parser, angle_parser):
+        assert parser().parse_args([]).ckpt_backend == "npz"
+        for backend in ("npz", "orbax"):
+            assert parser().parse_args([f"--ckpt_backend={backend}"]).ckpt_backend == backend
 
 
 @pytest.mark.parametrize("flag,line", [

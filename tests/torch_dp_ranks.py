@@ -11,6 +11,7 @@ import functools
 import hashlib
 import os
 import pickle
+import signal
 import socket
 
 import numpy as np
@@ -393,6 +394,149 @@ def _plain_copy(state, cfg):
                 a.copy_(b)
             mine.step = theirs.step
     return ts
+
+
+def mesh_orbax(rank, world, p) -> dict:
+    """Orbax saves (train/checkpoint.py: every rank writes its own slices)
+    moved between meshes, under ``p["cfg"]``: a seeded state after
+    ``p["kinds"]`` steps on the tp 2 mesh and on the (data 2, model 1) mesh,
+    each saved as the trainer saves it (``loop.save_checkpoint``, with the
+    reference layout), gathered (``saved``); each save loaded into a fresh
+    state, placed on the tp 2 and the tp 1 mesh and gathered (``loaded``,
+    by (tp saved from, tp loaded at)), and on rank 0 as one process
+    (``one``). The gathers of the orbax save and of an npz save of the same
+    state (``parallel.collectives``), the split parameters' count, and the
+    files of each save. Digests only (``digest``): equal digests, equal
+    bits."""
+    from discogan_modernized_torch.parallel import collectives, reset_collectives
+    from discogan_modernized_torch.parallel.gspmd import place_train_state
+    from discogan_modernized_torch.train.checkpoint import (ORBAX_DIR, load_train_state,
+                                                            train_state_meta)
+    from discogan_modernized_torch.train.loop import save_checkpoint
+
+    cfg = TrainConfig(**p["cfg"])
+    meta = train_state_meta(cfg)
+    out = {"saved": {}, "loaded": {}, "one": {}, "gathers": {}, "files": {}, "split": {}}
+    for tp in (2, 1):
+        mp = _mesh(world, dict(p, tp=tp))
+        ts = _mesh_state(p, cfg, mp)
+        _mesh_run(ts, cfg, mp, p["batches"], p["kinds"])
+        for backend in ("orbax", "npz"):
+            reset_collectives()
+            save_checkpoint(os.path.join(p["dir"], f"{backend}{tp}"), ts, mp, p["n"], meta,
+                            p["n"], backend=backend, every_rank=backend == "orbax",
+                            main=rank == 0)
+            out["gathers"][backend, tp] = collectives["gather"]
+        out["split"][tp] = sum(len(v) for v in mp.shards.values())
+        saved = _gathered(ts, mp)
+        out["saved"][tp] = None if saved is None else digest(saved)
+        files = os.path.join(p["dir"], f"orbax{tp}", ORBAX_DIR)
+        out["files"][tp] = sorted(os.listdir(files))
+        dist.barrier()
+    for tp_from in (2, 1):
+        d = os.path.join(p["dir"], f"orbax{tp_from}")
+        for tp_to in (2, 1):
+            fresh = init_train_state(99, cfg)
+            assert load_train_state(d, fresh, cfg) == p["n"]
+            second = _mesh(world, dict(p, tp=tp_to))
+            loaded = _gathered(place_train_state(fresh, second, cfg, "cpu"), second)
+            out["loaded"][tp_from, tp_to] = None if loaded is None else digest(loaded)
+        if rank == 0:
+            fresh = init_train_state(99, cfg)
+            assert load_train_state(d, fresh, cfg) == p["n"]
+            out["one"][tp_from] = digest(_arrays(fresh))
+        dist.barrier()
+    return out
+
+
+def orbax_failed_write(rank, world, p) -> dict:
+    """An orbax save at tp 2 after ``p["kinds"]`` steps, then one more step
+    and a second save whose write fails on rank 1 alone
+    (``torch.save`` raises there): each rank's error, then the save
+    loaded back (on every rank: its digest and iteration count) beside the
+    first save's state, gathered, and a third save that succeeds."""
+    from discogan_modernized_torch.parallel.gspmd import local_train_state
+    from discogan_modernized_torch.train import checkpoint
+    from discogan_modernized_torch.train.checkpoint import (ORBAX_NEW, load_train_state,
+                                                            save_train_state,
+                                                            train_state_meta)
+
+    cfg = TrainConfig(**p["cfg"])
+    mp = _mesh(world, dict(p, tp=2))
+    ts = _mesh_state(p, cfg, mp)
+    _mesh_run(ts, cfg, mp, p["batches"], p["kinds"])
+    meta = train_state_meta(cfg)
+    save_train_state(p["dir"], local_train_state(ts, mp), 2, meta, backend="orbax")
+    first = _gathered(ts, mp)
+    _mesh_run(ts, cfg, mp, p["batches"][:1], p["kinds"][:1])
+    real = checkpoint.torch.save
+
+    def failing(obj, f, *args, **kwargs):
+        raise OSError(28, "No space left on device (planted)", str(f))
+
+    out = {"error": None}
+    if rank == 1:
+        checkpoint.torch.save = failing
+    try:
+        save_train_state(p["dir"], local_train_state(ts, mp), 3, meta, backend="orbax")
+    except Exception as e:  # noqa: BLE001
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        checkpoint.torch.save = real
+    out["stale_new"] = os.path.isdir(os.path.join(p["dir"], ORBAX_NEW))
+    fresh = init_train_state(99, cfg)
+    out["iters"] = load_train_state(p["dir"], fresh, cfg)
+    out["loaded"] = digest(_arrays(fresh))
+    out["first"] = None if first is None else digest(first)
+    dist.barrier()
+    save_train_state(p["dir"], local_train_state(ts, mp), 3, meta, backend="orbax")
+    out["after"] = load_train_state(p["dir"], init_train_state(99, cfg), cfg)
+    out["stale_new_after"] = os.path.isdir(os.path.join(p["dir"], ORBAX_NEW))
+    return out
+
+
+class StopAt:
+    """A run_training observer that sends this process SIGTERM at the end
+    of iteration ``k`` (per step) or of the chunk that starts there."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def begin(self, iters, kind):
+        pass
+
+    def end(self, iters, kind, losses):
+        if iters == self.k:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def begin_chunk(self, iters0, kinds):
+        pass
+
+    def end_chunk(self, iters0, kinds, losses, program):
+        if iters0 == self.k:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def mesh_cli_resume(rank, world, p) -> dict:
+    """The distributed trainer on this rank (flags ``p["argv"]``): a run to
+    the end, then for each (tag, extra flags, k) of ``p["stopped"]`` a run
+    sent SIGTERM on rank 0 alone by ``StopAt(k)`` and its ``--resume`` to
+    the end. The runs' (result, model) directories, by tag; the stopped
+    runs' model directories."""
+    def train(tag, *extra, observer=None):
+        args = parse_with_config(distributed_parser(), [
+            *p["argv"], f"--results_dir={p['dir']}/{tag}/r",
+            f"--models_dir={p['dir']}/{tag}/m", *extra])
+        return run_training(args, observer=observer,
+                            ranks=Ranks(rank, world, rank, torch.device("cpu"), "gloo", world))
+
+    out = {"full": [str(x) for x in train("full")]}
+    for tag, extra, k in p["stopped"]:
+        _, stopped = train(f"{tag}_stopped", *extra,
+                           observer=StopAt(k) if rank == 0 else None)
+        out[f"{tag}_stopped"] = str(stopped)
+        out[tag] = [str(x) for x in train(tag, *extra, f"--resume={stopped}")]
+    return out
 
 
 def mesh_cli(rank, world, p) -> list:
