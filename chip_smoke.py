@@ -114,7 +114,10 @@ card machine ends a call after 45 GiB of writes):
               halo_wgmma_kernel, head_convt_mma_kernel) and none under their
               FMA ones (nor under a WMMA one for K3), and K2's under
               bn_act_vec_kernel and bn_act_any_kernel (the latent's C of
-              100) and none under the kernel they replaced.
+              100) and none under the kernel they replaced; then the f32
+              forward at batch 4 (TF32 off) through the kernels, the plain
+              versions and cuDNN (LIBRARY_OPS), timed, held together and
+              profiled: K3's time under conv_fma_kernel and its split sums.
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -599,6 +602,8 @@ def kernel_cases():
 
     # K3 at every layer with and without its statistics at batch 1, 4 and 8
     # (the paths above hold the other halves), and its edge shapes
+    for batch in (1, 4, 8):
+        cases.append(("conv_stats", f"enc0 b{batch} st", (batch, SIZE, SIZE, 3, 64), None, 0))
     h, ci = 128, 128
     for i, co in enumerate(CHANS[2:], start=2):
         for batch in (1, 4):
@@ -743,6 +748,7 @@ def run_case(kernel, args, dtype, timer, g, band=None):
     math_dtype = dtype
     stats_tol = None  # tolerance of the statistics outputs, where there are some
     copy = None  # x.clone(), the practical copy rate, beside K1 and K2
+    plan = None  # K3's plan, where the call is K3's
     if kernel == "bn_act":
         n, h, w, c, act = args
         x = rand(n, h, w, c)
@@ -778,9 +784,11 @@ def run_case(kernel, args, dtype, timer, g, band=None):
         fn, plain_fn = ((halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_plain)
                         if kernel == "halo_conv_k4s2p1" else
                         (conv2d_k4s2p1, conv2d_k4s2p1_plain))
-        if kernel != "halo_conv_k4s2p1" and dtype == torch.bfloat16:  # K3's route
-            want = "wgmma_stem" if ci <= 4 else "wgmma" if ci % 64 == 0 else "fma"
-            assert conv_plan(n, h, w, ci, co, dtype).path == want
+        if kernel != "halo_conv_k4s2p1":  # K3's route: f32 on the CUDA cores
+            plan = conv_plan(n, h, w, ci, co, dtype)
+            want = ("fma" if dtype == torch.float32 else "wgmma_stem" if ci <= 4
+                    else "wgmma" if ci % 64 == 0 else "fma")
+            assert plan.path == want, (args, plan)
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
         m = n * (h // 2) * (w // 2)
         flops = 2 * m * 16 * ci * co
@@ -836,6 +844,9 @@ def run_case(kernel, args, dtype, timer, g, band=None):
     if counted in ("head_convt", "conv_k4s2p1") and _build.launches[counted] != before + 1:
         raise AssertionError(f"{counted} {args}: {_build.launches[counted] - before} "
                              "launches for one call")
+    if kernel == "conv_k4s2p1" and plan.splits > 1 and not torch.equal(got, kern()):
+        raise AssertionError(f"conv_k4s2p1 {args} {DTYPE_NAMES[dtype]}: two launches of a "
+                             f"split in {plan.splits} gave different bits")
     if kernel.endswith("_dw") and not torch.equal(got, kern()):
         raise AssertionError(f"{kernel} {args} {DTYPE_NAMES[dtype]}: two launches "
                              "gave different bits")
@@ -868,6 +879,8 @@ def run_case(kernel, args, dtype, timer, g, band=None):
     out = {"err": err, "ms": timer.ms(kern), "plain_ms": timer.ms(plain),
            "library_ms": timer.ms(lib), "bound_ms": bound, "bound_by": by,
            "flops": flops, "bytes": nbytes}
+    if plan is not None:
+        out["plan"] = f"{plan.path} {plan.tile[0]}x{plan.tile[1]} x{plan.splits}"
     if copy is not None:
         out["clone_ms"] = timer.ms(copy)
     return out
@@ -901,8 +914,8 @@ def check_kernels(timer):
                 r, path=path, calls=calls)
             print(f"{kernel:18} {label:12} {DTYPE_NAMES[dtype]:5} "
                   f"{r['err']:10.3e} {r['ms']:9.4f} {r['plain_ms']:9.4f} "
-                  f"{r['library_ms']:9.4f} {r['bound_ms']:9.4f}  {r['bound_by']}",
-                  flush=True)
+                  f"{r['library_ms']:9.4f} {r['bound_ms']:9.4f}  {r['bound_by']}"
+                  + (f"  {r['plan']}" if "plan" in r else ""), flush=True)
     return results
 
 
@@ -1056,10 +1069,10 @@ def check_pair_launches(timer) -> dict:
     return sums
 
 
-def _sums(rows, weight):
-    """Time, plain, bound and library sums over bf16 case rows, each row
-    counted ``weight(row)`` times; and what bounds the sum."""
-    t_ops = sum(weight(v) * v["flops"] / PEAK_FLOPS[torch.bfloat16] for v in rows)
+def _sums(rows, weight, dtype=torch.bfloat16):
+    """Time, plain, bound and library sums over case rows of ``dtype``, each
+    row counted ``weight(row)`` times; and what bounds the sum."""
+    t_ops = sum(weight(v) * v["flops"] / PEAK_FLOPS[dtype] for v in rows)
     t_bytes = sum(weight(v) * v["bytes"] / HBM_BYTES_PER_S for v in rows)
     return ({key: sum(weight(v) * v[key] for v in rows)
              for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1075,6 +1088,12 @@ def per_layer_lines(results) -> None:
                             and k[0] in ("conv_k4s2p1", "halo_conv_k4s2p1")]),
             ("K6", [(k[1], v) for k, v in results.items()
                     if k[2] == torch.bfloat16 and k[0] == "head_convt" and v["path"]])]
+    # K3 in f32 (TF32 off) at every layer: the batch-8 training forward's
+    # calls (with the statistics) and the batch-4 forward's (the epilogue)
+    for what, path in (("K3 f32 batch 8", "train"), ("K3 f32 batch 4", "cli")):
+        rows.append((what, [(k[1].split()[0], v) for k, v in results.items()
+                            if k[2] == torch.float32 and v["path"] == path
+                            and k[0] == "conv_k4s2p1"]))
     for what, cases in rows:
         print(f"{what} (ms: kernel / library / bound): " + "; ".join(
             f"{label} {v['ms']:.4f} / {v['library_ms']:.4f} / {v['bound_ms']:.4f}"
@@ -1121,9 +1140,11 @@ def kernel_summary(results, launches, pair_ms):
     the times summed over the calls of one 512px batch-4 forward (and the
     kernel ms of one batch-1 forward); for the training-only kernels (K1,
     K4, K5b), summed over the calls of one 512px batch-8 G step. Every
-    kernel also carries its G-step sums (train_step_*). With the largest
-    bf16 and f32 errors, the launches of every path run, and its pair
-    launches' ms beside two single launches' over its training shapes
+    kernel also carries its G-step sums (train_step_*), and the same sums in
+    f32 with TF32 off (f32_train_step_*; the serving kernels' batch-4
+    forward, f32_*), each against the f32 bound (67 TFLOP/s). With the
+    largest bf16 and f32 errors, the launches of every path run, and its
+    pair launches' ms beside two single launches' over its training shapes
     (pair_ms, two_singles_ms)."""
     out = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -1150,6 +1171,15 @@ def kernel_summary(results, launches, pair_ms):
                 sums, by = _sums(rows_, lambda v: v["calls"])
                 entry.update({f"{path}_{k}": v for k, v in sums.items()},
                              **{f"{path}_bound_by": by, f"{path}_cases": len(rows_)})
+        f32 = [v for k, v in rows.items() if k[2] == torch.float32]
+        f32_train, f32_by = _sums([v for v in f32 if v["path"] == "train"],
+                                  lambda v: v["calls"], torch.float32)
+        entry.update({f"f32_train_step_{k}": v for k, v in f32_train.items()},
+                     f32_train_step_bound_by=f32_by)
+        if name in SERVING_KERNELS:
+            f32_cli, by = _sums([v for v in f32 if v["path"] == "cli"], lambda v: 1,
+                                torch.float32)
+            entry.update({f"f32_{k}": v for k, v in f32_cli.items()}, f32_bound_by=by)
         entry.update({f"train_step_{k}": v for k, v in train.items()},
                      train_step_bound_by=by_train,
                      calls_per_g_step=PER_STEP["gen"][name],
@@ -1552,7 +1582,7 @@ def drive_export(model_dir: Path, work: Path, images: np.ndarray) -> dict:
 
 KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "batch_stats_kernel": "K1 batch_stats",
-    "conv_k4s2p1_kernel": "K3 conv_k4s2p1", "conv_wgmma_kernel": "K3 conv_k4s2p1",
+    "conv_fma_kernel": "K3 conv_k4s2p1", "conv_wgmma_kernel": "K3 conv_k4s2p1",
     "conv_stem_wgmma_kernel": "K3 conv_k4s2p1",
     "splitk_epilogue_kernel": "K3 conv_k4s2p1",
     "splitk_stats_epilogue_kernel": "K3 conv_k4s2p1",
@@ -1604,8 +1634,9 @@ def check_k5f_route(by_kernel: dict, what: str) -> None:
 K3_TC_KERNELS = ("conv_wgmma_kernel", "conv_stem_wgmma_kernel")
 K3_SPLIT_KERNELS = ("splitk_epilogue_kernel", "splitk_stats_epilogue_kernel",
                     "conv_stats_finalize_kernel")
-# K3's FMA kernel, and the WMMA kernel its bf16 path ran before the wgmma one
-K3_OFF_ROUTE = ("conv_k4s2p1_kernel", "conv_tc_kernel")
+# K3's FMA kernel on the CUDA cores, the one it replaced, and the WMMA kernel
+# its bf16 path ran before the wgmma one
+K3_OFF_ROUTE = ("conv_fma_kernel", "conv_k4s2p1_kernel", "conv_tc_kernel")
 
 
 def check_k3_route(by_kernel: dict, what: str) -> None:
@@ -1622,6 +1653,101 @@ def check_k3_route(by_kernel: dict, what: str) -> None:
     print(f"{what}: K3 " + ", ".join(f"{us / 1e3:.4f} ms under {k}" for k, us in tc.items())
           + f" and {sums / 1e3:.4f} ms under its split sums and statistics, none under "
           + " or ".join(K3_OFF_ROUTE))
+
+
+# K3's f32 kernel on the CUDA cores, and its split sums (a split call's
+# second pass; the statistics' last pass runs on every call that takes them)
+K3_F32_KERNEL = "conv_fma_kernel"
+K3_F32_SPLIT_SUMS = ("splitk_epilogue_kernel", "splitk_stats_epilogue_kernel")
+
+
+def check_k3_f32_route(by_kernel: dict, what: str, splits: bool) -> None:
+    """The profile of an f32 path shows K3's time under its CUDA-core kernel
+    and, where a call's plan splits K (``splits``), under the split sums;
+    none under the tensor cores' kernels or the FMA kernel it replaced."""
+    fma = sum(us for name, us in by_kernel.items() if K3_F32_KERNEL in name)
+    sums = sum(us for name, us in by_kernel.items()
+               if any(k in name for k in K3_F32_SPLIT_SUMS))
+    off = {k: sum(us for name, us in by_kernel.items() if k in name)
+           for k in (*K3_TC_KERNELS, "conv_k4s2p1_kernel")}
+    if not fma > 0 or (splits and not sums > 0) or any(us > 0 for us in off.values()):
+        raise AssertionError(f"{what}: K3 {fma:.1f} us under {K3_F32_KERNEL}, {sums:.1f} us "
+                             f"under its split sums, {off} us off its route")
+    print(f"{what}: K3 {fma / 1e3:.4f} ms under {K3_F32_KERNEL} and {sums / 1e3:.4f} ms under "
+          "its split sums, none under " + " or ".join(off))
+
+
+def _library_conv(x, w, *, scale=None, offset=None, act=None):
+    """K3's and K5f's function through cuDNN (NHWC data, channels-last views)."""
+    from discogan_modernized_torch.ops.activations import apply_act
+
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=2,
+                 padding=1).permute(0, 2, 3, 1)
+    return apply_act(y if scale is None else y * scale + offset, act)
+
+
+def _library_bn_act(x, scale, offset, act):
+    from discogan_modernized_torch.ops.activations import apply_act
+
+    return apply_act(x * scale + offset, act)
+
+
+def _library_head(x, w):
+    return F.conv_transpose2d(x.permute(0, 3, 1, 2), w.permute(2, 3, 0, 1), stride=2,
+                              padding=1).permute(0, 2, 3, 1)
+
+
+# The eval forward's ops table (ops/autograd.py's keys) on PyTorch's own
+# calls: each kernel's function through cuDNN or elementwise ops.
+LIBRARY_OPS = {"conv": _library_conv, "halo": _library_conv, "bn_act": _library_bn_act,
+               "head": _library_head}
+
+
+def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> None:
+    """One 512px f32 forward (TF32 off) at ``batch``: CUDA-event ms through
+    the kernels, through the plain versions and through cuDNN
+    (``LIBRARY_OPS``), the three outputs held together (1e-4), and its
+    profile, with K3's time under its CUDA-core kernel and split sums."""
+    from discogan_modernized_torch.cli.inference import load_generators
+    from discogan_modernized_torch.core.precision import F32, configure
+    from discogan_modernized_torch.models.generator import eval_forward
+    from discogan_modernized_torch.models.geometry import encoder_channels
+    from discogan_modernized_torch.ops.conv_k4s2p1 import conv_plan
+    from discogan_modernized_torch.ops.halo_conv import takes_halo
+
+    configure(F32)
+    fwd, _ = load_generators(model_dir, "AtoB", SIZE, "cuda")
+    x = torch.from_numpy(images[:batch]).cuda()
+    operands = fwd._operands(torch.float32)
+
+    def library():
+        return eval_forward(operands, x, torch.float32, LIBRARY_OPS)
+
+    with torch.no_grad():
+        got, plain, lib = fwd(x, policy=F32), fwd(x, policy=F32, plain=True), library()
+    err = max((got - plain).abs().max().item(), (got - lib).abs().max().item())
+    if not err <= TOL[torch.float32]:
+        raise AssertionError(f"f32 forward batch {batch}: kernels, plain and cuDNN differ by "
+                             f"{err:.3e}")
+    ms = timer.ms(lambda: fwd(x, policy=F32))
+    plain_ms = timer.ms(lambda: fwd(x, policy=F32, plain=True))
+    lib_ms = timer.ms(lambda: library())
+    print(f"forward 512px batch {batch} f32 (TF32 off): {ms:.3f} ms through the kernels, "
+          f"{plain_ms:.3f} ms through the plain versions, {lib_ms:.3f} ms through cuDNN "
+          f"(outputs within {err:.1e})")
+    splits, h, ci = False, SIZE, 3
+    for co in encoder_channels(SIZE):
+        xs, ws = torch.empty(batch, h, h, ci, device="meta"), torch.empty(4, 4, ci, co,
+                                                                          device="meta")
+        if not takes_halo(xs, ws):
+            splits |= conv_plan(batch, h, h, ci, co, torch.float32).splits > 1
+        h, ci = h // 2, co
+    for _ in range(3):  # the profiler now and then keeps only a window's tail
+        by_kernel = profile_forward(fwd, x, F32)
+        if any(K3_F32_KERNEL in name for name in by_kernel):
+            break
+        print(f"the profile holds no {K3_F32_KERNEL}; profiling again")
+    check_k3_f32_route(by_kernel, f"f32 forward batch {batch}", splits)
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
@@ -1895,9 +2021,15 @@ def check_equivalence() -> None:
                     for _ in range(2))
             A1, B1 = (torch.nextafter(t, torch.full_like(t, 2.0)) for t in (A, B))
             for which in ("dis", "gen"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 losses, grads = loss_and_grads(ts, A, B, 0.01, cfg, F32, which)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
                 plain_losses, plain_grads = loss_and_grads(ts, A, B, 0.01, cfg, F32,
                                                            which, plain=True)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
                 _, nudged = loss_and_grads(ts, A1, B1, 0.01, cfg, F32, which, plain=True)
                 loss_rel = max(abs(float(losses[k]) - float(v)) / max(abs(float(v)), 1e-30)
                                for k, v in plain_losses.items())
@@ -1908,7 +2040,9 @@ def check_equivalence() -> None:
                 floor, floor_name = worst(names, nudged, plain_grads, norm)
                 limit = max(EQUIV_GRAD_REL, EQUIV_FLOOR_FACTOR * floor)
                 print(f"{which} step, f32 batch {EQUIV_BATCH}, data seed {seed}: losses "
-                      + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items()))
+                      + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items())
+                      + f"; {t1 - t0:.3f} s through the kernels, {t2 - t1:.3f} s through "
+                      "the plain versions (host clock)")
                 print(f"  kernels vs plain: max relative loss difference {loss_rel:.3e} "
                       f"(limit {EQUIV_LOSS_REL:.0e}); worst gradient ||diff||/||g|| "
                       f"{grad_rel:.3e} ({grad_name}, limit {limit:.3e}) over "
@@ -2469,6 +2603,8 @@ def mesh_ranks(work: Path, world1_peak: int | None, faults: bool = False) -> dic
     if not faults:
         mesh_saves_report(ranks)
         mesh_bf16_report(ranks, world1_peak)
+    print(f"mesh f32 steps (rank 0's host seconds, the card synchronized): " + ", ".join(
+        f"{k} {s:.3f}" for k, s in ranks[0]["f32"]["seconds"].items()))
     readings = {}
     for mode in MESH_MODES:
         for which in ("dis", "gen"):
@@ -2787,13 +2923,23 @@ def mesh_rank_f32(rank: int, world: int, whole, A, B) -> dict:
     cfg = dataclasses.replace(mesh_config(), precision="f32")
     configure(F32)
     torch.use_deterministic_algorithms(True)
+    seconds = {}  # each step's host seconds, the card synchronized around it
+
+    def timed(key, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = loss_and_grads(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return r
+
     ref = {}
     if rank == 0:
         one = _one_process(whole, cfg)
         nudged = [torch.nextafter(t, torch.full_like(t, 2.0)) for t in (A, B)]
         for which in ("dis", "gen"):
-            ref[which] = [loss_and_grads(one, a, b, 0.01, cfg, F32, which)
-                          for a, b in ((A, B), nudged)]
+            ref[which] = [timed(f"one process {which}", one, A, B, 0.01, cfg, F32, which),
+                          loss_and_grads(one, *nudged, 0.01, cfg, F32, which)]
         names = {which: _step_names(one, cfg, which) for which in ("dis", "gen")}
         del one
     out = {}
@@ -2803,7 +2949,7 @@ def mesh_rank_f32(rank: int, world: int, whole, A, B) -> dict:
         ts = place_train_state(copy.deepcopy(whole), mp, cfg, "cuda")
         out[mode] = {}
         for which in ("dis", "gen"):
-            losses, grads = loss_and_grads(ts, A, B, 0.01, cfg, F32, which, dp=mp)
+            losses, grads = timed(f"{mode} {which}", ts, A, B, 0.01, cfg, F32, which, dp=mp)
             whole_grads = []
             for (k, n), g in zip(_step_names(ts, cfg, which), grads):
                 dim = mp.shards[k].get(n)
@@ -2818,6 +2964,7 @@ def mesh_rank_f32(rank: int, world: int, whole, A, B) -> dict:
                                              want_g, nudged_l, nudged_g)
             del whole_grads
         del ts
+    out["seconds"] = seconds
     return out
 
 
@@ -4020,8 +4167,9 @@ AB_VARIANTS = ("kernel", "copies only", "no copies")
 TRAIN_ITER = re.compile(r"Iter \[(\d+)/\d+\]")
 
 
-def _tool(name: str, argv: list):
-    """Run a tool's main() with its launches counted: (result, launches)."""
+def _tool(name: str, argv: list, want=None):
+    """Run a tool's main() with its launches counted: (result, launches).
+    It must launch ``want``'s kernels (default: TOOL_KERNELS[name])."""
     import importlib
 
     from discogan_modernized_torch.ops import _build
@@ -4032,7 +4180,7 @@ def _tool(name: str, argv: list):
     out = module.main(argv)
     torch.cuda.synchronize()
     launched = {k for k, v in _build.launches.items() if v}
-    want = TOOL_KERNELS.get(name)
+    want = TOOL_KERNELS.get(name) if want is None else want
     if want is not None and launched != want:
         raise AssertionError(f"{name}: launched {sorted(launched)}, want {sorted(want)}")
     print(f"-- tool {name}: {time.perf_counter() - t0:.1f} s; kernels {sorted(launched)}",
@@ -4074,7 +4222,8 @@ def drive_pipe_probe() -> dict:
 
 def drive_timing_tools() -> dict:
     """kernel_bench, conv_kernel_bench --dw --fused, fwd_profile, layer_ab
-    (enc1, fwd/dx/dw, kernel and library), step_itemize and roofline, each
+    (enc1, fwd/dx/dw, kernel and library; enc2's forward in f32), step_itemize
+    and roofline, each
     once through its main(), at small shapes: the tools' plumbing is what
     this checks, and phase 3's 512px times are the kernels' record.
     TOOL_SIZE batch TOOL_BATCH for the layers and calls (K5f's route holds
@@ -4108,6 +4257,15 @@ def drive_timing_tools() -> dict:
         raise AssertionError(f"layer_ab: {len(rows)} rows for enc1's three modes")
     for r in rows:
         _positive(f"layer_ab {r['layer']} {r['mode']}", r["us"].values())
+    # K3's f32 route (the CUDA cores) against cuDNN in f32 with TF32 off
+    rows, launches["layer_ab f32"] = _tool(
+        "layer_ab", ["--size", str(TOOL_SIZE), "--batch", str(TOOL_BATCH), "--layer", "enc2",
+                     "--modes", "fwd", "--impls", "kernel,library", "--rounds", "2",
+                     "--dtype", "f32"], want={"conv_k4s2p1"})
+    if len(rows) != 1:  # the generator's enc2 (the discriminator's is "dis2")
+        raise AssertionError(f"layer_ab f32: {len(rows)} rows for enc2's forward")
+    for r in rows:
+        _positive(f"layer_ab f32 {r['layer']} {r['mode']}", r["us"].values())
     out, launches["step_itemize"] = _tool(
         "step_itemize", ["--image_size", str(SIZE64), "--batch", str(BATCH64), "--reps", "5"])
     _positive("step_itemize", [v for k, v in out.items() if k.startswith("t_")])
@@ -4412,6 +4570,7 @@ def run_phases(argv: list) -> int:
         check_outputs(model_dir, images)
         forward_ms = time_forward(model_dir, images, timer, BATCH)
         time_forward(model_dir, images, timer, 1)
+        time_forward_f32(model_dir, images, timer, BATCH)
 
         phase("serve at 512px")
         tr, forwards = drive_serve(model_dir, images)

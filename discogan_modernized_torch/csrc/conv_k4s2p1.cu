@@ -19,8 +19,8 @@
 //
 // The wrapper plans each call (ops/conv_k4s2p1.py::conv_plan) and passes
 // the path, tile, stages, split, grid and shared memory; the C entry
-// refuses a plan whose splits do not cover K once or whose shared memory
-// passes a block's 232,448 bytes. Three paths:
+// refuses a plan whose splits do not cover K once, whose grid is off or
+// whose shared memory passes a block's 232,448 bytes. Three paths:
 // - bf16 with CI % 64 == 0 and CO % 8 == 0 (enc2..enc6; enc1 of the 64px
 //   model): conv_wgmma_kernel. A block computes a 128 x 128 output tile
 //   with two warpgroups, wgmma m64n128k16 from shared memory; 128 x 256
@@ -55,9 +55,19 @@
 //   K4's stem builds it; the 16*CI x 64 weights stay resident as an
 //   MN-major B; wgmma m64n64k16 over CI steps of 16; leaky in registers and
 //   16-byte row stores of y, which bound the call.
-// - everything else (f32, and channel counts off those tiles): f32 FMA on
-//   the CUDA cores, one 64x64 output tile per block of 256 threads, each
-//   thread a 4x4 micro-tile, K in steps of 16 (16 divides every 16*CI).
+// - everything else (f32 at every layer, and bf16 channel counts off those
+//   tiles: CI 32 and 96): conv_fma_kernel, an implicit GEMM in exact f32
+//   FMA on the CUDA cores (no tensor cores, no TF32). A block of 256
+//   threads computes a 128 x 128 output tile (64 x 128 where M <= 64, 128 x
+//   64 where CO <= 64), each thread an 8 x 8 (8 x 4) register micro-tile;
+//   K through a ring of 3 stages in shared memory, in steps of 32 filled by
+//   16-byte cp.async (x's channels of one tap, w's rows) where f32 CI and CO
+//   are multiples of 4, else in steps of 16 (16 divides every 16*CI) filled
+//   by scalar loads.
+//   K is split by the wgmma path's rule (while the tiles fill less than a
+//   wave), its partials summed by the same split pass. Bound: the f32 FMAs
+//   (67 TFLOP/s) at enc2..enc6, but for the weights' bytes where M is short
+//   (enc6 at batch 1 and 2: 268 MB).
 //
 // Statistics are summed in a fixed order with no float atomics, so two
 // launches give the same bits: each block (or, on a split, each 64-row
@@ -73,146 +83,436 @@ namespace {
 
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on the H100
 
-// ---- f32 FMA path ---------------------------------------------------------
+// ---- split sums (the wgmma and the CUDA-core paths) ----------------------
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
+// Sum of the split-K partials, then the epilogue.
+template <typename T>
+__global__ void splitk_epilogue_kernel(const float* __restrict__ partial, int splits,
+                                       long long mco, int co, const float* __restrict__ scale,
+                                       const float* __restrict__ offset, T* __restrict__ y,
+                                       int act, PairStrides ps) {
+  const int pair = blockIdx.y;
+  partial = at_pair(partial, ps.ws, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < mco;
+       i += stride) {
+    float v = 0.f;
+    for (int s = 0; s < splits; ++s) v += partial[s * mco + i];
+    const int col = static_cast<int>(i % co);
+    if (scale != nullptr) v = v * scale[col] + offset[col];
+    y[i] = from_f32<T>(apply_act(v, act));
+  }
+}
+
+// Sum of the split-K partials, the epilogue, and the statistics of the
+// summed f32 accumulator: block (64-row group, 64-column tile), 4 row lanes
+// of 64 column lanes, folded in order into one partial row per row group.
+constexpr int SR_ROWS = 64;
+constexpr int SR_COLS = 64;
+constexpr int SR_LANES = 4;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    conv_k4s2p1_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const float* __restrict__ scale, const float* __restrict__ offset,
-                       T* __restrict__ y, float* __restrict__ stat_part, int n, int h, int wd,
-                       int ci, int co, int act, PairStrides ps) {
-  __shared__ float As[BK][BM + 1];  // +1: the transposed store is conflict-free
-  __shared__ float Bs[BK][BN];
+__global__ void __launch_bounds__(SR_COLS * SR_LANES)
+    splitk_stats_epilogue_kernel(const float* __restrict__ partial, int splits,
+                                 long long m_total, int co, const float* __restrict__ scale,
+                                 const float* __restrict__ offset, T* __restrict__ y, int act,
+                                 float* __restrict__ stat_part, PairStrides ps) {
+  __shared__ float red[2][SR_LANES][SR_COLS];
   const int pair = blockIdx.z;
+  partial = at_pair(partial, ps.ws, pair);
+  y = at_pair(y, ps.y, pair);
+  scale = at_pair(scale, ps.aff, pair);
+  offset = at_pair(offset, ps.aff, pair);
+  stat_part = at_pair(stat_part, ps.ws, pair);
+  const int lc = threadIdx.x % SR_COLS, lr = threadIdx.x / SR_COLS;
+  const int col = blockIdx.y * SR_COLS + lc;
+  const long long m0 = static_cast<long long>(blockIdx.x) * SR_ROWS;
+  const long long mco = m_total * co;
+  float s = 0.f, q = 0.f;
+  if (col < co) {
+    for (int rr = lr; rr < SR_ROWS; rr += SR_LANES) {
+      const long long m = m0 + rr;
+      if (m >= m_total) break;
+      float v = 0.f;
+      for (int sp = 0; sp < splits; ++sp) v += partial[sp * mco + m * co + col];
+      s += v;
+      q = fmaf(v, v, q);
+      if (scale != nullptr) v = v * scale[col] + offset[col];
+      y[m * co + col] = from_f32<T>(apply_act(v, act));
+    }
+  }
+  red[0][lr][lc] = s;
+  red[1][lr][lc] = q;
+  __syncthreads();
+  if (lr == 0 && col < co) {
+    float ts = 0.f, tq = 0.f;
+#pragma unroll
+    for (int i = 0; i < SR_LANES; ++i) {
+      ts += red[0][i][lc];
+      tq += red[1][i][lc];
+    }
+    const long long row = static_cast<long long>(blockIdx.x) * 2 * co;
+    stat_part[row + col] = ts;
+    stat_part[row + co + col] = tq;
+  }
+}
+
+// The split pass of a split call: the sums and the epilogue, with the
+// statistics' partial rows (one per SR_ROWS rows) where stat_part is given.
+template <typename T>
+int split_sums(cudaStream_t s, const float* partial, int splits, long long m_total, int co,
+               const float* sc, const float* of, void* y, int act, float* stat_part,
+               int stat_rows, int pairs, const PairStrides& ps) {
+  if (stat_part != nullptr) {
+    const dim3 rgrid(static_cast<unsigned>(stat_rows),
+                     static_cast<unsigned>((co + SR_COLS - 1) / SR_COLS),
+                     static_cast<unsigned>(pairs));
+    splitk_stats_epilogue_kernel<T><<<rgrid, SR_COLS * SR_LANES, 0, s>>>(
+        partial, splits, m_total, co, sc, of, static_cast<T*>(y), act, stat_part, ps);
+  } else {
+    const long long mco = m_total * co;
+    const long long want = (mco + 255) / 256;
+    const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
+    splitk_epilogue_kernel<T><<<dim3(blocks, pairs), 256, 0, s>>>(
+        partial, splits, mco, co, sc, of, static_cast<T*>(y), act, ps);
+  }
+  return launch_status();
+}
+
+// ---- CUDA-core path (f32; bf16 off the wgmma tiles) ------------------------
+
+namespace fma {
+
+constexpr int THREADS = 256;
+constexpr int STAGES = 3;        // the ring: copies STAGES - 1 steps ahead
+constexpr int A_PAD = 4;         // floats of an A row past its K (see the reads)
+
+// K of a step: 32 where 16-byte copies fill it (VEC: a barrier and a ring
+// slot's bookkeeping per 32 k, ~3% faster than 16 at enc2..enc6 on an H100
+// at 700 W, tools/conv_ab.py --dtype f32), else 16 (16 divides every 16*CI:
+// the stem's 48).
+template <bool VEC>
+__host__ __device__ constexpr int step_k() { return VEC ? 32 : 16; }
+// A (BM rows of step_k + A_PAD floats, K-contiguous) and B (step_k rows of
+// BN floats) of a step.
+template <int BM, int BN, bool VEC>
+__host__ __device__ constexpr int stage_floats() {
+  return BM * (step_k<VEC>() + A_PAD) + step_k<VEC>() * BN;
+}
+// Blocks an SM: a 128 x 128 tile's 64 accumulators, A's 8 float4 and B's 8
+// values need more than the 128 registers a thread that two blocks leave
+// (at 128 it spills, and ran 4-6% slower on an H100: tools/conv_ab.py).
+template <int BM, int BN>
+__host__ __device__ constexpr int min_blocks() { return BM * BN == 128 * 128 ? 1 : 2; }
+// This thread's cp.async copies but its last N commit groups have landed.
+// (No proxy fence: the CUDA cores read them, not wgmma.)
+template <int N>
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z): output rows m0 .. m0+BM-1,
+// columns n0 .. n0+BN-1 and K steps [s_begin, s_begin + steps_per_split)
+// of the 16 CI / BK steps of BK. 8 warps of 32 x WN output values, each
+// lane an 8 x TN register micro-tile: tile rows wm + ty + 4i (i < 8),
+// columns wn + 32jj + 4tx + e (jj < TN/4, e < 4), lane = 8 ty + tx. A K step
+// is staged in shared memory as f32: A [row][k] (K-contiguous, as x's
+// channels are), B [k][column]. Per 4 k a lane reads 8 float4 of A (its
+// rows) and TN/4 float4 of B per k: 8 TN FMAs per float4 after the first
+// of A. The four rows a warp reads at once are consecutive, BK + 4 floats
+// apart (80 or 144 bytes): their float4s fall in distinct banks; the eight
+// lanes of a row read 32
+// consecutive floats of B. VEC (f32, CI % 4 == 0, CO % 4 == 0): A's 4
+// consecutive k of a row are 4 channels of one tap of one pixel (16 bytes of
+// x) and B's 4 consecutive columns 16 bytes of a row of w: each a 16-byte
+// cp.async, zero-filled through its source size where the tap falls in the
+// padding, the pixel past M or the columns past CO. Otherwise (the stem's CI
+// 3, CO off a multiple of 4, bf16) each value is a scalar load converted to
+// f32 and stored; the ring keeps STAGES - 1 steps in flight either way, one
+// barrier a step. With `partial` (a split), the block writes its f32 sums to
+// partial[split][m][co]; otherwise y and, with `stat_part`, one partial row
+// of the statistics (the thread's rows, its warp's four row lanes by fixed
+// shuffles, then the warps along M in order).
+template <typename T, int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(THREADS, min_blocks<BM, BN>())
+    conv_fma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ scale, const float* __restrict__ offset,
+                    T* __restrict__ y, float* __restrict__ partial,
+                    float* __restrict__ stat_part, int n, int h, int wd, int ci, int co, int act,
+                    int splits, int steps_per_split, PairStrides ps) {
+  constexpr int TM = 8, TN = BM * BN / (THREADS * TM);  // a lane's rows and columns
+  constexpr int WN = 8 * TN;                            // a warp's columns (its rows: 32)
+  constexpr int WARPS_N = BN / WN, WARPS_M = BM / 32;
+  static_assert(WARPS_M * WARPS_N == THREADS / 32 && TN % 4 == 0, "8 warps of 32 x WN");
+  static_assert(!VEC || sizeof(T) == 4, "16-byte copies of f32 only");
+  constexpr int BK = step_k<VEC>(), A_PITCH = BK + A_PAD, STAGE = stage_floats<BM, BN, VEC>();
+  static_assert(2 * WARPS_M * BN <= STAGES * STAGE, "the statistics' sums reuse the ring");
+  // Copies: A row a_row + A_STRIDE j, k a_k (.. a_k + 3 with VEC); B row
+  // b_row + B_STRIDE j, column b_col (.. b_col + 3). Fixed for every step.
+  constexpr int V = VEC ? 4 : 1;
+  constexpr int A_STRIDE = THREADS / (BK / V), A_COPIES = BM / A_STRIDE;
+  constexpr int B_STRIDE = THREADS / (BN / V), B_COPIES = BK / B_STRIDE;
+  extern __shared__ __align__(16) float fsm[];
+  const int split = blockIdx.z % splits;  // z = pair * splits + split
+  const int pair = blockIdx.z / splits;
   x = at_pair(x, ps.x, pair);
   w = at_pair(w, ps.w, pair);
   y = at_pair(y, ps.y, pair);
   scale = at_pair(scale, ps.aff, pair);
   offset = at_pair(offset, ps.aff, pair);
+  partial = at_pair(partial, ps.ws, pair);
   stat_part = at_pair(stat_part, ps.ws, pair);
+  const int wo = wd / 2, hw = (h / 2) * wo, m_total = n * hw;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int s_begin = split * steps_per_split;
+  const int nsteps = min(steps_per_split, 16 * ci / BK - s_begin);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int wm = (warp / WARPS_N) * 32, wn = (warp % WARPS_N) * WN;
 
-  const int ho = h / 2, wo = wd / 2;
-  const long long m_total = static_cast<long long>(n) * ho * wo;
-  const int k_total = 16 * ci;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-
-  // A loader: column a_k of the K slice, rows a_m + 16*r of the M tile.
-  const int a_k = tid % BK;
-  const int a_m = tid / BK;
-  int rb[4], roy[4], rox[4];
-  bool rvalid[4];
+  // A: this thread's rows are output pixels m0 + a_row + A_STRIDE j; a_off
+  // the offset of their window's tap (0, 0) in x, a_taps the taps inside the
+  // map (bit 4kh + kw), none past M.
+  const int a_k = (tid % (BK / V)) * V, a_row = tid / (BK / V);
+  long long a_off[A_COPIES];
+  uint32_t a_taps[A_COPIES];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long m = m0 + a_m + 16 * r;
-    rvalid[r] = m < m_total;
-    const long long mm = rvalid[r] ? m : 0;
-    rox[r] = static_cast<int>(mm % wo);
-    roy[r] = static_cast<int>((mm / wo) % ho);
-    rb[r] = static_cast<int>(mm / (static_cast<long long>(wo) * ho));
+  for (int j = 0; j < A_COPIES; ++j) {
+    const int m = m0 + a_row + A_STRIDE * j, mm = min(m, m_total - 1);
+    const int b = mm / hw, r = mm - b * hw, oy = r / wo, ox = r - oy * wo;
+    uint32_t taps = 0;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      const int iy = 2 * oy - 1 + (t >> 2), ix = 2 * ox - 1 + (t & 3);
+      taps |= static_cast<uint32_t>((m < m_total) & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < wd))
+              << t;
+    }
+    a_taps[j] = taps;
+    a_off[j] = ((static_cast<long long>(b) * h + 2 * oy - 1) * wd + 2 * ox - 1) * ci;
   }
-  // B loader: column b_n of the CO tile, K rows b_k + 4*r.
-  const int b_n = tid % BN;
-  const int b_k = tid / BN;
+  const int b_col = (tid % (BN / V)) * V, b_row = tid / (BN / V);
+  const bool b_ok = n0 + b_col < co;
+  const T* b_src = w + (static_cast<long long>(s_begin) * BK + b_row) * co + (b_ok ? n0 + b_col : 0);
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(fsm));
 
-  // Compute mapping: rows ty + 16*i, columns tx + 16*j.
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[4][4];
+  // Stage the next step of the block's part into its ring slot (if `go`):
+  // k = 16 (s_begin + st_q) + a_k, tap st_tap = k / CI, channel st_c = k % CI.
+  // xo: the offset of that tap and channel in x from a pixel's tap (0, 0);
+  // b_step: w's rows of the step.
+  int st_q = 0, st_tap = (s_begin * BK + a_k) / ci;
+  int st_c = s_begin * BK + a_k - st_tap * ci;
+  const T* b_step = b_src;
+  auto stage = [&](bool go) {
+    const int slot = (st_q % STAGES) * STAGE;
+    const long long xo = (static_cast<long long>(st_tap >> 2) * wd + (st_tap & 3)) * ci + st_c;
+    if (go) {
+      if constexpr (VEC) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k_total; k0 += BK) {
-    {
-      const int k = k0 + a_k;
-      const int tap = k / ci;
-      const int c = k - tap * ci;
-      const int kh = tap >> 2, kw = tap & 3;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int iy = 2 * roy[r] - 1 + kh;
-        const int ix = 2 * rox[r] - 1 + kw;
-        float v = 0.f;
-        if (rvalid[r] && iy >= 0 && iy < h && ix >= 0 && ix < wd) {
-          v = to_f32(x[((static_cast<long long>(rb[r]) * h + iy) * wd + ix) * ci + c]);
+        for (int j = 0; j < A_COPIES; ++j) {
+          const bool ok = (a_taps[j] >> st_tap) & 1;
+          hopper::cp_async16(sbase + 4 * (slot + (a_row + A_STRIDE * j) * A_PITCH + a_k),
+                             ok ? x + a_off[j] + xo : x, ok);
         }
-        As[a_k][a_m + 16 * r] = v;
+#pragma unroll
+        for (int j = 0; j < B_COPIES; ++j)
+          hopper::cp_async16(
+              sbase + 4 * (slot + BM * A_PITCH + (b_row + B_STRIDE * j) * BN + b_col),
+              b_ok ? b_step + static_cast<long long>(B_STRIDE) * j * co : w, b_ok);
+      } else {
+        float av[A_COPIES], bv[B_COPIES];
+#pragma unroll
+        for (int j = 0; j < A_COPIES; ++j)
+          av[j] = (a_taps[j] >> st_tap) & 1 ? to_f32(x[a_off[j] + xo]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < B_COPIES; ++j)
+          bv[j] = b_ok ? to_f32(b_step[static_cast<long long>(B_STRIDE) * j * co]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < A_COPIES; ++j)
+          fsm[slot + (a_row + A_STRIDE * j) * A_PITCH + a_k] = av[j];
+#pragma unroll
+        for (int j = 0; j < B_COPIES; ++j)
+          fsm[slot + BM * A_PITCH + (b_row + B_STRIDE * j) * BN + b_col] = bv[j];
       }
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = k0 + b_k + 4 * r;
-      const int col = n0 + b_n;
-      Bs[b_k + 4 * r][b_n] = col < co ? to_f32(w[static_cast<long long>(k) * co + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+    ++st_q;
+    b_step += static_cast<long long>(BK) * co;
+    for (st_c += BK; st_c >= ci; st_c -= ci) ++st_tap;
+  };
 
+  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) {
+    stage(q < nsteps);
+    hopper::cp_async_commit();
+  }
+  // Step q: its copies landed (this thread's, then everyone's at the
+  // barrier, which also sees every warp past step q - 1's reads); step q +
+  // STAGES - 1 staged into step q - 1's slot; then step q's products.
+#pragma unroll 1
+  for (int q = 0; q < nsteps; ++q) {
+    copies_landed<STAGES - 2>();
+    __syncthreads();
+    stage(q + STAGES - 1 < nsteps);
+    hopper::cp_async_commit();
+    const float* as = fsm + (q % STAGES) * STAGE + (wm + ty) * A_PITCH;
+    const float* bs = fsm + (q % STAGES) * STAGE + BM * A_PITCH + wn + 4 * tx;
+#pragma unroll
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + 4 * i * A_PITCH + 4 * kq);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[TN];
+#pragma unroll
+        for (int jj = 0; jj < TN / 4; ++jj) {
+          const float4 v = *reinterpret_cast<const float4*>(bs + (4 * kq + kk) * BN + 32 * jj);
+          b[4 * jj] = v.x, b[4 * jj + 1] = v.y, b[4 * jj + 2] = v.z, b[4 * jj + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float ai = lane_of(a[i], kk);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ai, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  copies_landed<0>();
+  __syncthreads();  // every warp's reads are done: the ring is free
+
+  const int rb = m0 + wm + ty, cb = n0 + wn + 4 * tx;  // row i: rb + 4i; column: cb + 32jj + e
+  if (partial != nullptr) {  // a split: f32 sums, summed by the split pass
+    float* part = partial + static_cast<long long>(split) * m_total * co;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = rb + 4 * i;
+      if (m >= m_total) continue;
+#pragma unroll
+      for (int jj = 0; jj < TN / 4; ++jj) {
+        const int col = cb + 32 * jj;
+        float* dst = part + static_cast<long long>(m) * co + col;
+        if constexpr (VEC) {
+          if (col < co)
+            *reinterpret_cast<float4*>(dst) = make_float4(acc[i][4 * jj], acc[i][4 * jj + 1],
+                                                          acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < co) dst[e] = acc[i][4 * jj + e];
+        }
+      }
+    }
+    return;
+  }
+  float sc[TN], of[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int col = cb + 32 * (j / 4) + j % 4;
+    const bool ok = scale != nullptr && col < co;
+    sc[j] = ok ? scale[col] : 1.f;
+    of[j] = ok ? offset[col] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = rb + 4 * i;
     if (m >= m_total) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col >= co) continue;
-      float v = acc[i][j];
-      if (scale != nullptr) v = v * scale[col] + offset[col];
-      y[m * co + col] = from_f32<T>(apply_act(v, act));
+    for (int jj = 0; jj < TN / 4; ++jj) {
+      const int col = cb + 32 * jj;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = apply_act(acc[i][4 * jj + e] * sc[4 * jj + e] + of[4 * jj + e], act);
+      T* dst = y + static_cast<long long>(m) * co + col;
+      if constexpr (VEC) {
+        if (col < co) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < co) dst[e] = from_f32<T>(v[e]);
+      }
     }
   }
   if (stat_part == nullptr) return;
-  // Column sums of the raw accumulators over this tile's valid rows: per
-  // thread over its 4 rows, then over the 16 row groups in order.
-  float(*red_s)[BM + 1] = As;  // [16][64], free after the K loop
-  float(*red_q)[BN] = Bs;
+  // Column sums of the raw accumulators over the thread's rows inside M,
+  // then its warp's four row lanes (fixed shuffles), then the warps along M
+  // in order through shared memory.
+  float* red = fsm;  // [sum, sq][WARPS_M][BN]
+  const int wr = warp / WARPS_N;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < TN; ++j) {
     float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (m0 + ty + 16 * i < m_total) {
+    for (int i = 0; i < TM; ++i) {
+      if (rb + 4 * i < m_total) {
         s += acc[i][j];
         q = fmaf(acc[i][j], acc[i][j], q);
       }
     }
-    red_s[ty][tx + 16 * j] = s;
-    red_q[ty][tx + 16 * j] = q;
+#pragma unroll
+    for (int off = 8; off < 32; off *= 2) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      q += __shfl_xor_sync(0xffffffffu, q, off);
+    }
+    if (ty == 0) {
+      const int col = wn + 4 * tx + 32 * (j / 4) + j % 4;
+      red[wr * BN + col] = s;
+      red[(WARPS_M + wr) * BN + col] = q;
+    }
   }
   __syncthreads();
   if (tid < BN && n0 + tid < co) {
     float s = 0.f, q = 0.f;
 #pragma unroll
-    for (int g = 0; g < 16; ++g) {
-      s += red_s[g][tid];
-      q += red_q[g][tid];
+    for (int i = 0; i < WARPS_M; ++i) {
+      s += red[i * BN + tid];
+      q += red[(WARPS_M + i) * BN + tid];
     }
     const long long row = static_cast<long long>(blockIdx.x) * 2 * co;
     stat_part[row + n0 + tid] = s;
     stat_part[row + co + n0 + tid] = q;
   }
 }
+
+template <typename T, int BM, int BN, bool VEC>
+int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, const float* scale,
+           const float* offset, void* y, float* partial, float* stat_part, int n, int h, int wd,
+           int ci, int co, int act, int splits, int steps_per_split, const PairStrides& ps) {
+  if (smem < STAGES * stage_floats<BM, BN, VEC>() * 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_fma_kernel<T, BM, BN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_fma_kernel<T, BM, BN, VEC><<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), scale, offset, static_cast<T*>(y),
+      partial, stat_part, n, h, wd, ci, co, act, splits, steps_per_split, ps);
+  return launch_status();
+}
+
+// The tile's instantiation: 128 x 128, 64 x 128 (M <= 64) or 128 x 64
+// (CO <= 64); -1 for another tile.
+template <typename T, bool VEC, typename... Args>
+int launch_tile(int bm, int bn, Args&&... args) {
+  if (bm == 128 && bn == 128) return launch<T, 128, 128, VEC>(args...);
+  if (bm == 64 && bn == 128) return launch<T, 64, 128, VEC>(args...);
+  if (bm == 128 && bn == 64) return launch<T, 128, 64, VEC>(args...);
+  return -1;
+}
+
+}  // namespace fma
 
 // ---- wgmma path (bf16, CI % 64 == 0, CO % 8 == 0) ------------------------
 
@@ -467,79 +767,6 @@ int launch(dim3 grid, int smem, cudaStream_t s, const void* x, const void* w, co
   return launch_status();
 }
 
-// Sum of the split-K partials, then the epilogue.
-__global__ void splitk_epilogue_kernel(const float* __restrict__ partial, int splits,
-                                       long long mco, int co, const float* __restrict__ scale,
-                                       const float* __restrict__ offset, bf16* __restrict__ y,
-                                       int act, PairStrides ps) {
-  const int pair = blockIdx.y;
-  partial = at_pair(partial, ps.ws, pair);
-  y = at_pair(y, ps.y, pair);
-  scale = at_pair(scale, ps.aff, pair);
-  offset = at_pair(offset, ps.aff, pair);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < mco;
-       i += stride) {
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += partial[s * mco + i];
-    const int col = static_cast<int>(i % co);
-    if (scale != nullptr) v = v * scale[col] + offset[col];
-    y[i] = __float2bfloat16(apply_act(v, act));
-  }
-}
-
-// Sum of the split-K partials, the epilogue, and the statistics of the
-// summed f32 accumulator: block (64-row group, 64-column tile), 4 row lanes
-// of 64 column lanes, folded in order into one partial row per row group.
-constexpr int SR_ROWS = 64;
-constexpr int SR_COLS = 64;
-constexpr int SR_LANES = 4;
-
-__global__ void __launch_bounds__(SR_COLS * SR_LANES)
-    splitk_stats_epilogue_kernel(const float* __restrict__ partial, int splits,
-                                 long long m_total, int co, const float* __restrict__ scale,
-                                 const float* __restrict__ offset, bf16* __restrict__ y, int act,
-                                 float* __restrict__ stat_part, PairStrides ps) {
-  __shared__ float red[2][SR_LANES][SR_COLS];
-  const int pair = blockIdx.z;
-  partial = at_pair(partial, ps.ws, pair);
-  y = at_pair(y, ps.y, pair);
-  scale = at_pair(scale, ps.aff, pair);
-  offset = at_pair(offset, ps.aff, pair);
-  stat_part = at_pair(stat_part, ps.ws, pair);
-  const int lc = threadIdx.x % SR_COLS, lr = threadIdx.x / SR_COLS;
-  const int col = blockIdx.y * SR_COLS + lc;
-  const long long m0 = static_cast<long long>(blockIdx.x) * SR_ROWS;
-  const long long mco = m_total * co;
-  float s = 0.f, q = 0.f;
-  if (col < co) {
-    for (int rr = lr; rr < SR_ROWS; rr += SR_LANES) {
-      const long long m = m0 + rr;
-      if (m >= m_total) break;
-      float v = 0.f;
-      for (int sp = 0; sp < splits; ++sp) v += partial[sp * mco + m * co + col];
-      s += v;
-      q = fmaf(v, v, q);
-      if (scale != nullptr) v = v * scale[col] + offset[col];
-      y[m * co + col] = __float2bfloat16(apply_act(v, act));
-    }
-  }
-  red[0][lr][lc] = s;
-  red[1][lr][lc] = q;
-  __syncthreads();
-  if (lr == 0 && col < co) {
-    float ts = 0.f, tq = 0.f;
-#pragma unroll
-    for (int i = 0; i < SR_LANES; ++i) {
-      ts += red[0][i][lc];
-      tq += red[1][i][lc];
-    }
-    const long long row = static_cast<long long>(blockIdx.x) * 2 * co;
-    stat_part[row + col] = ts;
-    stat_part[row + co + col] = tq;
-  }
-}
-
 }  // namespace wg
 
 // ---- the stem (bf16, CI <= 4, CO % 64 == 0): wgmma over an im2col tile ----
@@ -756,18 +983,19 @@ __global__ void conv_stats_finalize_kernel(const float* __restrict__ stat_part, 
 }  // namespace
 
 // The wrapper's plan (ops/conv_k4s2p1.py::conv_plan): path (ConvPath); bm,
-// bn, stages: the wgmma tile's rows and columns and its ring; splits, steps_per_split: the
-// wgmma path's parts of K (steps of one tap and 64 channels) or the stem's
-// blocks along M (chunks of 64 pixels); grid_x, grid_y: the grid (the split
-// is its z); smem: dynamic shared memory; stat_rows: partial rows of the
-// statistics. workspace: the split's f32 partials (splits x M x CO, where
-// splits > 1 on the wgmma path), then 2 * CO floats per partial row of the
-// statistics where `stats` is given. stats: null, or 2 * CO floats that
-// receive the per-channel means of the raw accumulator and of its square.
-// pairs, x_ps, w_ps, aff_ps: the pair axis (common.cuh), w_ps 0 for a
-// shared weight, aff_ps 0 for a shared scale and offset; pair p's y starts
-// M * CO values, its workspace the floats above and its stats 2 * CO floats
-// after pair 0's (the grid's z is pair * splits + split).
+// bn, stages: the tile's rows and columns and its ring (wgmma and FMA);
+// splits, steps_per_split: the parts of K (wgmma: steps of one tap and 64
+// channels; FMA: steps of 32 or 16) or the stem's blocks along M (chunks of 64
+// pixels); grid_x, grid_y: the grid (the split is its z); smem: dynamic
+// shared memory; stat_rows: partial rows of the statistics. workspace: the
+// split's f32 partials (splits x M x CO, where splits > 1 on the wgmma or
+// the FMA path), then 2 * CO floats per partial row of the statistics where
+// `stats` is given. stats: null, or 2 * CO floats that receive the
+// per-channel means of the raw accumulator and of its square. pairs, x_ps,
+// w_ps, aff_ps: the pair axis (common.cuh), w_ps 0 for a shared weight,
+// aff_ps 0 for a shared scale and offset; pair p's y starts M * CO values,
+// its workspace the floats above and its stats 2 * CO floats after pair 0's
+// (the grid's z is pair * splits + split).
 extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* scale,
                                     const void* offset, void* y, void* workspace, void* stats,
                                     int n, int h, int wd, int ci, int co, int act, int dtype,
@@ -788,7 +1016,7 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
-  const bool split = path == CONV_WGMMA && splits > 1;
+  const bool split = (path == CONV_WGMMA || path == CONV_FMA) && splits > 1;
   float* ws = static_cast<float*>(workspace);
   const long long split_ws = split ? splits * m_total * co : 0;
   if ((split || stats != nullptr) && ws == nullptr) return BAD;
@@ -798,16 +1026,18 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
   const PairStrides ps{x_ps, w_ps, m_total * co, aff_ps,
                        split_ws + (stats != nullptr ? 2LL * stat_rows * co : 0), 2LL * co};
   const long long tiles_m = (m_total + bm - 1) / (bm > 0 ? bm : 1);
+  // A split's partial rows of the statistics are the split pass's 64-row
+  // groups; an unsplit call's, its M tiles.
+  const long long want_rows = split ? (m_total + SR_ROWS - 1) / SR_ROWS : tiles_m;
+  float* partial = split ? ws : nullptr;
+  float* tile_stats = split ? nullptr : stat_part;
+  const dim3 grid(grid_x, grid_y, splits * pairs);
   int err;
   if (path == CONV_WGMMA) {
     if (dtype != DT_BF16 || ci < wg::BK || ci % wg::BK || co % 8 ||
         !covers_once(16 * ci / wg::BK, splits, steps_per_split) || grid_x != tiles_m ||
-        grid_y != (co + bn - 1) / (bn > 0 ? bn : 1) ||
-        stat_rows != (split ? (m_total + wg::SR_ROWS - 1) / wg::SR_ROWS : tiles_m))
+        grid_y != (co + bn - 1) / (bn > 0 ? bn : 1) || stat_rows != want_rows)
       return BAD;
-    const dim3 grid(grid_x, grid_y, splits * pairs);
-    float* partial = split ? ws : nullptr;
-    float* tile_stats = split ? nullptr : stat_part;
     auto run = [&](auto launch) {
       return launch(grid, smem, s, x, w, sc, of, y, partial, tile_stats, n, h, wd, ci, co, act,
                     splits, steps_per_split, ps);
@@ -822,30 +1052,19 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
       return BAD;
     }
     if (err != 0) return err;
-    if (split && stats != nullptr) {
-      const dim3 rgrid(static_cast<unsigned>(stat_rows),
-                       static_cast<unsigned>((co + wg::SR_COLS - 1) / wg::SR_COLS),
-                       static_cast<unsigned>(pairs));
-      wg::splitk_stats_epilogue_kernel<<<rgrid, wg::SR_COLS * wg::SR_LANES, 0, s>>>(
-          partial, splits, m_total, co, sc, of, static_cast<wg::bf16*>(y), act, stat_part, ps);
-    } else if (split) {
-      const long long mco = m_total * co;
-      const long long want = (mco + 255) / 256;
-      const int blocks = static_cast<int>(want < 132LL * 16 ? want : 132LL * 16);
-      wg::splitk_epilogue_kernel<<<dim3(blocks, pairs), 256, 0, s>>>(
-          partial, splits, mco, co, sc, of, static_cast<wg::bf16*>(y), act, ps);
-    }
-    err = launch_status();
+    if (split)
+      err = split_sums<wg::bf16>(s, partial, splits, m_total, co, sc, of, y, act, stat_part,
+                                 stat_rows, pairs, ps);
   } else if (path == CONV_STEM) {
     const long long chunks = (m_total + stem::CHUNK - 1) / stem::CHUNK;
     if (dtype != DT_BF16 || ci < 1 || ci > 4 || co % stem::BO || grid_x != co / stem::BO ||
         splits != grid_y || !covers_once(chunks, grid_y, steps_per_split) ||
         stat_rows != grid_y || smem < stem::SMEM)
       return BAD;
-    const dim3 grid(grid_x, grid_y, pairs);
+    const dim3 sgrid(grid_x, grid_y, pairs);
     auto run = [&](auto launch) {
-      return launch(grid, smem, s, x, w, sc, of, y, stat_part, n, h, wd, co, act, steps_per_split,
-                    ps);
+      return launch(sgrid, smem, s, x, w, sc, of, y, stat_part, n, h, wd, co, act,
+                    steps_per_split, ps);
     };
     switch (ci) {
       case 1: err = run(stem::launch<1>); break;
@@ -854,24 +1073,40 @@ extern "C" int discogan_conv_k4s2p1(const void* x, const void* w, const void* sc
       default: err = run(stem::launch<4>);
     }
   } else if (path == CONV_FMA) {
-    if (bm != BM || splits != 1 || grid_x != tiles_m || grid_y != (co + BN - 1) / BN ||
-        stat_rows != tiles_m)
+    // 16-byte copies (and steps of 32) for f32 with CI and CO multiples of
+    // 4, as the plan has it; they need 16-byte aligned operands, which the
+    // wrapper passes.
+    const bool vec = dtype == DT_F32 && ci % 4 == 0 && co % 4 == 0;
+    const int bk = vec ? fma::step_k<true>() : fma::step_k<false>();
+    if ((vec && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+                 reinterpret_cast<uintptr_t>(y) % 16)) ||
+        (dtype != DT_F32 && dtype != DT_BF16) || ci < 1 || stages != fma::STAGES ||
+        !covers_once(16 * ci / bk, splits, steps_per_split) || grid_x != tiles_m ||
+        grid_y != (co + bn - 1) / (bn > 0 ? bn : 1) || stat_rows != want_rows)
       return BAD;
-    const dim3 grid(grid_x, grid_y, pairs);
-    if (dtype == DT_F32) {
-      conv_k4s2p1_kernel<float><<<grid, THREADS, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w), sc, of,
-          static_cast<float*>(y), stat_part, n, h, wd, ci, co, act, ps);
-    } else {
-      conv_k4s2p1_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), sc, of,
-          static_cast<__nv_bfloat16*>(y), stat_part, n, h, wd, ci, co, act, ps);
-    }
-    err = launch_status();
+    const auto args = [&](auto launch_tile) {
+      return launch_tile(bm, bn, grid, smem, s, x, w, sc, of, y, partial, tile_stats, n, h, wd,
+                         ci, co, act, splits, steps_per_split, ps);
+    };
+    if (dtype == DT_BF16)
+      err = args([](auto... a) { return fma::launch_tile<wg::bf16, false>(a...); });
+    else if (vec)
+      err = args([](auto... a) { return fma::launch_tile<float, true>(a...); });
+    else
+      err = args([](auto... a) { return fma::launch_tile<float, false>(a...); });
+    if (err < 0) return BAD;
+    if (err != 0) return err;
+    if (split)
+      err = dtype == DT_BF16
+                ? split_sums<wg::bf16>(s, partial, splits, m_total, co, sc, of, y, act, stat_part,
+                                       stat_rows, pairs, ps)
+                : split_sums<float>(s, partial, splits, m_total, co, sc, of, y, act, stat_part,
+                                    stat_rows, pairs, ps);
   } else {
     return BAD;
   }
   if (err != 0 || stats == nullptr) return err;
+  // The unsplit calls' partial rows, or the split pass's, summed in order.
   conv_stats_finalize_kernel<<<dim3((co + 255) / 256, pairs), 256, 0, s>>>(
       stat_part, stat_rows, co, m_total, static_cast<float*>(stats), ps);
   return launch_status();

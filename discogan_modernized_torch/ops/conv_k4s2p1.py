@@ -11,7 +11,7 @@ per-channel means of the raw f32 accumulator and of its square over the
 N*Ho*Wo rows, which train-mode BatchNorm reads instead of a second pass.
 ``conv_plan`` picks K3's path (wgmma kernels for bf16 with I a multiple of
 64, or I at most 4 and O a multiple of 64 for the stem, else the f32 FMA
-kernel), its tile, ring, split over K and grid.
+kernel on the CUDA cores), its tile, ring, split over K and grid.
 ``conv2d_k4s2p1_dw`` returns dw[kh,kw,i,o] = sum x_pad[b,2r+kh,2c+kw,i] *
 dy[b,r,c,o], f32 accumulation, in x's dtype; ``dw_plan`` picks its path
 (wgmma kernels for bf16 with O a multiple of 8 and I a multiple of 8 or at
@@ -122,8 +122,15 @@ def conv2d_k4s2p1_plain(x, w, *, scale=None, offset=None, act=None,
 # The stem (bf16, I <= 4, O % 64 == 0): one warpgroup a block over
 # CONV_STEM_BO channels and a run of CONV_STEM_CHUNK-pixel chunks,
 # CONV_STEM_BLOCKS_PER_SM blocks an SM, each of at least
-# CONV_STEM_MIN_CHUNKS chunks. FMA: CONV_FMA_TILE x CONV_FMA_TILE tiles, K
-# in steps of 16.
+# CONV_STEM_MIN_CHUNKS chunks. FMA (f32, and bf16 off those tiles): output
+# tiles of CONV_FMA_TILE (CONV_FMA_TILE_SHORT_M where M fits 64 rows,
+# CONV_FMA_TILE_NARROW where CO fits 64 columns), K in steps of
+# CONV_FMA_BK_VEC where 16-byte copies fill them (f32, I and O multiples of
+# 4), else CONV_FMA_BK, through a ring of CONV_FMA_STAGES stages of A (rows
+# of a step's K and CONV_FMA_A_PAD floats) and B (a step's K rows of the
+# tile's columns, f32); K split by the wgmma path's rule, each part of at least
+# CONV_FMA_MIN_STEPS_PER_SPLIT steps, against a wave of
+# CONV_FMA_BLOCKS_PER_SM blocks an SM.
 CONV_BM, CONV_BN, CONV_BN_WIDE, CONV_BK = 128, 128, 256, 64
 CONV_WIDE_FILL = 7 / 8
 CONV_STAGES = {(128, 256): 4, (128, 128): 5, (64, 128): 6}
@@ -133,7 +140,10 @@ CONV_STEM_CHUNK, CONV_STEM_BO = 64, 64
 CONV_STEM_BLOCKS_PER_SM, CONV_STEM_MIN_CHUNKS = 4, 4
 CONV_STEM_SMEM = (3 * CONV_STEM_CHUNK * 128 + CONV_STEM_CHUNK * (CONV_STEM_BO + 8) * 2
                   + 2 * 4 * CONV_STEM_BO * 4 + 2 * CONV_STEM_BO * 4)
-CONV_FMA_TILE = 64
+CONV_FMA_TILE, CONV_FMA_TILE_SHORT_M, CONV_FMA_TILE_NARROW = (128, 128), (64, 128), (128, 64)
+CONV_FMA_BK, CONV_FMA_BK_VEC, CONV_FMA_A_PAD, CONV_FMA_STAGES = 16, 32, 4, 3
+CONV_FMA_MIN_STEPS_PER_SPLIT = 8
+CONV_FMA_BLOCKS_PER_SM = {(128, 128): 1, (64, 128): 2, (128, 64): 2}
 CONV_PATH_CODES = {"fma": 0, "wgmma": 1, "wgmma_stem": 2}
 MAX_SMEM_BYTES = 232_448  # a block's shared memory on the H100
 
@@ -141,9 +151,9 @@ MAX_SMEM_BYTES = 232_448  # a block's shared memory on the H100
 class ConvPlan(NamedTuple):
     path: str             # "wgmma", "wgmma_stem" or "fma"
     tile: tuple           # (rows, columns, K of a step) of an output tile
-    stages: int           # ring stages (wgmma), A's double buffer (stem), 0 (FMA)
-    splits: int           # parts of K (wgmma) or blocks along M (stem); 1 (FMA)
-    steps_per_split: int  # K steps (wgmma) or 64-pixel chunks (stem) of a part
+    stages: int           # ring stages (wgmma, FMA), A's double buffer (stem)
+    splits: int           # parts of K (wgmma, FMA) or blocks along M (stem)
+    steps_per_split: int  # K steps (wgmma, FMA) or 64-pixel chunks (stem) of a part
     grid: tuple           # (x, y, z)
     smem_bytes: int       # dynamic shared memory of a block
     partial_floats: int   # f32 split partials in the workspace, a pair
@@ -165,7 +175,11 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     partials), and splits K only while its tiles fill less than one wave
     of ``sms`` blocks (one fits an SM), into as many parts as fit in that
     wave; the grid walks M fastest. The stem spreads M over
-    CONV_STEM_BLOCKS_PER_SM blocks an SM. ``pairs`` multiplies the grid's z
+    CONV_STEM_BLOCKS_PER_SM blocks an SM. The FMA path (CUDA cores) takes
+    64-row tiles where M fits in one, 64 columns where CO does, K steps of
+    32 where its 16-byte copies fill them (else 16), and splits them by the
+    wgmma path's rule against a wave of
+    CONV_FMA_BLOCKS_PER_SM blocks an SM. ``pairs`` multiplies the grid's z
     and the workspace and changes nothing else: each pair runs the plan of
     a single call."""
     m = n * (h // 2) * (w // 2)
@@ -196,9 +210,21 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
                         stages * (bm * 128 + CONV_BK * bn * 2),
                         splits * m * co if splits > 1 else 0,
                         -(-m // CONV_SPLIT_STAT_ROWS) if splits > 1 else m_tiles, pairs)
-    m_tiles = -(-m // CONV_FMA_TILE)
-    return ConvPlan("fma", (CONV_FMA_TILE, CONV_FMA_TILE, 16), 0, 1, ci,
-                    (m_tiles, -(-co // CONV_FMA_TILE), pairs), 0, 0, m_tiles, pairs)
+    bm, bn = (CONV_FMA_TILE_SHORT_M if m <= 64 else
+              CONV_FMA_TILE_NARROW if co <= 64 else CONV_FMA_TILE)
+    vec = dtype == torch.float32 and ci % 4 == 0 and co % 4 == 0
+    bk = CONV_FMA_BK_VEC if vec else CONV_FMA_BK
+    steps = 16 * ci // bk
+    m_tiles, n_tiles = -(-m // bm), -(-co // bn)
+    splits = max(1, min(CONV_FMA_BLOCKS_PER_SM[(bm, bn)] * sms // (m_tiles * n_tiles),
+                        steps // CONV_FMA_MIN_STEPS_PER_SPLIT))
+    sps = -(-steps // splits)
+    splits = -(-steps // sps)
+    return ConvPlan("fma", (bm, bn, bk), CONV_FMA_STAGES, splits, sps,
+                    (m_tiles, n_tiles, splits * pairs),
+                    CONV_FMA_STAGES * (bm * (bk + CONV_FMA_A_PAD) + bk * bn) * 4,
+                    splits * m * co if splits > 1 else 0,
+                    -(-m // CONV_SPLIT_STAT_ROWS) if splits > 1 else m_tiles, pairs)
 
 
 def conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None,

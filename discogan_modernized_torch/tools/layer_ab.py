@@ -17,7 +17,11 @@ of CUDA-event timed calls, each after a device sleep long enough for the
 host to issue the op's launches (tools/timing.py).
 
     python -m discogan_modernized_torch.tools.layer_ab --size 512 --batch 32 \\
-        --layer enc1 --modes fwd,dx,dw --impls kernel,library [--rounds 3]
+        --layer enc1 --modes fwd,dx,dw --impls kernel,library [--rounds 3] \\
+        [--dtype bf16|f32]
+
+``--dtype f32`` runs the op in f32 with TF32 off (``--precision f32``'s
+mode: K3 on the CUDA cores, cuDNN's f32 convolutions without TF32).
 
 Prints one JSON line per (layer, mode): us per impl, and each over the
 first impl's.
@@ -45,9 +49,10 @@ def main(argv=None) -> list:
     ap.add_argument("--modes", type=str, default="fwd,dx,dw")
     ap.add_argument("--impls", type=str, default="kernel,library")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "f32"])
     args = ap.parse_args(argv)
 
-    from ..core.precision import BF16, configure
+    from ..core.precision import BF16, F32, configure
     from .timing import LAYER_SLEEP_CYCLES, Timer, require_card, smi_line
 
     impls = [s.strip() for s in args.impls.split(",") if s.strip()]
@@ -60,12 +65,13 @@ def main(argv=None) -> list:
     if not rows:
         raise SystemExit(f"no layer matches {args.layer!r}")
     device = require_card("layer_ab")
-    configure(BF16)
+    policy = BF16 if args.dtype == "bf16" else F32
+    configure(policy)
     print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
     timer = Timer(sleep_cycles=LAYER_SLEEP_CYCLES)
     out = []
     for name, kind, size, cin, cout, _epi in rows:
-        calls = {impl: layer_modes(kind, size, cin, cout, args.batch, BF16.compute_dtype,
+        calls = {impl: layer_modes(kind, size, cin, cout, args.batch, policy.compute_dtype,
                                    device, impl) for impl in impls}
         for mode in modes:
             best = dict.fromkeys(impls, float("inf"))

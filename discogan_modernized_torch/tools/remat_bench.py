@@ -3,10 +3,12 @@ the JAX package's ``tools/remat_bench.py``).
 
     python -m discogan_modernized_torch.tools.remat_bench [--size 512]
         [--batch 192] [--policies off,full,latent,conv] [--rounds 3]
-        [--steps 3]
+        [--steps 3] [--precision bf16|f32]
 
 Each policy (train/graph.py's ``_checkpoint_policies``; "off" keeps every
 activation) trains the DiscoGAN step at ``--size`` and ``--batch`` in bf16
+(or ``--precision f32``, TF32 off: the trainers' exact-parity mode, e.g.
+``--policies off --batch 8`` for the f32 steps at the trainer's batch)
 under slim_state=mv, from one seeded state, in blocks of ``--steps``
 iterations of D, G, G; the policies take turns, round by round, in one
 process, since the host moves a step's time from run to run. It prints
@@ -29,7 +31,7 @@ import statistics
 import torch
 
 from ..core.device import resolve_device
-from ..core.precision import BF16, configure
+from ..core.precision import BF16, F32, configure
 from .timing import smi_line
 
 
@@ -41,6 +43,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--steps", type=int, default=3, help="iterations a block (D, G, G, ...)")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if device.type != "cuda":
@@ -49,8 +52,9 @@ def main(argv=None) -> dict:
     from ..train.step import (TrainConfig, init_train_state, make_optimizers,
                               make_train_steps)
 
-    configure(BF16)
-    base = TrainConfig(image_size=args.size, precision="bf16", slim_state="mv")
+    policy = BF16 if args.precision == "bf16" else F32
+    configure(policy)
+    base = TrainConfig(image_size=args.size, precision=args.precision, slim_state="mv")
     policies = args.policies.split(",")
     cfgs = {name: (dataclasses.replace(base, remat=False) if name == "off" else
                    dataclasses.replace(base, remat=True, remat_policy=name, remat_dis=True))
@@ -69,7 +73,7 @@ def main(argv=None) -> dict:
                 continue
             cfg = cfgs[name]
             ts.opt_gen, ts.opt_dis = make_optimizers(ts.models, cfg)
-            gen_step, dis_step = make_train_steps(cfg, BF16)
+            gen_step, dis_step = make_train_steps(cfg, policy)
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
             try:
@@ -90,7 +94,8 @@ def main(argv=None) -> dict:
                 continue
             peak[name] = max(peak[name], torch.cuda.max_memory_allocated(device))
             print(f"round {rnd} {name}: peak {peak[name] / 2**30:.2f} GiB", flush=True)
-    out = {"size": args.size, "batch": args.batch, "card": smi_line(), "policies": {}}
+    out = {"size": args.size, "batch": args.batch, "precision": args.precision,
+           "card": smi_line(), "policies": {}}
     for name in policies:
         if name in dead:
             out["policies"][name] = {"failed": dead[name]}

@@ -150,6 +150,46 @@ def test_conv_k4s2p1_tensor_cores(gen, n, h, w, ci, co, stats):
         _close(g, w_, torch.bfloat16, tol=1e-4)
 
 
+@pytest.mark.parametrize("stats", [False, True], ids=["epilogue", "stats"])
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (1, 512, 512, 3, 64), (4, 512, 512, 3, 64), (1, 128, 128, 128, 256),
+    (4, 128, 128, 128, 256), (8, 64, 64, 256, 512), (4, 32, 32, 512, 1024),
+    (4, 16, 16, 1024, 2048), (8, 16, 16, 1024, 2048), (1, 8, 8, 2048, 2048),
+    (4, 8, 8, 2048, 2048), (8, 8, 8, 2048, 2048), (2, 16, 16, 64, 72), (3, 14, 10, 64, 128),
+    (5, 32, 32, 256, 128), (2, 6, 10, 96, 136), (3, 14, 10, 3, 64), (2, 8, 8, 12, 20),
+    (2, 8, 8, 128, 6)])
+def test_conv_k4s2p1_f32_cuda_cores(gen, n, h, w, ci, co, stats):
+    """f32 on conv_fma_kernel (conv_plan's "fma" path): the stem (CI 3,
+    scalar loads, 128 x 64 tiles), enc2-enc6 at batch 1, 4 and 8 (K split
+    at enc4-enc6, 64-row tiles where M <= 64), CO 72, a ragged M, 13 parts,
+    CI 96 with CO 136, CI 12 (a step's 16 k cross a tap) and CO 6 (scalar
+    loads). One launch each, within 1e-4 of max(1, max|ref|), the
+    statistics within 1e-4; a split call's y and statistics the same bits
+    when launched twice."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.conv_k4s2p1 import conv_plan
+
+    configure(F32)
+    plan = conv_plan(n, h, w, ci, co, torch.float32)
+    assert plan.path == "fma"
+    x = _rand(gen, torch.float32, n, h, w, ci)
+    wt = _rand(gen, torch.float32, 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+    s = None if stats else torch.rand(co, device="cuda", generator=gen) + 0.5
+    o = None if stats else torch.randn(co, device="cuda", generator=gen) * 0.1
+    act = None if stats else "leaky"
+    before = _build.launches["conv_k4s2p1"]
+    got = conv2d_k4s2p1(x, wt, scale=s, offset=o, act=act, with_stats=stats)
+    assert _build.launches["conv_k4s2p1"] == before + 1
+    want = conv2d_k4s2p1_plain(x, wt, scale=s, offset=o, act=act, with_stats=stats)
+    flat = (lambda r: [r[0], *r[1]]) if stats else (lambda r: [r])
+    for a, b in zip(flat(got), flat(want)):
+        _close(a, b, torch.float32)
+    if plan.splits > 1:
+        again = conv2d_k4s2p1(x, wt, scale=s, offset=o, act=act, with_stats=stats)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+
+
 @pytest.mark.parametrize("n,h,w,ci,co,affine", [
     (2, 16, 16, 8, 16, False), (3, 14, 22, 8, 24, True), (2, 32, 32, 16, 16, True),
     (3, 40, 64, 16, 8, True), (1, 512, 512, 16, 8, True), (4, 256, 256, 64, 128, True)])
@@ -315,7 +355,8 @@ def test_two_launches_give_the_same_bits(gen, dtype):
     """Every reduction across blocks (K1 at C 128, 64, 100 and 2048, split
     over several blocks; K3's statistics on each of its
     paths: in bf16 the wgmma kernel split and unsplit, with a split that
-    does not divide its K steps, and the stem's, in f32 the FMA kernel;
+    does not divide its K steps, and the stem's, in f32 the FMA kernel
+    (split at enc5 and enc6, y and the statistics, and at an edge shape);
     K4's split sums on the stem's and the tensor-core path in bf16 and the
     FMA path in f32; K5b's on its wgmma path in bf16 and its FMA path in
     f32) sums its partials in a fixed order."""
@@ -334,6 +375,15 @@ def test_two_launches_give_the_same_bits(gen, dtype):
     ws0 = _rand(gen, dtype, 4, 4, 3, 64, scale=1 / 7)
     k1 = [_rand(gen, dtype, *shape) for shape in
           ((2, 64, 64, 64), (8, 16, 16, 100), (8, 8, 8, 2048))]
+    # f32's splits (conv_fma_kernel): enc5 at batch 4 (4 parts), enc6 at
+    # batch 4 (16, on 64-row tiles) and CI 96 / CO 136 (12, scalar loads in
+    # bf16); in bf16 the last two take the wgmma kernel and the FMA one
+    x5 = _rand(gen, dtype, 4, 16, 16, 1024)
+    x6, w6 = _rand(gen, dtype, 4, 8, 8, 2048), _rand(gen, dtype, 4, 4, 2048, 2048, scale=1 / 181)
+    xe, we = _rand(gen, dtype, 2, 6, 10, 96), _rand(gen, dtype, 4, 4, 96, 136, scale=1 / 39)
+
+    def y_and_stats(r):
+        return (r[0], *r[1])
     calls = [lambda: batch_stats(x),
              *[lambda t=t: batch_stats(t) for t in k1],
              lambda: conv2d_k4s2p1(xd, wd, with_stats=True)[1],  # split-K
@@ -341,6 +391,10 @@ def test_two_launches_give_the_same_bits(gen, dtype):
              lambda: (lambda r: (r[0], *r[1]))(  # 64 K steps in 13 parts: y too
                  conv2d_k4s2p1(xs, ws, with_stats=True)),
              lambda: conv2d_k4s2p1(x0, ws0, with_stats=True)[1],  # the stem
+             lambda: y_and_stats(conv2d_k4s2p1(x5, wd, with_stats=True)),
+             lambda: y_and_stats(conv2d_k4s2p1(x6, w6, with_stats=True)),
+             lambda: conv2d_k4s2p1(x6, w6),
+             lambda: y_and_stats(conv2d_k4s2p1(xe, we, with_stats=True)),
              lambda: conv2d_k4s2p1_dw(x0, dy0),  # the stem: its parts summed
              lambda: conv2d_k4s2p1_dw(x2, dy2),  # enc2 at batch 2, split over M
              lambda: halo_conv2d_k4s2p1_dw(x, dy)]

@@ -355,8 +355,8 @@ def _ab_patches(tool: str) -> list:
         return [(source, old) for source, patches, _ in fused_ab.VARIANTS.values()
                 for old, _ in patches]
     if tool == "conv_ab":
-        return [("conv_k4s2p1.cu", old) for patches, _ in conv_ab.VARIANTS.values()
-                for old, _ in patches]
+        return [("conv_k4s2p1.cu", old) for table in (conv_ab.VARIANTS, conv_ab.F32_VARIANTS)
+                for patches, _ in table.values() for old, _ in patches]
     return [("head_convt.cu", old) for patches in head_ab.VARIANTS.values()
             for old, _ in patches]
 
@@ -381,6 +381,9 @@ def _ab_calls(tool: str) -> list:
         y = torch.empty(2, 2, 2, 128, dtype=torch.bfloat16)
         for name in conv_ab.VARIANTS:
             conv_ab._k3_call(k3, name, x, wt, y, torch.empty(2, 128), 0, 132)[1]()
+        for name in conv_ab.F32_VARIANTS:  # conv_fma_kernel's
+            conv_ab._k3_call(k3, name, x.float(), wt.float(), y.float(), torch.empty(2, 128),
+                             0, 132)[1]()
         return [k3]
     k6 = _Entry("discogan_head_convt")
     wt = torch.zeros(4, 4, 64, 3, dtype=torch.bfloat16)
