@@ -112,12 +112,15 @@ card machine ends a call after 45 GiB of writes):
               under their tensor-core kernels (conv_wgmma_kernel and
               conv_stem_wgmma_kernel with their split sums,
               halo_wgmma_kernel, head_convt_mma_kernel) and none under their
-              FMA ones (nor under a WMMA one for K3), and K2's under
+              FMA ones (K5f's halo_fma_kernel and halo_conv_kernel; nor
+              under a WMMA one for K3), and K2's under
               bn_act_vec_kernel and bn_act_any_kernel (the latent's C of
               100) and none under the kernel they replaced; then the f32
               forward at batch 4 (TF32 off) through the kernels, the plain
               versions and cuDNN (LIBRARY_OPS), timed, held together and
-              profiled: K3's time under conv_fma_kernel and its split sums.
+              profiled: K3's time under conv_fma_kernel and its split sums,
+              K5f's under halo_fma_kernel and none under halo_wgmma_kernel
+              or the kernel halo_fma_kernel replaced (halo_conv_kernel).
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -150,8 +153,10 @@ card machine ends a call after 45 GiB of writes):
               its images move by one ulp; the readings are printed, with
               the plain path run twice, which must agree bit for bit.
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
-              epoch of the 256-image synthetic task (32 iterations: 11 D,
-              21 G; a line every 8), one step a call (--steps_per_call 1,
+              epoch of the synthetic task cut to its first 128 image pairs
+              (SYNTHETIC_IMAGES: 16 iterations, 6 D, 10 G; a line every 8;
+              7b, 7c (a), the variant CLI and phase 9's chunked CLI take
+              the same cut), one step a call (--steps_per_call 1,
               the batches gathered from the dataset on the card; its save
               at iteration 0 not written, first_save_skipped), with the
               launch counts of every D and G step checked
@@ -1079,10 +1084,13 @@ def _sums(rows, weight, dtype=torch.bfloat16):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+BATCHES = {"serve": 1, "cli": BATCH, "train": TRAIN_BATCH}  # a case path's batch
+
+
 def per_layer_lines(results) -> None:
     """bf16 ms per call, kernel vs library vs bound: K3 at every layer of
     the batch-8 training forward (enc1 on K5f), and K6 at its main-path
-    shapes."""
+    shapes; in f32 K3 at every layer and K5f at enc1's three batches."""
     rows = [("K3 batch 8", [(k[1].split()[0], v) for k, v in results.items()
                             if k[2] == torch.bfloat16 and v["path"] == "train"
                             and k[0] in ("conv_k4s2p1", "halo_conv_k4s2p1")]),
@@ -1094,6 +1102,10 @@ def per_layer_lines(results) -> None:
         rows.append((what, [(k[1].split()[0], v) for k, v in results.items()
                             if k[2] == torch.float32 and v["path"] == path
                             and k[0] == "conv_k4s2p1"]))
+    # K5f in f32 at enc1: the daemon's batch 1, the CLI's 4, a training step's 8
+    rows.append(("K5f f32 enc1", [(f"b{BATCHES[v['path']]}", v) for k, v in results.items()
+                                  if k[2] == torch.float32 and k[0] == "halo_conv_k4s2p1"
+                                  and v["path"] in BATCHES]))
     for what, cases in rows:
         print(f"{what} (ms: kernel / library / bound): " + "; ".join(
             f"{label} {v['ms']:.4f} / {v['library_ms']:.4f} / {v['bound_ms']:.4f}"
@@ -1589,7 +1601,7 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "conv_stats_finalize_kernel": "K3 conv_k4s2p1",
     "conv_dw_kernel": "K4 conv_k4s2p1_dw", "conv_dw_wgmma_kernel": "K4 conv_k4s2p1_dw",
     "conv_dw_stem_kernel": "K4 conv_k4s2p1_dw", "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
-    "halo_conv_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
+    "halo_fma_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_wgmma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
@@ -1617,18 +1629,37 @@ def profile_forward(fwd, x, policy) -> dict:
 
 
 K5F_TC_KERNEL = "halo_wgmma_kernel"
+# K5f's f32 kernel on the CUDA cores, and the one it replaced
+K5F_F32_KERNEL = "halo_fma_kernel"
+K5F_OFF_ROUTE = "halo_conv_kernel"
 
 
 def check_k5f_route(by_kernel: dict, what: str) -> None:
     """The profile shows K5f's time under its tensor-core kernel and none
-    under the FMA one: the bf16 main path takes the tensor cores."""
+    under the CUDA-core ones (the f32 kernel and the one it replaced): the
+    bf16 main path takes the tensor cores."""
     tc = sum(us for name, us in by_kernel.items() if K5F_TC_KERNEL in name)
-    fma = sum(us for name, us in by_kernel.items() if "halo_conv_kernel" in name)
+    fma = sum(us for name, us in by_kernel.items()
+              if K5F_F32_KERNEL in name or K5F_OFF_ROUTE in name)
     if not tc > 0 or fma > 0:
         raise AssertionError(f"{what}: K5f {tc:.1f} us under {K5F_TC_KERNEL}, "
-                             f"{fma:.1f} us under halo_conv_kernel")
+                             f"{fma:.1f} us under {K5F_F32_KERNEL} or {K5F_OFF_ROUTE}")
     print(f"{what}: K5f {tc / 1e3:.4f} ms under {K5F_TC_KERNEL}, none under "
-          "halo_conv_kernel")
+          f"{K5F_F32_KERNEL} or {K5F_OFF_ROUTE}")
+
+
+def check_k5f_f32_route(by_kernel: dict, what: str) -> None:
+    """The profile of an f32 path shows K5f's time under its CUDA-core
+    kernel and none under the tensor cores' kernel or the FMA kernel it
+    replaced."""
+    fma = sum(us for name, us in by_kernel.items() if K5F_F32_KERNEL in name)
+    off = {k: sum(us for name, us in by_kernel.items() if k in name)
+           for k in (K5F_TC_KERNEL, K5F_OFF_ROUTE)}
+    if not fma > 0 or any(us > 0 for us in off.values()):
+        raise AssertionError(f"{what}: K5f {fma:.1f} us under {K5F_F32_KERNEL}, {off} us off "
+                             "its route")
+    print(f"{what}: K5f {fma / 1e3:.4f} ms under {K5F_F32_KERNEL}, none under "
+          + " or ".join(off))
 
 
 K3_TC_KERNELS = ("conv_wgmma_kernel", "conv_stem_wgmma_kernel")
@@ -1707,7 +1738,8 @@ def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> 
     """One 512px f32 forward (TF32 off) at ``batch``: CUDA-event ms through
     the kernels, through the plain versions and through cuDNN
     (``LIBRARY_OPS``), the three outputs held together (1e-4), and its
-    profile, with K3's time under its CUDA-core kernel and split sums."""
+    profile, with K3's time under its CUDA-core kernel and split sums and
+    K5f's under its CUDA-core kernel."""
     from discogan_modernized_torch.cli.inference import load_generators
     from discogan_modernized_torch.core.precision import F32, configure
     from discogan_modernized_torch.models.generator import eval_forward
@@ -1744,10 +1776,11 @@ def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> 
         h, ci = h // 2, co
     for _ in range(3):  # the profiler now and then keeps only a window's tail
         by_kernel = profile_forward(fwd, x, F32)
-        if any(K3_F32_KERNEL in name for name in by_kernel):
+        if all(any(k in name for name in by_kernel) for k in (K3_F32_KERNEL, K5F_F32_KERNEL)):
             break
-        print(f"the profile holds no {K3_F32_KERNEL}; profiling again")
+        print(f"the profile holds no {K3_F32_KERNEL} or no {K5F_F32_KERNEL}; profiling again")
     check_k3_f32_route(by_kernel, f"f32 forward batch {batch}", splits)
+    check_k5f_f32_route(by_kernel, f"f32 forward batch {batch}")
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
@@ -2120,8 +2153,12 @@ class StepObserver:
         return out
 
 
-# Phase 7's CLI run and the chunked one it is held against: 32 iterations,
-# a line every 8, samples and a save at iteration 0.
+# Phase 7's CLI run and the runs held against it (7b, 7c (a), the variant
+# CLI, phase 9's chunked CLI): one epoch of the synthetic task, its training
+# pairs cut to their first SYNTHETIC_IMAGES (``synthetic_once``): the runs'
+# depth, SYNTHETIC_ITERS iterations at batch 8, a line every 8.
+SYNTHETIC_IMAGES = 128
+SYNTHETIC_ITERS = SYNTHETIC_IMAGES // TRAIN_BATCH
 SYNTHETIC_FLAGS = ("--task_name=synthetic", f"--image_size={SIZE}",
                    f"--batch_size={TRAIN_BATCH}", "--epochs=1", "--precision=bf16",
                    "--slim_state=mv", "--model_save_interval=1000", "--log_interval=8")
@@ -2267,7 +2304,10 @@ def synthetic_once():
     """The synthetic task's arrays (data/pipeline.py::synthetic_pair) drawn
     once a process and copied out at each call: a 512px task is 1.6 GB of
     seeded numpy draws, several seconds of host time, and a dozen runs here
-    draw the same ones. The values are the same either way."""
+    draw the same ones. The values are the same either way. The training
+    pairs (seed 0) are cut to their first SYNTHETIC_IMAGES: the 512px runs
+    that repeat phase 7's run (7b, 7c (a)) train half the task's epoch, and
+    every run held against another takes the same cut."""
     from discogan_modernized_torch.data import pipeline
 
     made: dict = {}
@@ -2276,7 +2316,8 @@ def synthetic_once():
     def synthetic_pair(n: int, image_size: int, seed: int = 0):
         if (n, image_size, seed) not in made:
             made[n, image_size, seed] = draw(n, image_size, seed)
-        return tuple(a.copy() for a in made[n, image_size, seed])
+        keep = min(n, SYNTHETIC_IMAGES) if seed == 0 else n
+        return tuple(a[:keep].copy() for a in made[n, image_size, seed])
 
     pipeline.synthetic_pair = synthetic_pair
     try:
@@ -2338,14 +2379,14 @@ def drive_distributed(work: Path, synthetic: dict) -> dict:
         reset_collectives()
         t0 = time.perf_counter()
         tee = Tee(sys.stdout)
-        with state_in_memory(32) as kept, contextlib.redirect_stdout(tee):
+        with state_in_memory(SYNTHETIC_ITERS) as kept, contextlib.redirect_stdout(tee):
             result, _ = dcli.main(argv, observer=observer)
         wall = time.perf_counter() - t0
         counts = _add([counts, _build.launches])
         text = tee.text.getvalue()
         if "data parallel: rank 0 of 1 (nccl" not in text:
             raise AssertionError(f"{tag}: no NCCL rank line in its output")
-        if kept["layouts"] != [0, "final"] or kept["states"] != [1, 32]:
+        if kept["layouts"] != [0, "final"] or kept["states"] != [1, SYNTHETIC_ITERS]:
             raise AssertionError(f"{tag}: saves {kept['layouts']} / {kept['states']}")
         ms = observer.report()
         if path == "chunked":
@@ -2466,7 +2507,7 @@ def drive_mesh(work: Path, synthetic: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tee = Tee(sys.stdout)
-        with state_in_memory(32) as kept, contextlib.redirect_stdout(tee):
+        with state_in_memory(SYNTHETIC_ITERS) as kept, contextlib.redirect_stdout(tee):
             result, _ = dcli.main(argv, observer=observer)
         wall = time.perf_counter() - t0
         peaks[tag] = torch.cuda.max_memory_allocated()
@@ -2474,7 +2515,7 @@ def drive_mesh(work: Path, synthetic: dict) -> dict:
         text = tee.text.getvalue()
         if f"; mesh {mode} (data=1, model=1) over nccl" not in text:
             raise AssertionError(f"{tag}: no mesh on NCCL in its path line")
-        if kept["layouts"] != [0, "final"] or kept["states"] != [1, 32]:
+        if kept["layouts"] != [0, "final"] or kept["states"] != [1, SYNTHETIC_ITERS]:
             raise AssertionError(f"{tag}: saves {kept['layouts']} / {kept['states']}")
         if collectives["all_gather"]:
             raise AssertionError(f"{tag}: {collectives['all_gather']} all-gathers over a "
@@ -2541,7 +2582,8 @@ def mesh_orbax_resume(work: Path, reference: dict) -> dict:
     handler = signal.getsignal(signal.SIGTERM)
     stop = SigtermObserver(SIGTERM_AT)
     t0 = time.perf_counter()
-    with state_in_memory(32, disk=lambda iters, meta: meta.get("preempted")) as kept:
+    with state_in_memory(SYNTHETIC_ITERS, disk=lambda iters, meta: meta.get("preempted")) \
+            as kept:
         _, stopped = dcli.main([*base, *dirs("stopped")], observer=stop)
     wall = time.perf_counter() - t0
     meta = json.loads((stopped / "train_state_meta.json").read_text())
@@ -2560,10 +2602,10 @@ def mesh_orbax_resume(work: Path, reference: dict) -> dict:
           f"state); the run {wall:.1f} s", flush=True)
     resume = DistStepObserver()
     t0 = time.perf_counter()
-    with state_in_memory(32) as kept:
+    with state_in_memory(SYNTHETIC_ITERS) as kept:
         dcli.main([*base, *dirs("resumed"), f"--resume={stopped}"], observer=resume)
     done = [s_[0] for s_ in resume.steps]
-    if done != list(range(SIGTERM_AT + 1, 32)):
+    if done != list(range(SIGTERM_AT + 1, SYNTHETIC_ITERS)):
         raise AssertionError(f"{tag}: the resumed run trained iterations {done}")
     resume.report()
     print(f"{tag}: resumed from {ORBAX_DIR}/ and trained iterations {done[0]}-{done[-1]} in "
@@ -3319,10 +3361,11 @@ def drive_variant_cli(work: Path, plain_model_path: Path, plain_result: Path) ->
     observer = StepObserver(variant_per_step(paired=True, remat="conv",
                                              remat_dis=cfg.remat_dis))
     torch.cuda.reset_peak_memory_stats()
-    with state_in_memory(32, "cpu") as kept:
+    with state_in_memory(SYNTHETIC_ITERS, "cpu") as kept:
         result, model_path = run_training(args, observer=observer)
     if "state" not in kept:
-        raise AssertionError(f"variant CLI: saves at {kept['states']}, none at iteration 32")
+        raise AssertionError(f"variant CLI: saves at {kept['states']}, none at iteration "
+                             f"{SYNTHETIC_ITERS}")
     step_ms = observer.report()
     log = (result / "training_log.txt").read_text()
     lines = TRAIN_LINE.findall(log)
@@ -3869,7 +3912,7 @@ def drive_chunked_cli(work: Path, synthetic: dict) -> dict:
     _build.reset_launches()
     chunk.reset_replays()
     t0 = time.perf_counter()
-    with state_in_memory(32, "cpu") as kept:
+    with state_in_memory(SYNTHETIC_ITERS, "cpu") as kept:
         result, model_path, text = run_captured(args, observer=observer)
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
@@ -4149,7 +4192,8 @@ MONITOR_SEEN = 20  # the iteration the monitor must have read before the SIGTERM
 TOOL_KERNELS = {
     "pipe_probe": {"pipe_probe"},
     "kernel_bench": {"batch_stats", "bn_act"},
-    "conv_kernel_bench": {"conv_k4s2p1", "conv_k4s2p1_dw", "halo_conv_k4s2p1_dw", "bn_act"},
+    "conv_kernel_bench": {"conv_k4s2p1", "conv_k4s2p1_dw", "halo_conv_k4s2p1",
+                          "halo_conv_k4s2p1_dw", "bn_act"},
     "fwd_profile": {"conv_k4s2p1", "halo_conv_k4s2p1", "batch_stats", "bn_act"},
     "layer_ab": {"halo_conv_k4s2p1", "halo_conv_k4s2p1_dw"},
     "step_itemize": set(PER_STEP64["gen"]),
@@ -4244,7 +4288,10 @@ def drive_timing_tools() -> dict:
     for r in rows:
         _positive(f"conv_kernel_bench {r['layer']}",
                   [v for k, v in r.items() if k.endswith("_us")])
-        _share(f"conv_kernel_bench {r['layer']}", r["kernel_tf"] * 1e12 / PEAK_FLOPS[torch.bfloat16])
+        for key in ("kernel_tf", "halo_tf"):  # K3's row, and K5f's where the route takes it
+            if key in r:
+                _share(f"conv_kernel_bench {r['layer']} {key}",
+                       r[key] * 1e12 / PEAK_FLOPS[torch.bfloat16])
     rows, launches["fwd_profile"] = _tool(
         "fwd_profile", ["--image_size", str(TOOL_SIZE), "--batch", str(TOOL_BATCH)])
     for r in rows:

@@ -14,13 +14,37 @@
 // for this layer has to read x from device memory about once and keep the
 // tensor cores fed at the same time.
 //
-// Two paths; the wrapper picks one by dtype and shape (ops/halo_conv.py::
-// tc_plan) and passes `rows` > 0 for the first:
+// In f32 (exact FMA on the CUDA cores, 67 TFLOP/s) the operations bound
+// alone: at enc1, batch 8, 34.4 GFLOP take 0.513 ms and the 201.9 MB of x,
+// w and y 0.060 ms at 3.35 TB/s.
+//
+// Two paths; the wrapper plans each call (ops/halo_conv.py: tc_plan,
+// halo_fma_plan) and passes the path, rows and columns of a block, ring,
+// grid and shared memory, which the C entry checks against its own
+// arithmetic:
 // - bf16 with CI % 16 == 0 and CI <= 64 (enc1): halo_wgmma_kernel, below.
-// - everything else (f32, and CI % 16 != 0): halo_conv_kernel, f32 FMA on
-//   the CUDA cores over bands of output rows with 1-row halos, 8-channel f32
-//   chunks of the band staged in shared memory, 8 pixels x 8 channels of
-//   accumulators a thread.
+// - everything else (f32, and bf16 with CI % 16 != 0 or CI > 64):
+//   halo_fma_kernel, exact f32 FMA on the CUDA cores (no tensor cores, no
+//   TF32), f32 accumulation in both dtypes. A block of 256 threads owns
+//   128 output pixels (one 128-pixel row at enc1's 128-wide map, or 2 rows
+//   of 64, or 4 rows of 32 columns: halo_fma_plan takes the fewest waves,
+//   then the most rows, which stage the fewest input rows a pixel) by 128
+//   output channels (enc1's whole CO, so the band is staged once), each
+//   lane an 8 x 8 register micro-tile.
+//   CI goes by chunks of 4 channels through a ring of 4 stages, each
+//   holding the band's input rows with their 1-row halos at the block's
+//   columns (16 bytes a column) and the chunk's 16 x 4 x 128 weights, filled
+//   by 16-byte cp.async (f32; zero-filled through the source size for the
+//   padding) or 8-byte loads (bf16) three chunks ahead of the FMAs. Every
+//   tap reads its window straight from the staged band: output pixel (r, s)
+//   at tap (kh, kw) reads staged row 2r + kh, column 2s + kw. No im2col, no
+//   split, no atomics. Shared memory: 4 x (4 x 258 x 4 + 16 x 4 x 128) x 4
+//   = 197,120 bytes at 1 x 128 (4 x 32: 173,312), one block an SM (the
+//   micro-tile's 168 registers). On an H100 at 700 W (tools/halo_ab.py) it
+//   runs at 0.61-0.62 of the f32 bound at enc1, batch 4 and 8; blocks of
+//   2 x 64 or 1 x 128 ran 2-5% slower and a 3-stage ring 1.5% slower.
+//   Without w's shared-memory reads it ran 10% faster, without the copies
+//   no faster: w's reads, not the copies, hold it back.
 //
 // halo_wgmma_kernel:
 // - Weights resident, x streamed. A block owns one image, one strip of 64
@@ -68,132 +92,275 @@
 
 namespace {
 
+// ---- CUDA-core path (f32; bf16 off the tensor-core tiles) ---------------
+
+namespace fma {
+
 constexpr int THREADS = 256;
-constexpr int CI_CHUNK = 8;
-constexpr int CO_TILE = 64;
-constexpr int PIX_PER_THREAD = 8;
-constexpr int CH_PER_THREAD = 8;
-constexpr int PIX_GROUPS = THREADS / (CO_TILE / CH_PER_THREAD);  // 32
-constexpr int MAX_PIX = PIX_GROUPS * PIX_PER_THREAD;              // 256
+constexpr int PIXELS = 128;   // output pixels of a block: ROWS output rows x COLS columns
+constexpr int CO_TILE = 128;  // output channels of a block
+constexpr int CK = 4;         // channels of a CI chunk: 16 f32 bytes a staged column
+constexpr int STAGES = 4;     // the ring: copies STAGES - 1 chunks ahead
+constexpr int TM = 8, TN = 8; // a lane's pixels and channels
+constexpr int WARPS_N = CO_TILE / (8 * TN);  // 2: a warp holds 32 pixels x 64 channels
+constexpr int W_UNITS = 16 * CK * CO_TILE / 4;  // 16-byte units of a chunk's weights
+constexpr int W_COPIES = W_UNITS / THREADS;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    halo_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const float* __restrict__ scale, const float* __restrict__ offset,
-                     T* __restrict__ y, int n, int h, int wd, int ci, int co, int to, int act,
-                     PairStrides ps) {
-  extern __shared__ float smem[];
+// A stage: the band's 2 ROWS + 2 input rows by 2 COLS + 2 columns, CK
+// channels each (one 16-byte unit a column), then the chunk's weights
+// [tap][CK][CO_TILE]; sizes in floats.
+__host__ __device__ constexpr int x_cols(int cols) { return 2 * cols + 2; }
+__host__ __device__ constexpr int x_units(int cols) {
+  return (2 * (PIXELS / cols) + 2) * x_cols(cols);
+}
+__host__ __device__ constexpr int stage_floats(int cols) {
+  return 4 * x_units(cols) + 16 * CK * CO_TILE;
+}
+__host__ __device__ constexpr int smem_bytes(int cols) { return STAGES * stage_floats(cols) * 4; }
+
+// This thread's cp.async copies but its last N commit groups have landed
+// (no proxy fence: the CUDA cores read them).
+template <int N>
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Four consecutive values of T as f32 (bf16: one 8-byte load).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = Vec16<__nv_bfloat16>::half(u.x), hi = Vec16<__nv_bfloat16>::half(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(Vec16<__nv_bfloat16>::word(v[0], v[1]),
+                                            Vec16<__nv_bfloat16>::word(v[2], v[3]));
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z): output channels co0 .. co0 +
+// 127 (x), output rows oy0 .. oy0 + ROWS - 1 and columns ox0 .. ox0 + COLS
+// - 1 (y = band * strips + strip) of image z % N, pair z / N. CI goes by
+// chunks of CK channels through a ring of STAGES stages; a stage holds the
+// band's input rows 2 oy0 - 1 .. 2 oy0 + 2 ROWS and columns 2 ox0 - 1 .. 2
+// ox0 + 2 COLS at the chunk's channels ([row][column][CK], zero outside the
+// map) and the chunk's weights ([tap][CK][co]); output pixel (r, s) at
+// tap (kh, kw) reads staged row 2r + kh, column 2s + kw: no im2col. 8 warps
+// of 32 pixels x 64 channels, each lane an 8 x 8 register micro-tile: pixels
+// p = wm + ty + 4i (i < 8; r = p / COLS, s = p % COLS, so a warp's 32
+// pixels lie in one output row), channels wn + 32jj + 4tx + e (jj < 2, e <
+// 4), lane = 8 ty + tx. Per tap and chunk a lane reads 8 float4 of x (its
+// pixels' CK channels) and 8 float4 of w (its channels at the CK channels):
+// 16 FMAs a read. The four pixels a warp reads at once are 2 columns, 32
+// bytes, apart: their float4s fall in distinct banks; the eight lanes of a
+// pixel read 128 consecutive bytes of w. f32 (VEC): the stage is filled by
+// 16-byte cp.async, zero-filled through its source size; bf16: by 8-byte
+// loads converted to f32 and stored. Each thread's copies sit at the same
+// places in every stage (units tid + 256 j), so a chunk moves only their
+// channel offset.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(THREADS, 1)
+    halo_fma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ scale, const float* __restrict__ offset,
+                    T* __restrict__ y, int n, int h, int wd, int ci, int co, int act,
+                    PairStrides ps) {
+  constexpr int ROWS = PIXELS / COLS, XC = x_cols(COLS), XU = x_units(COLS);
+  constexpr int X_COPIES = (XU + THREADS - 1) / THREADS;
+  constexpr int STAGE = stage_floats(COLS);
+  constexpr bool VEC = sizeof(T) == 4;
+  static_assert(COLS % 32 == 0 && PIXELS % COLS == 0, "a warp's 32 pixels in one row");
+  static_assert(W_UNITS % THREADS == 0 && X_COPIES <= 32, "copies a thread");
+  extern __shared__ __align__(16) float fsm[];
   const int ho = h / 2, wo = wd / 2;
-  const int rows = 2 * to + 2;
-  const int cols = wd + 2;
-  float* xs = smem;                          // [rows][cols][CI_CHUNK]
-  float* ws = smem + rows * cols * CI_CHUNK;  // [16][CI_CHUNK][CO_TILE]
-
-  const int band = blockIdx.x;
-  const int cot = blockIdx.y;
+  const int strips = (wo + COLS - 1) / COLS;
+  const int co0 = blockIdx.x * CO_TILE;
+  const int oy0 = (blockIdx.y / strips) * ROWS, ox0 = (blockIdx.y % strips) * COLS;
   const int b = blockIdx.z % n, pair = blockIdx.z / n;  // z = pair * N + image
   x += pair * ps.x;
   w += pair * ps.w;
   y += pair * ps.y;
   scale = at_pair(scale, ps.aff, pair);
   offset = at_pair(offset, ps.aff, pair);
-  const int tid = threadIdx.x;
-  const int cg = tid % (CO_TILE / CH_PER_THREAD);
-  const int pg = tid / (CO_TILE / CH_PER_THREAD);
-  const int oy0 = band * to;
-  const int iy0 = 2 * oy0 - 1;  // input row of staged row 0
-
-  // This thread's pixels p = pg + 32*j of the band and their window
-  // origins in the staged band.
-  int xoff[PIX_PER_THREAD];
-  bool pvalid[PIX_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < PIX_PER_THREAD; ++j) {
-    const int p = pg + PIX_GROUPS * j;
-    const int oyl = p / wo, ox = p % wo;
-    pvalid[j] = p < to * wo && oy0 + oyl < ho;
-    xoff[j] = pvalid[j] ? ((2 * oyl) * cols + 2 * ox) * CI_CHUNK : 0;
-  }
-
-  float acc[PIX_PER_THREAD][CH_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < PIX_PER_THREAD; ++j)
-#pragma unroll
-    for (int c = 0; c < CH_PER_THREAD; ++c) acc[j][c] = 0.f;
-
   const T* xb = x + static_cast<long long>(b) * h * wd * ci;
-  for (int c0 = 0; c0 < ci; c0 += CI_CHUNK) {
-    __syncthreads();
-    const int x_elems = rows * cols * CI_CHUNK;
-    for (int e = tid; e < x_elems; e += THREADS) {
-      const int c = e % CI_CHUNK;
-      const int col = (e / CI_CHUNK) % cols;
-      const int row = e / (CI_CHUNK * cols);
-      const int iy = iy0 + row, ix = col - 1;
-      float v = 0.f;
-      if (iy >= 0 && iy < h && ix >= 0 && ix < wd) {
-        v = to_f32(xb[(static_cast<long long>(iy) * wd + ix) * ci + c0 + c]);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = lane & 7, ty = lane >> 3;
+  const int wm = (warp / WARPS_N) * 32, wn = (warp % WARPS_N) * 8 * TN;
+
+  // x: unit e = tid + THREADS j of a stage is staged row e / XC, column e %
+  // XC; x_pix its input pixel iy * W + ix, x_ok whether it lies in the map.
+  int x_pix[X_COPIES];
+  uint32_t x_ok = 0;
+#pragma unroll
+  for (int j = 0; j < X_COPIES; ++j) {
+    const int e = tid + THREADS * j;
+    const int iy = 2 * oy0 - 1 + e / XC, ix = 2 * ox0 - 1 + e % XC;
+    const bool ok = e < XU && iy >= 0 && iy < h && ix >= 0 && ix < wd;
+    x_pix[j] = ok ? iy * wd + ix : 0;
+    x_ok |= static_cast<uint32_t>(ok) << j;
+  }
+  // w: unit tid + THREADS j is row tid / 32 + 8 j of the chunk's 16 CK rows
+  // (tap r / CK = tid / 128 + 2 j, channel r % CK = (tid / 32) % 4), columns
+  // co0 + 4 (tid % 32) .. + 3, zero past CO.
+  const bool w_ok = co0 + 4 * (tid & 31) < co;
+  const T* w_src = w + (static_cast<long long>((tid >> 5) / CK) * ci + (tid >> 5) % CK) * co +
+                   (w_ok ? co0 + 4 * (tid & 31) : 0);
+  const long long w_step = 2LL * ci * co;  // two taps
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(fsm));
+  const int nchunks = ci / CK;
+
+  // Stage chunk q (channels CK q ..) into its ring slot, if `go`.
+  auto stage = [&](int q, bool go) {
+    if (!go) return;
+    const int slot = (q % STAGES) * STAGE, c0 = q * CK;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int j = 0; j < X_COPIES; ++j) {
+        const bool ok = (x_ok >> j) & 1;
+        if (j + 1 < X_COPIES || tid + THREADS * j < XU)
+          hopper::cp_async16(sbase + 4 * (slot + 4 * (tid + THREADS * j)),
+                             ok ? xb + static_cast<long long>(x_pix[j]) * ci + c0 : x, ok);
       }
-      xs[e] = v;
+#pragma unroll
+      for (int j = 0; j < W_COPIES; ++j)
+        hopper::cp_async16(sbase + 4 * (slot + 4 * (XU + tid + THREADS * j)),
+                           w_ok ? w_src + j * w_step + static_cast<long long>(c0) * co : w,
+                           w_ok);
+    } else {
+      float4 xv[X_COPIES], wv[W_COPIES];
+#pragma unroll
+      for (int j = 0; j < X_COPIES; ++j)
+        xv[j] = (x_ok >> j) & 1 ? load4(xb + static_cast<long long>(x_pix[j]) * ci + c0)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < W_COPIES; ++j)
+        wv[j] = w_ok ? load4(w_src + j * w_step + static_cast<long long>(c0) * co)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < X_COPIES; ++j)
+        if (j + 1 < X_COPIES || tid + THREADS * j < XU)
+          *reinterpret_cast<float4*>(fsm + slot + 4 * (tid + THREADS * j)) = xv[j];
+#pragma unroll
+      for (int j = 0; j < W_COPIES; ++j)
+        *reinterpret_cast<float4*>(fsm + slot + 4 * (XU + tid + THREADS * j)) = wv[j];
     }
-    for (int e = tid; e < 16 * CI_CHUNK * CO_TILE; e += THREADS) {
-      const int o = e % CO_TILE;
-      const int c = (e / CO_TILE) % CI_CHUNK;
-      const int tap = e / (CO_TILE * CI_CHUNK);
-      const int col = cot * CO_TILE + o;
-      ws[e] = col < co ? to_f32(w[(static_cast<long long>(tap) * ci + c0 + c) * co + col]) : 0.f;
-    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int q = 0; q < STAGES - 1; ++q) {
+    stage(q, q < nchunks);
+    hopper::cp_async_commit();
+  }
+  // This lane's pixel i at tap (kh, kw): staged unit (2r + kh) XC + 2s + kw
+  // with r = wm / COLS, s = wm % COLS + ty + 4i.
+  const int x_lane = 4 * (2 * (wm / COLS) * XC + 2 * (wm % COLS + ty));
+  // Chunk q: its copies landed (this thread's, then everyone's at the
+  // barrier, which also sees every warp past chunk q - 1's reads); chunk q +
+  // STAGES - 1 staged into chunk q - 1's slot; then chunk q's products.
+#pragma unroll 1
+  for (int q = 0; q < nchunks; ++q) {
+    copies_landed<STAGES - 2>();
     __syncthreads();
+    stage(q + STAGES - 1, q + STAGES - 1 < nchunks);
+    hopper::cp_async_commit();
+    const float* xs = fsm + (q % STAGES) * STAGE + x_lane;
+    const float* ws = fsm + (q % STAGES) * STAGE + 4 * XU + wn + 4 * tx;
 #pragma unroll 1
     for (int kh = 0; kh < 4; ++kh) {
 #pragma unroll
       for (int kw = 0; kw < 4; ++kw) {
-        const int tap_off = (kh * cols + kw) * CI_CHUNK;
-        const float* wt = ws + (kh * 4 + kw) * CI_CHUNK * CO_TILE + cg * CH_PER_THREAD;
+        float4 a[TM];
 #pragma unroll
-        for (int c = 0; c < CI_CHUNK; ++c) {
-          float xv[PIX_PER_THREAD], wv[CH_PER_THREAD];
+        for (int i = 0; i < TM; ++i)
+          a[i] = *reinterpret_cast<const float4*>(xs + 4 * (kh * XC + kw) + 32 * i);
 #pragma unroll
-          for (int j = 0; j < PIX_PER_THREAD; ++j) xv[j] = xs[xoff[j] + tap_off + c];
+        for (int kk = 0; kk < CK; ++kk) {
+          const float* wr = ws + ((kh * 4 + kw) * CK + kk) * CO_TILE;
+          float bv[TN];
 #pragma unroll
-          for (int q = 0; q < CH_PER_THREAD; ++q) wv[q] = wt[c * CO_TILE + q];
+          for (int jj = 0; jj < TN / 4; ++jj) {
+            const float4 v = *reinterpret_cast<const float4*>(wr + 32 * jj);
+            bv[4 * jj] = v.x, bv[4 * jj + 1] = v.y, bv[4 * jj + 2] = v.z, bv[4 * jj + 3] = v.w;
+          }
 #pragma unroll
-          for (int j = 0; j < PIX_PER_THREAD; ++j)
+          for (int i = 0; i < TM; ++i) {
+            const float ai = lane_of(a[i], kk);
 #pragma unroll
-            for (int q = 0; q < CH_PER_THREAD; ++q) acc[j][q] = fmaf(xv[j], wv[q], acc[j][q]);
+            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+          }
         }
       }
     }
   }
+  copies_landed<0>();
 
+  // The epilogue on the accumulators: y = act(acc * scale + offset), four
+  // consecutive channels a store.
+  float sc[TN], of[TN];
 #pragma unroll
-  for (int j = 0; j < PIX_PER_THREAD; ++j) {
-    if (!pvalid[j]) continue;
-    const int p = pg + PIX_GROUPS * j;
-    const int oy = oy0 + p / wo, ox = p % wo;
+  for (int j = 0; j < TN; ++j) {
+    const int col = co0 + wn + 4 * tx + 32 * (j / 4) + j % 4;
+    const bool ok = scale != nullptr && col < co;
+    sc[j] = ok ? scale[col] : 1.f;
+    of[j] = ok ? offset[col] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int p = wm + ty + 4 * i;
+    const int oy = oy0 + p / COLS, ox = ox0 + p % COLS;
+    if (oy >= ho || ox >= wo) continue;
     T* yp = y + ((static_cast<long long>(b) * ho + oy) * wo + ox) * co;
 #pragma unroll
-    for (int q = 0; q < CH_PER_THREAD; ++q) {
-      const int col = cot * CO_TILE + cg * CH_PER_THREAD + q;
+    for (int jj = 0; jj < TN / 4; ++jj) {
+      const int col = co0 + wn + 4 * tx + 32 * jj;
       if (col >= co) continue;
-      float v = acc[j][q];
-      if (scale != nullptr) v = v * scale[col] + offset[col];
-      yp[col] = from_f32<T>(apply_act(v, act));
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = apply_act(acc[i][4 * jj + e] * sc[4 * jj + e] + of[4 * jj + e], act);
+      store4(yp + col, v);
     }
   }
 }
 
-// Rows per band for a map Wo pixels wide: as many as fit 256 pixels.
-int band_rows(int ho, int wo) {
-  if (wo <= 0 || wo > MAX_PIX) return 0;
-  int to = MAX_PIX / wo;
-  return to < ho ? to : ho;
+template <typename T, int COLS>
+int launch(dim3 grid, cudaStream_t s, const void* x, const void* w, const float* sc,
+           const float* of, void* y, int n, int h, int wd, int ci, int co, int act,
+           const PairStrides& ps) {
+  const int smem = smem_bytes(COLS);
+  const cudaError_t err = cudaFuncSetAttribute(
+      halo_fma_kernel<T, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_fma_kernel<T, COLS><<<grid, THREADS, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), sc, of, static_cast<T*>(y), n, h, wd,
+      ci, co, act, ps);
+  return launch_status();
 }
 
-long long smem_bytes(int wd, int to) {
-  return (static_cast<long long>(2 * to + 2) * (wd + 2) * CI_CHUNK + 16 * CI_CHUNK * CO_TILE) *
-         static_cast<long long>(sizeof(float));
+template <typename T>
+int launch_cols(int cols, dim3 grid, cudaStream_t s, const void* x, const void* w,
+                const float* sc, const float* of, void* y, int n, int h, int wd, int ci, int co,
+                int act, const PairStrides& ps) {
+  switch (cols) {
+    case 32: return launch<T, 32>(grid, s, x, w, sc, of, y, n, h, wd, ci, co, act, ps);
+    case 64: return launch<T, 64>(grid, s, x, w, sc, of, y, n, h, wd, ci, co, act, ps);
+    default: return launch<T, 128>(grid, s, x, w, sc, of, y, n, h, wd, ci, co, act, ps);
+  }
 }
+
+}  // namespace fma
 
 // ---- tensor-core path (bf16, CI % 16 == 0, CI <= 64) -------------------
 
@@ -454,34 +621,46 @@ int launch(dim3 grid, cudaStream_t s, const void* x, const void* w, const float*
 
 }  // namespace
 
-// rows > 0: the tensor-core path with `rows` output rows per block (the
-// wrapper's tile plan); rows == 0: the FMA path. pairs, x_ps, w_ps, aff_ps:
-// the pair axis (common.cuh), w_ps 0 for a shared weight; pair p's y
-// starts N*HO*WO*CO values after pair 0's (the grid's z is pair * N +
-// image).
+// The plan's paths (ops/halo_conv.py::HALO_PATH_CODES).
+enum HaloPath { HALO_FMA = 0, HALO_WGMMA = 1 };
+
+// The wrapper's plan (ops/halo_conv.py: tc_plan for the tensor-core path,
+// halo_fma_plan for the CUDA cores): path (HaloPath); rows, cols: output
+// rows and columns of a block (wgmma: its run of rows and its 64-column
+// strip; FMA: rows x cols = 128 pixels, cols 32, 64 or 128); stages: the
+// ring (wgmma: its 6 input rows; FMA: its 4 chunks); grid_x, grid_y: the
+// grid (channel tiles; strips x bands; the pairs' images are its z); smem:
+// dynamic shared memory. The entry refuses a plan that differs from its own
+// arithmetic. pairs, x_ps, w_ps, aff_ps: the pair axis (common.cuh), w_ps 0
+// for a shared weight; pair p's y starts N*HO*WO*CO values after pair 0's
+// (the grid's z is pair * N + image).
 extern "C" int discogan_halo_conv_k4s2p1(const void* x, const void* w, const void* scale,
                                          const void* offset, void* y, int n, int h, int wd,
-                                         int ci, int co, int act, int dtype, int rows, int pairs,
-                                         long long x_ps, long long w_ps, long long aff_ps,
-                                         void* stream) {
+                                         int ci, int co, int act, int dtype, int path, int rows,
+                                         int cols, int stages, int grid_x, int grid_y, int smem,
+                                         int pairs, long long x_ps, long long w_ps,
+                                         long long aff_ps, void* stream) {
   const int ho = h / 2, wo = wd / 2;
   if (pairs == 0) return 0;
+  constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
   const int itemsize = dtype == DT_F32 ? 4 : 2;
   if (pairs < 1 || static_cast<long long>(pairs) * n > 65535 ||
       !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, w_ps, itemsize) ||
-      !pair_aligned(pairs, aff_ps, 4))
-    return static_cast<int>(cudaErrorInvalidValue);
+      !pair_aligned(pairs, aff_ps, 4) || rows < 1 || cols < 1)
+    return BAD;
+  if (n == 0 || ho == 0 || wo == 0 || co == 0) return 0;
   const PairStrides ps{x_ps, w_ps, static_cast<long long>(n) * ho * wo * co, aff_ps, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
-  if (rows > 0) {
-    if (!tc::applies(dtype, ci, co)) return static_cast<int>(cudaErrorInvalidValue);
-    if (n == 0 || ho == 0 || wo == 0) return 0;
-    const dim3 grid(static_cast<unsigned>((co + tc::CO_TILE - 1) / tc::CO_TILE),
-                    static_cast<unsigned>((wo + tc::STRIP - 1) / tc::STRIP *
-                                          ((ho + rows - 1) / rows)),
-                    static_cast<unsigned>(n * pairs));
+  const long long blocks_y =
+      static_cast<long long>((wo + cols - 1) / cols) * ((ho + rows - 1) / rows);
+  if (path == HALO_WGMMA) {
+    if (!tc::applies(dtype, ci, co) || cols != tc::STRIP || stages != tc::SLOTS ||
+        grid_x != (co + tc::CO_TILE - 1) / tc::CO_TILE || grid_y != blocks_y ||
+        smem != tc::smem_bytes(ci))
+      return BAD;
+    const dim3 grid(grid_x, grid_y, static_cast<unsigned>(n * pairs));
     switch (ci / 16) {
       case 1: return tc::launch<1>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
       case 2: return tc::launch<2>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
@@ -489,28 +668,19 @@ extern "C" int discogan_halo_conv_k4s2p1(const void* x, const void* w, const voi
       default: return tc::launch<4>(grid, s, x, w, sc, of, y, n, h, wd, co, rows, act, ps);
     }
   }
-  const int to = band_rows(ho, wo);
-  if (to <= 0 || ci % CI_CHUNK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0 || co == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((ho + to - 1) / to),
-                  static_cast<unsigned>((co + CO_TILE - 1) / CO_TILE),
-                  static_cast<unsigned>(n * pairs));
-  const long long smem = smem_bytes(wd, to);
-  cudaError_t err;
-  if (dtype == DT_F32) {
-    err = cudaFuncSetAttribute(halo_conv_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    halo_conv_kernel<float><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), sc, of,
-        static_cast<float*>(y), n, h, wd, ci, co, to, act, ps);
-  } else {
-    err = cudaFuncSetAttribute(halo_conv_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    halo_conv_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), sc, of,
-        static_cast<__nv_bfloat16*>(y), n, h, wd, ci, co, to, act, ps);
-  }
-  return launch_status();
+  // The CUDA cores: f32 by 16-byte copies (16-byte aligned operands, which
+  // the wrapper passes), bf16 by 8-byte loads.
+  if (path != HALO_FMA || (dtype != DT_F32 && dtype != DT_BF16) || ci % fma::CK || ci < 1 ||
+      co % 4 || (cols != 32 && cols != 64 && cols != 128) || rows * cols != fma::PIXELS ||
+      stages != fma::STAGES || grid_x != (co + fma::CO_TILE - 1) / fma::CO_TILE ||
+      grid_y != blocks_y || smem != fma::smem_bytes(cols) || smem > 232448 ||
+      static_cast<long long>(h) * wd >= (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y)) % 16)
+    return BAD;
+  const dim3 grid(grid_x, grid_y, static_cast<unsigned>(n * pairs));
+  return dtype == DT_F32
+             ? fma::launch_cols<float>(cols, grid, s, x, w, sc, of, y, n, h, wd, ci, co, act, ps)
+             : fma::launch_cols<__nv_bfloat16>(cols, grid, s, x, w, sc, of, y, n, h, wd, ci,
+                                               co, act, ps);
 }

@@ -6,17 +6,20 @@ K5b, csrc/halo_conv_k4s2p1_dw.cu), the port of the JAX package's
 layer. The backward routes by the same rule as the forward.
 
 Preconditions (the JAX docstring's, asserted here): even H and W, CI and CO
-multiples of 8, 2*CI <= 256; the kernel's band holds at most 256 output
-pixels of a row, so W/2 <= 256. ``takes_halo`` is the shape rule that
-sends a layer here instead of to K3: an input at least 128 pixels wide
-with at most 64 channels (at 512px that is enc1 alone; enc2's 128px input
-has 128 channels, where K3's contraction per tap is already deep).
-On the card K5f has two paths, picked here by dtype and shape: bf16 with
-CI % 16 == 0 and CI <= 64 (enc1) takes the tensor-core kernel with the tile
-plan of ``tc_plan``; f32 and the other shapes take the f32-FMA kernel. K5b
-computes K4's function: in bf16 it runs K4's wgmma design under its own
-kernel name, with the plan of ``halo_dw_plan`` (K4's ``dw_plan``); in f32
-its FMA kernel over runs of output rows.
+multiples of 8, 2*CI <= 256; and the port's W/2 <= 256.
+``takes_halo`` is the shape rule that sends a layer here instead of to K3:
+an input at least 128 pixels wide with at most 64 channels (at 512px that
+is enc1 alone; enc2's 128px input has 128 channels, where K3's contraction
+per tap is already deep).
+On the card K5f has two paths, each with a plan that the C entry checks:
+bf16 with CI % 16 == 0 and CI <= 64 (enc1) takes the tensor-core kernel
+with the tile plan of ``tc_plan``; f32 and the other shapes take the
+CUDA-core kernel, ``halo_fma_kernel`` (exact f32 FMA, 8 x 8 register
+micro-tiles, the band staged once per CI chunk through a cp.async ring),
+with the plan of ``halo_fma_plan``. K5b computes K4's function: in bf16 it
+runs K4's wgmma design under its own kernel name, with the plan of
+``halo_dw_plan`` (K4's ``dw_plan``); in f32 its FMA kernel over runs of
+output rows.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -36,7 +39,7 @@ from .conv_k4s2p1 import MAX_SMEM_BYTES as SMEM_PER_BLOCK
 from .conv_k4s2p1 import conv2d_k4s2p1_dw_plain as halo_conv2d_k4s2p1_dw_plain
 from .conv_k4s2p1 import conv2d_k4s2p1_plain as halo_conv2d_k4s2p1_plain
 
-MAX_BAND_WIDTH = 256  # output pixels per row a band can hold
+MAX_BAND_WIDTH = 256  # the widest output row K5f takes (its contract: W/2 <= 256)
 MIN_WIDTH = 128       # input width from which the route takes this kernel
 MAX_ROUTED_CI = 64
 
@@ -50,6 +53,20 @@ TC_CO_TILE = 64
 TC_SLOTS = 6
 TC_PIXEL_BYTES = 128
 TC_MAX_CI = 64
+# K5f's CUDA-core kernel (halo_fma_kernel, namespace fma): a block of
+# HALO_FMA_THREADS threads owns HALO_FMA_PIXELS output pixels, rows x cols
+# with cols one of HALO_FMA_COLS, by HALO_FMA_CO_TILE output channels, each
+# lane an 8 x 8 micro-tile; CI goes by chunks of HALO_FMA_CK channels
+# through a ring of HALO_FMA_STAGES stages, each the band's 2 rows + 2 input
+# rows by 2 cols + 2 columns (HALO_FMA_CK f32 a column) and the chunk's 16 x
+# HALO_FMA_CK x HALO_FMA_CO_TILE f32 weights.
+HALO_FMA_THREADS = 256
+HALO_FMA_PIXELS = 128
+HALO_FMA_COLS = (32, 64, 128)
+HALO_FMA_CO_TILE = 128
+HALO_FMA_CK = 4
+HALO_FMA_STAGES = 4
+HALO_PATH_CODES = {"fma": 0, "wgmma": 1}
 # K5b's f32 FMA kernel (csrc/halo_conv_k4s2p1_dw.cu, halo_dw_kernel): a block
 # owns one kernel row, a FMA_TILE tile of CI and of CO and a run of output
 # rows; runs are halved while the blocks fill fewer than two waves and each
@@ -59,7 +76,7 @@ FMA_MIN_ROWS = 4
 
 __all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain",
            "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo",
-           "tc_plan", "TilePlan", "halo_dw_plan"]
+           "tc_plan", "TilePlan", "halo_fma_plan", "HaloFmaPlan", "halo_dw_plan"]
 
 
 class TilePlan(NamedTuple):
@@ -95,6 +112,69 @@ def tc_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     smem = (TC_SLOTS * 2 * (TC_STRIP + 1) * TC_PIXEL_BYTES
             + 16 * ci * TC_CO_TILE * 2)
     return TilePlan(rows, bands, strips, co_tiles, smem, pairs)
+
+
+class HaloFmaPlan(NamedTuple):
+    rows: int        # output rows of a block
+    cols: int        # output columns of a block (rows * cols = HALO_FMA_PIXELS)
+    co_tile: int     # output channels of a block
+    ci_chunk: int    # CI channels of a ring stage
+    stages: int      # ring stages
+    smem_bytes: int  # dynamic shared memory of a block
+    grid: tuple      # (channel tiles, bands * strips, images * pairs)
+    pairs: int = 1   # problems of the launch (folded into the grid's z)
+
+    @property
+    def x_units(self) -> int:
+        """16-byte units of a stage's band: (2 rows + 2) x (2 cols + 2)."""
+        return (2 * self.rows + 2) * (2 * self.cols + 2)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def halo_fma_plan(n: int, h: int, w: int, ci: int, co: int,
+                  sms: int = H100_SMS, pairs: int = 1) -> HaloFmaPlan:
+    """The CUDA-core kernel's plan for x (n,h,w,ci) and CO channels, in
+    either dtype (f32, and bf16 off the tensor-core tiles: the dtype
+    changes only how the stages are filled). Of the block shapes rows x cols (128 / cols rows of
+    cols in HALO_FMA_COLS), the one whose grid takes the fewest waves of
+    ``sms`` blocks (one fits an SM), then the one that stages the fewest
+    input rows a pixel (the most rows: each band stages 2 rows + 2; enc1's
+    128-wide map takes 4 x 32). Every block does a whole tile's FMAs, so
+    below a wave more blocks would not finish sooner. ``pairs`` multiplies
+    the grid's z alone: each pair runs the plan of a single call."""
+    ho, wo = h // 2, w // 2
+    co_tiles = -(-co // HALO_FMA_CO_TILE)
+
+    def grid_of(cols):
+        rows = HALO_FMA_PIXELS // cols
+        return (co_tiles, -(-ho // rows) * -(-wo // cols), n * pairs)
+
+    def cost(cols):
+        gx, gy, _ = grid_of(cols)
+        return (-(-(n * gx * gy) // sms), cols)
+
+    cols = min(HALO_FMA_COLS, key=cost)
+    rows = HALO_FMA_PIXELS // cols
+    stage_floats = (4 * (2 * rows + 2) * (2 * cols + 2)
+                    + 16 * HALO_FMA_CK * HALO_FMA_CO_TILE)
+    return HaloFmaPlan(rows, cols, HALO_FMA_CO_TILE, HALO_FMA_CK, HALO_FMA_STAGES,
+                       HALO_FMA_STAGES * stage_floats * 4, grid_of(cols), pairs)
+
+
+def halo_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
+              sms: int = H100_SMS, pairs: int = 1):
+    """(path, rows, cols, stages, grid_x, grid_y, smem) of K5f's C entry:
+    the tensor-core plan where ``tc_plan`` takes the shape, else the
+    CUDA-core plan."""
+    tc = tc_plan(n, h, w, ci, co, dtype, sms, pairs)
+    if tc is not None:
+        return ("wgmma", tc.rows, TC_STRIP, TC_SLOTS, tc.co_tiles, tc.strips * tc.bands,
+                tc.smem_bytes)
+    fp = halo_fma_plan(n, h, w, ci, co, sms, pairs)
+    return ("fma", fp.rows, fp.cols, fp.stages, fp.grid[0], fp.grid[1], fp.smem_bytes)
 
 
 def _check_preconditions(x, w):
@@ -133,15 +213,15 @@ def halo_conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None):
     _build.check_cuda_tensor("halo_conv2d_k4s2p1 x", x)
     _build.check_cuda_tensor("halo_conv2d_k4s2p1 w", w, dtype=x.dtype)
     sp, op, aff_ps = affine_pointers("halo_conv2d_k4s2p1", scale, offset, co, pairs)
-    plan = tc_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index), max(pairs, 1))
+    path, *plan = halo_plan(n, h, wd, ci, co, x.dtype, _sm_count(x.device.index),
+                            max(pairs, 1))
     y = torch.empty(*((pairs,) if pairs else ()), n, h // 2, wd // 2, co,
                     dtype=x.dtype, device=x.device)
     lib = _build.library()
     _build.launch("halo_conv_k4s2p1", lib.discogan_halo_conv_k4s2p1,
                   x.data_ptr(), w.data_ptr(), sp, op, y.data_ptr(), n, h, wd,
-                  ci, co, code, _build.DTYPE_CODES[x.dtype],
-                  plan.rows if plan else 0, max(pairs, 1), x1.numel(), w_ps, aff_ps,
-                  _build.stream_of(x))
+                  ci, co, code, _build.DTYPE_CODES[x.dtype], HALO_PATH_CODES[path],
+                  *plan, max(pairs, 1), x1.numel(), w_ps, aff_ps, _build.stream_of(x))
     return y
 
 

@@ -8,6 +8,10 @@ Per k4/s2/p1 layer of the encoder at ``--size`` and ``--batch``: K3
 (``conv2d_k4s2p1``) against ``F.conv2d``, held against it first (3e-2 of
 max(1, max|ref|), the JAX tool's guard); the stem too, which K3 takes on
 its own route (the JAX tool skipped it: no Pallas kernel took 3 channels).
+Where the generator's route takes the layer to K5f (``takes_halo``: enc1 at
+>= 256px), K5f (``halo_conv2d_k4s2p1``) too, held against ``F.conv2d``
+first, in ``halo_kernel_us`` and ``halo_ratio`` beside K3's row at the same
+shape: one run's K3-against-K5f A/B in the dtype asked for.
 ``--dw`` adds the weight gradient, K4 (``conv2d_k4s2p1_dw``) against
 ``torch.nn.grad.conv2d_weight``, and K5b (``halo_conv2d_k4s2p1_dw``) where
 the generator's route takes the layer to K5f (enc1 at >= 256px);
@@ -54,7 +58,7 @@ def bench_layer(n, s, ci, co, dtype, timer, device, *, dw=False, dx=False, fused
     from ..ops.batchnorm import fold_bn
     from ..ops.conv_k4s2p1 import conv2d_k4s2p1, conv2d_k4s2p1_dw
     from ..ops.fused import bn_act
-    from ..ops.halo_conv import halo_conv2d_k4s2p1_dw, takes_halo
+    from ..ops.halo_conv import halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_dw, takes_halo
 
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(n, s, s, ci, generator=g, device=device).to(dtype)
@@ -74,6 +78,14 @@ def bench_layer(n, s, ci, co, dtype, timer, device, *, dw=False, dx=False, fused
     row = {"layer": f"{s}px {ci}->{co}", "library_us": t_lib * 1e6, "kernel_us": t_ker * 1e6,
            "library_tf": flops / t_lib / 1e12, "kernel_tf": flops / t_ker / 1e12,
            "ratio": t_lib / t_ker}
+    if takes_halo(x, w):
+        def halo_conv():
+            return halo_conv2d_k4s2p1(x, w)
+
+        _check(f"{s}px {ci}->{co} halo fwd", halo_conv(), lib_conv().permute(0, 2, 3, 1))
+        t_halo = timer.ms(halo_conv) / 1e3
+        row.update(halo_kernel_us=t_halo * 1e6, halo_tf=flops / t_halo / 1e12,
+                   halo_ratio=t_lib / t_halo)
     if fused and co >= 64:
         gamma = torch.rand(co, generator=g, device=device)
         beta = torch.randn(co, generator=g, device=device)

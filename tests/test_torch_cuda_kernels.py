@@ -230,6 +230,63 @@ def test_halo_conv_tensor_cores(gen, n, h, w, ci, co, affine):
            torch.bfloat16)
 
 
+@pytest.mark.parametrize("affine", [True, False], ids=["epilogue", "raw"])
+@pytest.mark.parametrize("dt,n,h,w,ci,co", [
+    (torch.float32, 1, 256, 256, 64, 128),    # enc1 at 512px: the daemon's batch
+    (torch.float32, 4, 256, 256, 64, 128),    # the CLI's
+    (torch.float32, 8, 256, 256, 64, 128),    # a training step's
+    (torch.float32, 8, 132, 256, 64, 128),    # a tp-2 band: h/2 + 4 rows (2 x 64 blocks)
+    (torch.float32, 1, 20, 300, 64, 136),     # 4 x 32 blocks over 150 columns, 2 channel tiles
+    (torch.float32, 3, 14, 22, 8, 24),        # a ragged width, CO off the tile
+    (torch.bfloat16, 2, 40, 64, 24, 8),       # bf16 CI 24: 8-byte loads
+    (torch.bfloat16, 3, 14, 22, 8, 24),       # bf16 CI 8
+    (torch.bfloat16, 1, 30, 128, 128, 256)])  # bf16 CI 128: past the tensor cores' 64
+def test_halo_conv_fma(gen, dt, n, h, w, ci, co, affine):
+    """halo_fma_kernel (halo_plan's "fma" path, exact f32 FMA on the CUDA
+    cores) at enc1 (batch 1, 4 and 8), a spatial band, three block shapes
+    and the bf16 shapes off the tensor-core tiles. One launch each, within
+    1e-4 (f32) or 2e-2 (bf16) of max(1, max|ref|)."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.halo_conv import halo_plan
+
+    configure(F32 if dt == torch.float32 else BF16)
+    assert halo_plan(n, h, w, ci, co, dt)[0] == "fma"
+    x = _rand(gen, dt, n, h, w, ci)
+    wt = _rand(gen, dt, 4, 4, ci, co, scale=(16 * ci) ** -0.5)
+    s = torch.rand(co, device="cuda", generator=gen) + 0.5 if affine else None
+    o = torch.randn(co, device="cuda", generator=gen) * 0.1 if affine else None
+    act = "leaky" if affine else None
+    before = _build.launches["halo_conv_k4s2p1"]
+    got = halo_conv2d_k4s2p1(x, wt, scale=s, offset=o, act=act)
+    assert _build.launches["halo_conv_k4s2p1"] == before + 1
+    _close(got, halo_conv2d_k4s2p1_plain(x, wt, scale=s, offset=o, act=act), dt)
+
+
+@pytest.mark.parametrize("field,value", [("rows", 2), ("cols", 64), ("stages", 3),
+                                         ("grid_x", 2), ("grid_y", 127), ("smem", 173_316)])
+def test_halo_conv_refuses_a_plan_off_its_arithmetic(gen, field, value):
+    """The C entry checks the plan it is given against its own arithmetic
+    (rows x cols = 128 pixels, the ring's stages, the grid, the shared
+    memory) and refuses one field off it, launching nothing."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.halo_conv import HALO_PATH_CODES, halo_plan
+
+    configure(F32)
+    x = _rand(gen, torch.float32, 1, 256, 256, 64)
+    wt = _rand(gen, torch.float32, 4, 4, 64, 128, scale=1 / 32)
+    y = torch.empty(1, 128, 128, 128, device="cuda")
+    path, *plan = halo_plan(1, 256, 256, 64, 128, torch.float32)
+    names = ["rows", "cols", "stages", "grid_x", "grid_y", "smem"]
+    assert dict(zip(names, plan)) == {"rows": 4, "cols": 32, "stages": 4, "grid_x": 1,
+                                      "grid_y": 128, "smem": 173_312}
+    plan[names.index(field)] = value
+    err = _build.library().discogan_halo_conv_k4s2p1(
+        x.data_ptr(), wt.data_ptr(), None, None, y.data_ptr(), 1, 256, 256, 64, 128, 0,
+        _build.DTYPE_CODES[torch.float32], HALO_PATH_CODES[path], *plan, 1, x.numel(), 0, 0,
+        _build.stream_of(x))
+    assert err != 0
+
+
 @pytest.mark.parametrize("n,h,w,ci,co", [
     (2, 8, 8, 16, 1), (1, 40, 24, 8, 3), (2, 8, 300, 16, 3), (1, 6, 10, 24, 8),
     (4, 256, 256, 64, 3)])
@@ -495,7 +552,8 @@ def test_conv_k4s2p1_pairs_affine(gen, shared):
 @pytest.mark.parametrize("dt,n,h,w,ci,co", [
     (torch.bfloat16, 8, 256, 256, 64, 128),    # enc1 at 512px, batch 8
     (torch.bfloat16, 1, 200, 136, 32, 64),     # partial bands and strips
-    (torch.float32, 2, 128, 128, 16, 24)])     # the FMA kernel
+    (torch.float32, 2, 128, 128, 16, 24),      # the FMA kernel
+    (torch.float32, 4, 256, 256, 64, 128)])    # the FMA kernel at enc1, batch 4
 def test_halo_conv_pairs(gen, dt, n, h, w, ci, co, shared):
     configure(F32 if dt == torch.float32 else BF16)
     x = _rand(gen, dt, 2, n, h, w, ci)

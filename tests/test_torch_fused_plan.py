@@ -349,10 +349,13 @@ class _Entry:
 
 def _ab_patches(tool: str) -> list:
     """(source file, text patch) of every variant of an A/B tool."""
-    from discogan_modernized_torch.tools import conv_ab, fused_ab, head_ab
+    from discogan_modernized_torch.tools import conv_ab, fused_ab, halo_ab, head_ab
 
     if tool == "fused_ab":
         return [(source, old) for source, patches, _ in fused_ab.VARIANTS.values()
+                for old, _ in patches]
+    if tool == "halo_ab":
+        return [("halo_conv_k4s2p1.cu", old) for patches, _, _ in halo_ab.VARIANTS.values()
                 for old, _ in patches]
     if tool == "conv_ab":
         return [("conv_k4s2p1.cu", old) for table in (conv_ab.VARIANTS, conv_ab.F32_VARIANTS)
@@ -365,9 +368,15 @@ def _ab_calls(tool: str) -> list:
     """Each C entry an A/B tool calls, as an ``_Entry``, after one call
     through the tool's own call function on small CPU tensors."""
     from discogan_modernized_torch.ops.head import head_plan
-    from discogan_modernized_torch.tools import conv_ab, fused_ab, head_ab
+    from discogan_modernized_torch.tools import conv_ab, fused_ab, halo_ab, head_ab
 
     x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
+    if tool == "halo_ab":  # halo_fma_kernel's, in f32
+        k5f = _Entry("discogan_halo_conv_k4s2p1")
+        wt = torch.zeros(4, 4, 64, 128)
+        for name in halo_ab.VARIANTS:
+            halo_ab._k5f_call(k5f, name, x.float(), wt, torch.empty(2, 2, 2, 128))[1]()
+        return [k5f]
     if tool == "fused_ab":
         k1, k2 = _Entry("discogan_batch_stats"), _Entry("discogan_bn_act")
         fused_ab._k1_call(k1, "K1 kernel", x, torch.zeros(STATS_MAX_TILES,
@@ -392,11 +401,12 @@ def _ab_calls(tool: str) -> list:
     return [k6]
 
 
-@pytest.mark.parametrize("tool", ["fused_ab", "conv_ab", "head_ab"])
+@pytest.mark.parametrize("tool", ["fused_ab", "conv_ab", "head_ab", "halo_ab"])
 def test_ab_tool_matches_the_sources_and_entries(tool, monkeypatch):
     """An A/B tool's variants are text patches of its csrc/ sources
     (tools/fused_ab.py: bn_act.cu and batch_stats.cu; conv_ab.py:
-    conv_k4s2p1.cu; head_ab.py: head_convt.cu): each matches its source
+    conv_k4s2p1.cu; head_ab.py: head_convt.cu; halo_ab.py:
+    halo_conv_k4s2p1.cu): each matches its source
     once; and its calls of the C entries pass as many arguments as their
     signatures take (the pair axis's included)."""
     from discogan_modernized_torch.ops import _build

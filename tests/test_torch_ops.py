@@ -90,6 +90,7 @@ def test_k3_conv_epilogue(shape, act):
     (2, 16, 16, 8, 16),
     (2, 64, 32, 16, 8),     # multiple row tiles, non-square
     (1, 8, 8, 8, 8),        # single tile
+    (2, 12, 16, 8, 16),     # a spatial band of a 16-row map: h/2 + 4 rows
 ])
 def test_k5f_halo_conv_bare(n, h, w_, ci, co):
     rng = np.random.RandomState(0)
