@@ -91,8 +91,9 @@ card machine ends a call after 45 GiB of writes):
               forward and backward < step) and roofline --measure at 64px
               batch 64 (every time positive, every roofline or peak share at
               most SHARE_LIMIT); the A/B tools conv_ab (K3's AB_VARIANTS at
-              AB_CONV_SHAPE) and head_ab (K6's at batch 1), one round each,
-              each kernel held against its plain version; memory_report at
+              AB_CONV_SHAPE), head_ab (K6's at batch 1) and dw_ab (K4's f32
+              DW_AB_VARIANTS at DW_AB_LAYER batch 1), one round each, each
+              kernel held against its plain version; memory_report at
               TOOL_SIZE batch 8, its model beside the measured peak;
               batch_size_optimization --image_size 512 --train_step in its
               own process, bracketed two steps either side of BATCH_ANSWER,
@@ -151,7 +152,12 @@ card machine ends a call after 45 GiB of writes):
               relative, each gradient tensor within EQUIV_GRAD_REL in norm
               or EQUIV_FLOOR_FACTOR times the plain path's own change when
               its images move by one ulp; the readings are printed, with
-              the plain path run twice, which must agree bit for bit.
+              the plain path run twice, which must agree bit for bit. Then
+              one f32 G step through the kernels under torch.profiler: K4's
+              time under its CUDA-core kernel (conv_dw_fma_kernel) and its
+              split sums (conv_dw_reduce_kernel), none under its wgmma
+              kernels or the kernel conv_dw_fma_kernel replaced
+              (conv_dw_kernel).
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the synthetic task cut to its first 128 image pairs
               (SYNTHETIC_IMAGES: 16 iterations, 6 D, 10 G; a line every 8;
@@ -168,7 +174,8 @@ card machine ends a call after 45 GiB of writes):
               wgmma kernels (conv_dw_wgmma_kernel,
               conv_dw_stem_kernel), K5b's under halo_dw_wgmma_kernel and
               K6's under head_convt_mma_kernel, and none under their FMA
-              kernels; K2's as in phase 4 and K1's under its one-launch
+              kernels (K4's conv_dw_fma_kernel and conv_dw_kernel before
+              it); K2's as in phase 4 and K1's under its one-launch
               batch_stats_kernel, none under the two kernels it replaced.
               Then the step's graph variants (VARIANTS: remat under the
               "full", "latent" and "conv" policies, the lean D step,
@@ -734,7 +741,7 @@ def run_case(kernel, args, dtype, timer, g, band=None):
 
     from discogan_modernized_torch.ops.conv_k4s2p1 import (
         conv2d_k4s2p1, conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain,
-        conv2d_k4s2p1_plain, conv_plan)
+        conv2d_k4s2p1_plain, conv_plan, dw_plan)
     from discogan_modernized_torch.ops.fused import (
         batch_stats, batch_stats_plain, bn_act, bn_act_plain)
     from discogan_modernized_torch.ops.halo_conv import (
@@ -753,7 +760,7 @@ def run_case(kernel, args, dtype, timer, g, band=None):
     math_dtype = dtype
     stats_tol = None  # tolerance of the statistics outputs, where there are some
     copy = None  # x.clone(), the practical copy rate, beside K1 and K2
-    plan = None  # K3's plan, where the call is K3's
+    plan = None  # K3's or K4's plan, where the call is theirs
     if kernel == "bn_act":
         n, h, w, c, act = args
         x = rand(n, h, w, c)
@@ -822,6 +829,10 @@ def run_case(kernel, args, dtype, timer, g, band=None):
         fn, plain_fn = ((conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain)
                         if kernel == "conv_k4s2p1_dw" else
                         (halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain))
+        if kernel == "conv_k4s2p1_dw":  # K4's route: f32 on the CUDA cores
+            plan = dw_plan(n, h, w, ci, co, dtype)
+            fma = dtype == torch.float32 or co % 8 != 0 or (ci % 8 != 0 and ci > 4)
+            assert (plan.path == "fma") == fma, (args, plan)
         x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
         kern = lambda: fn(x, dy)  # noqa: E731
         plain = lambda: plain_fn(x, dy)  # noqa: E731
@@ -1599,7 +1610,7 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "splitk_epilogue_kernel": "K3 conv_k4s2p1",
     "splitk_stats_epilogue_kernel": "K3 conv_k4s2p1",
     "conv_stats_finalize_kernel": "K3 conv_k4s2p1",
-    "conv_dw_kernel": "K4 conv_k4s2p1_dw", "conv_dw_wgmma_kernel": "K4 conv_k4s2p1_dw",
+    "conv_dw_fma_kernel": "K4 conv_k4s2p1_dw", "conv_dw_wgmma_kernel": "K4 conv_k4s2p1_dw",
     "conv_dw_stem_kernel": "K4 conv_k4s2p1_dw", "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
     "halo_fma_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
     "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
@@ -1784,6 +1795,11 @@ def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> 
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
+# K4's f32 kernel on the CUDA cores, the one it replaced, and the split sums
+# of a call whose plan splits M
+K4_F32_KERNEL = "conv_dw_fma_kernel"
+K4_OFF_ROUTE = "conv_dw_kernel"
+K4_SPLIT_SUMS = "conv_dw_reduce_kernel"
 
 # K2's kernels: channels kept per thread (C a multiple of the 16-byte
 # vector: every main-path call but bf16's latent), and the general one (the
@@ -1826,15 +1842,33 @@ def check_k6_route(by_kernel: dict, what: str) -> None:
 
 def check_k4_route(by_kernel: dict, what: str) -> None:
     """The profile shows K4's time under its wgmma kernels (and its split
-    sums) and none under the FMA one: every bf16 K4 call of the training
-    step takes the tensor cores."""
+    sums) and none under the CUDA-core ones (the f32 kernel and the one it
+    replaced): every bf16 K4 call of the training step takes the tensor
+    cores."""
     tc = {k: sum(us for name, us in by_kernel.items() if k in name) for k in K4_TC_KERNELS}
-    fma = sum(us for name, us in by_kernel.items() if "conv_dw_kernel" in name)
+    fma = sum(us for name, us in by_kernel.items()
+              if K4_F32_KERNEL in name or K4_OFF_ROUTE in name)
     if not all(us > 0 for us in tc.values()) or fma > 0:
         raise AssertionError(f"{what}: K4 {tc} us under its wgmma kernels, "
-                             f"{fma:.1f} us under conv_dw_kernel")
+                             f"{fma:.1f} us under {K4_F32_KERNEL} or {K4_OFF_ROUTE}")
     print(f"{what}: K4 " + ", ".join(f"{us / 1e3:.4f} ms under {k}" for k, us in tc.items())
-          + ", none under conv_dw_kernel")
+          + f", none under {K4_F32_KERNEL} or {K4_OFF_ROUTE}")
+
+
+def check_k4_f32_route(by_kernel: dict, what: str, splits: bool) -> None:
+    """The profile of an f32 step shows K4's time under its CUDA-core
+    kernel and, where a call's plan splits M (``splits``), under its split
+    sums; none under the tensor cores' kernels or the FMA kernel it
+    replaced."""
+    fma = sum(us for name, us in by_kernel.items() if K4_F32_KERNEL in name)
+    sums = sum(us for name, us in by_kernel.items() if K4_SPLIT_SUMS in name)
+    off = {k: sum(us for name, us in by_kernel.items() if k in name)
+           for k in (*K4_TC_KERNELS, K4_OFF_ROUTE)}
+    if not fma > 0 or (splits and not sums > 0) or any(us > 0 for us in off.values()):
+        raise AssertionError(f"{what}: K4 {fma:.1f} us under {K4_F32_KERNEL}, {sums:.1f} us "
+                             f"under {K4_SPLIT_SUMS}, {off} us off its route")
+    print(f"{what}: K4 {fma / 1e3:.4f} ms under {K4_F32_KERNEL} and {sums / 1e3:.4f} ms under "
+          f"{K4_SPLIT_SUMS}, none under " + " or ".join(off))
 
 
 K5B_TC_KERNEL = "halo_dw_wgmma_kernel"
@@ -2095,10 +2129,37 @@ def check_equivalence() -> None:
                 if not (loss_rel <= EQUIV_LOSS_REL and grad_rel <= limit):
                     raise AssertionError(f"{which} step, data seed {seed}: kernels and plain "
                                          "versions disagree")
+        profile_f32_g_step(ts, A, B, cfg)
     finally:
         torch.use_deterministic_algorithms(False)
     del ts
     torch.cuda.empty_cache()
+
+
+def profile_f32_g_step(ts, A, B, cfg) -> None:
+    """torch.profiler over one of phase 6's f32 G steps through the kernels
+    (512px, batch EQUIV_BATCH): K4's time under its CUDA-core kernel and,
+    where a layer's plan splits M, its split sums."""
+    from discogan_modernized_torch.core.precision import F32
+    from discogan_modernized_torch.models.geometry import encoder_channels
+    from discogan_modernized_torch.ops.conv_k4s2p1 import dw_plan
+    from discogan_modernized_torch.ops.halo_conv import takes_halo
+    from discogan_modernized_torch.train.step import loss_and_grads
+
+    splits, h, ci = False, SIZE, 3
+    for co in encoder_channels(SIZE):
+        xs, ws = torch.empty(EQUIV_BATCH, h, h, ci, device="meta"), torch.empty(
+            4, 4, ci, co, device="meta")
+        if not takes_halo(xs, ws):
+            splits |= dw_plan(EQUIV_BATCH, h, h, ci, co, torch.float32).splits > 1
+        h, ci = h // 2, co
+    what = f"one f32 G step (512px, batch {EQUIV_BATCH}, through the kernels)"
+    for _ in range(3):  # the profiler now and then keeps only a window's tail
+        by_kernel = profile_call(lambda: loss_and_grads(ts, A, B, 0.01, cfg, F32, "gen"), what)
+        if any(K4_F32_KERNEL in name for name in by_kernel):
+            break
+        print(f"the profile holds no {K4_F32_KERNEL}; profiling again")
+    check_k4_f32_route(by_kernel, what, splits)
 
 
 # -- phase 7: the trainer ----------------------------------------------------
@@ -4208,6 +4269,8 @@ AB_CONV_SHAPE = "enc6 b1"  # conv_ab's shape: the wgmma path
 # halves (13 nvcc runs of the two sources for all of them cost the next
 # phase ~25 s of the host's cores)
 AB_VARIANTS = ("kernel", "copies only", "no copies")
+# dw_ab's variants built here and its layer (K4's f32 kernel at batch 1)
+DW_AB_VARIANTS, DW_AB_LAYER = ("kernel", "no copies"), "enc5"
 TRAIN_ITER = re.compile(r"Iter \[(\d+)/\d+\]")
 
 
@@ -4492,24 +4555,28 @@ def start_ab_builds() -> dict:
     """The A/B tools' variant builds (tools/variants.py), started after the
     main build, to build while phase 3 runs: tool -> what its ``run``
     takes."""
-    from discogan_modernized_torch.tools import conv_ab, head_ab
+    from discogan_modernized_torch.tools import conv_ab, dw_ab, head_ab
 
     started = {"conv_ab": conv_ab.start_variants(AB_VARIANTS),
-               "head_ab": head_ab.start_variants(AB_VARIANTS)}
+               "head_ab": head_ab.start_variants(AB_VARIANTS),
+               "dw_ab": dw_ab.start_variants(DW_AB_VARIANTS)}
     _started_builds.extend(b for builds in started.values() for b in builds.values())
     return started
 
 
 def drive_ab_tools(started: dict) -> None:
-    """conv_ab (K3's AB_VARIANTS at AB_CONV_SHAPE) and head_ab (K6's, batch
-    1), one round each through their ``run``, from the builds started after
-    the build phase: each variant builds and launches, the kernel holds its
-    plain version (the tools check it)."""
-    from discogan_modernized_torch.tools import conv_ab, head_ab
+    """conv_ab (K3's AB_VARIANTS at AB_CONV_SHAPE), head_ab (K6's, batch 1)
+    and dw_ab (K4's f32 DW_AB_VARIANTS at DW_AB_LAYER, batch 1), one round
+    each through their ``run``, from the builds started after the build
+    phase: each variant builds and launches, the kernel holds its plain
+    version (the tools check it)."""
+    from discogan_modernized_torch.tools import conv_ab, dw_ab, head_ab
 
     for name, call in (("conv_ab", lambda: conv_ab.run(
             1, [s_ for s_ in conv_ab.SHAPES if s_[0] == AB_CONV_SHAPE], started["conv_ab"])),
-                       ("head_ab", lambda: head_ab.run([1], 1, started["head_ab"]))):
+                       ("head_ab", lambda: head_ab.run([1], 1, started["head_ab"])),
+                       ("dw_ab", lambda: dw_ab.run([DW_AB_LAYER], 1, 1, started["dw_ab"],
+                                                   DW_AB_VARIANTS))):
         t0 = time.perf_counter()
         if call():
             raise AssertionError(f"{name} exited non-zero")

@@ -15,8 +15,8 @@ kernel on the CUDA cores), its tile, ring, split over K and grid.
 ``conv2d_k4s2p1_dw`` returns dw[kh,kw,i,o] = sum x_pad[b,2r+kh,2c+kw,i] *
 dy[b,r,c,o], f32 accumulation, in x's dtype; ``dw_plan`` picks its path
 (wgmma kernels for bf16 with O a multiple of 8 and I a multiple of 8 or at
-most 4, else the f32 FMA kernel), its split over the M = N*Ho*Wo pixels
-and its shared memory.
+most 4, else the f32 FMA kernel on the CUDA cores, ``dw_fma_plan``), its
+tile, ring and split over the M = N*Ho*Wo pixels and its shared memory.
 A CPU tensor takes the ``_plain`` version; a CUDA tensor launches the
 kernel or raises. Both functions take a leading pair axis on x (and dy)
 (ops/pairs.py): w (P,4,4,I,O) per pair or (4,4,I,O) shared, scale and
@@ -293,21 +293,33 @@ def conv2d_k4s2p1_dw_plain(x, dy):
     return dw.to(x.dtype)
 
 
-# K4's two paths (csrc/conv_k4s2p1_dw.cu). wgmma: a tile is the four taps of
-# one kernel row, DW_CH input channels and DW_BN output channels; blocks
-# walk the pixels in chunks of DW_CHUNK through a ring of stages, x staged
-# as column-parity planes (DW_GROUP_PX pixels per 8-pixel group and parity;
-# a ring of DW_STAGES["planes"]) where Wo % 8 == 0, else as the four taps'
-# windows (DW_STAGES["windows"]), beside a bf16 epilogue buffer. The stem
-# (I <= 4): one warpgroup a block over STEM_BO output channels and a part of
+# K4's paths (csrc/conv_k4s2p1_dw.cu). wgmma: a tile is the four taps of one
+# kernel row, DW_CH input channels and DW_BN output channels; blocks walk
+# the pixels in chunks of DW_CHUNK through a ring of stages, x staged as
+# column-parity planes (DW_GROUP_PX pixels per 8-pixel group and parity; a
+# ring of DW_STAGES["planes"]) where Wo % 8 == 0, else as the four taps'
+# windows (DW_STAGES["windows"]), beside a bf16 epilogue buffer. The stem (I
+# <= 4): one warpgroup a block over STEM_BO output channels and a part of
 # the pixels, the 16*I dw rows as one im2col tile, f32 partials summed by a
-# second pass; STEM_BLOCKS_PER_SM blocks share an SM. FMA: 64 x 64 tiles of
-# the (16*I, O) matrix, FMA_STEP pixels a step.
+# second pass; STEM_BLOCKS_PER_SM blocks share an SM. FMA (f32, and bf16 off
+# those tiles): DW_FMA_TILE tiles of the (16*I, O) matrix (DW_FMA_TILE_SMALL
+# where 16*I or O fits in it: the stem), M in steps of DW_FMA_STEP_VEC
+# pixels where 16-byte copies fill them (f32, I and O multiples of 4), else
+# DW_FMA_STEP, through a ring of DW_FMA_STAGES stages of A (a step's pixel
+# rows of the tile's dw rows) and B (of its columns), f32; M split while the
+# tiles fill less than a wave of DW_FMA_BLOCKS_PER_SM blocks an SM, each
+# part of at least DW_FMA_MIN_STEPS_PER_SPLIT steps. Where 16-byte copies
+# fill DW_FMA_TILE's steps, a wave is DW_FMA_WIDE_BLOCKS blocks an SM, and
+# a grid of more than one block an SM takes the ring of DW_FMA_STAGES_WIDE
+# stages that lets two share an SM.
 DW_CH, DW_BN, DW_CHUNK, DW_GROUP_PX = 64, 128, 64, 9
 DW_STAGES = {"planes": 4, "windows": 3}
 DW_MIN_CHUNKS_PER_SPLIT = 4
 DW_MAX_TILES_PER_BLOCK = 64
-FMA_TILE, FMA_STEP, FMA_TARGET_BLOCKS, FMA_MIN_STEPS_PER_SPLIT = 64, 16, 2 * 132, 8
+DW_FMA_TILE, DW_FMA_TILE_SMALL = (128, 128), (64, 64)
+DW_FMA_STEP, DW_FMA_STEP_VEC, DW_FMA_STAGES, DW_FMA_STAGES_WIDE = 16, 32, 4, 3
+DW_FMA_MIN_STEPS_PER_SPLIT, DW_FMA_WIDE_BLOCKS = 8, 2
+DW_FMA_BLOCKS_PER_SM = {DW_FMA_TILE: 1, DW_FMA_TILE_SMALL: 2}
 STEM_BO, STEM_BLOCKS_PER_SM, STEM_SMEM = 64, 4, 4 * DW_CHUNK * 128
 DW_PATH_CODES = {"fma": 0, "wgmma_planes": 1, "wgmma_windows": 2,
                  "wgmma_stem": 3}
@@ -323,6 +335,7 @@ class DwPlan(NamedTuple):
     blocks: int           # blocks launched (wgmma: each walks tiles b, b + blocks, ...)
     smem_bytes: int       # dynamic shared memory of a block
     pairs: int = 1        # problems of the launch (the grid's y, or folded into z)
+    stages: int = 0       # the FMA kernel's ring (0: the wgmma paths' own)
 
     def workspace_floats(self, ci: int, co: int) -> int:
         """The split partials of every pair (the stem always writes them)."""
@@ -337,12 +350,12 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
     (one fits an SM), into as many parts as fit in that wave, each of at
     least DW_MIN_CHUNKS_PER_SPLIT chunks; unsplit, it launches one block per
     SM (more only where a block would walk over DW_MAX_TILES_PER_BLOCK
-    tiles), each walking its share of the tiles. The FMA path doubles
-    its split while its tiles fill fewer than two waves and each part keeps
-    8 steps. The stem splits M over STEM_BLOCKS_PER_SM blocks an SM, each
-    part of at least DW_MIN_CHUNKS_PER_SPLIT chunks, and always sums its
-    parts in the second pass. ``pairs`` sizes the grid and the workspace
-    alone: each pair runs the plan of a single call."""
+    tiles), each walking its share of the tiles. The stem splits M over
+    STEM_BLOCKS_PER_SM blocks an SM, each part of at least
+    DW_MIN_CHUNKS_PER_SPLIT chunks, and always sums its parts in the second
+    pass. Everything else takes the FMA kernel (``dw_fma_plan``). ``pairs``
+    sizes the grid and the workspace alone: each pair runs the plan of a
+    single call."""
     m = n * (h // 2) * (w // 2)
     chunks = -(-m // DW_CHUNK)
     if dtype == torch.bfloat16 and 1 <= ci <= 4 and co % 8 == 0:
@@ -370,16 +383,39 @@ def dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
         return DwPlan("wgmma_planes" if planes else "wgmma_windows",
                       (4 * DW_CH, DW_BN, DW_CHUNK), 4, splits, sps, tiles,
                       blocks, ring + epilogue + 16 * DW_MAX_TILES_PER_BLOCK, pairs)
-    out_tiles = -(-16 * ci // FMA_TILE) * -(-co // FMA_TILE)
-    steps = -(-m // FMA_STEP)
-    s = 1
-    while (out_tiles * s < FMA_TARGET_BLOCKS
-           and steps // (2 * s) >= FMA_MIN_STEPS_PER_SPLIT):
-        s *= 2
-    sps = max(1, -(-steps // s))
+    return dw_fma_plan(n, h, w, ci, co, dtype, sms, pairs)
+
+
+def dw_fma_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
+                sms: int = H100_SMS, pairs: int = 1) -> DwPlan:
+    """The FMA kernel's plan: DW_FMA_TILE_SMALL tiles where 16 CI or CO fits
+    in one (the stem's 48 x 64), else DW_FMA_TILE; steps of DW_FMA_STEP_VEC
+    pixels where f32 CI and CO are multiples of 4 (x's and dy's 16-byte
+    copies), else DW_FMA_STEP; M split while the tiles fill less than a wave
+    of DW_FMA_BLOCKS_PER_SM blocks an SM of ``sms``, into as many parts as
+    fit in it, each of at least DW_FMA_MIN_STEPS_PER_SPLIT steps. Where the
+    16-byte copies fill DW_FMA_TILE's steps, the wave is DW_FMA_WIDE_BLOCKS
+    blocks an SM, and a grid of more than one block an SM (every layer at
+    batch 8, enc2 split 8 ways, enc3 2) takes the ring of
+    DW_FMA_STAGES_WIDE stages that lets two blocks share an SM: one block's
+    fill and epilogue run beside the other's FMAs. The grid is (row tiles,
+    column tiles, splits x pairs)."""
+    m = n * (h // 2) * (w // 2)
+    small = DW_FMA_TILE_SMALL
+    bm, bn = small if 16 * ci <= small[0] or co <= small[1] else DW_FMA_TILE
+    vec = dtype == torch.float32 and ci % 4 == 0 and co % 4 == 0
+    bk = DW_FMA_STEP_VEC if vec else DW_FMA_STEP
+    steps = -(-m // bk)
+    out_tiles = -(-16 * ci // bm) * -(-co // bn)
+    per_sm = (DW_FMA_WIDE_BLOCKS if vec and (bm, bn) == DW_FMA_TILE
+              else DW_FMA_BLOCKS_PER_SM[(bm, bn)])
+    splits = max(1, min(per_sm * sms // out_tiles, steps // DW_FMA_MIN_STEPS_PER_SPLIT))
+    sps = max(1, -(-steps // splits))
     splits = max(1, -(-steps // sps))
-    return DwPlan("fma", (FMA_TILE, FMA_TILE, FMA_STEP), 0, splits, sps,
-                  out_tiles * splits, out_tiles * splits, 0, pairs)
+    wide = vec and (bm, bn) == DW_FMA_TILE and per_sm > 1 and out_tiles * splits > sms
+    stages = DW_FMA_STAGES_WIDE if wide else DW_FMA_STAGES
+    return DwPlan("fma", (bm, bn, bk), 0, splits, sps, out_tiles * splits,
+                  out_tiles * splits, stages * bk * (bm + bn) * 4, pairs, stages)
 
 
 def conv2d_k4s2p1_dw(x, dy):
@@ -401,9 +437,9 @@ def conv2d_k4s2p1_dw(x, dy):
     _build.launch("conv_k4s2p1_dw", lib.discogan_conv_k4s2p1_dw, x.data_ptr(),
                   dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n, h, wd, ci,
                   co, _build.DTYPE_CODES[x.dtype], DW_PATH_CODES[plan.path],
-                  plan.splits, plan.steps_per_split, plan.blocks,
-                  plan.smem_bytes, max(pairs, 1), x1.numel(), dy1.numel(),
-                  _build.stream_of(x))
+                  plan.tile[0], plan.tile[1], plan.stages, plan.splits,
+                  plan.steps_per_split, plan.blocks, plan.smem_bytes,
+                  max(pairs, 1), x1.numel(), dy1.numel(), _build.stream_of(x))
     return dw
 
 

@@ -14,7 +14,11 @@ first, in ``halo_kernel_us`` and ``halo_ratio`` beside K3's row at the same
 shape: one run's K3-against-K5f A/B in the dtype asked for.
 ``--dw`` adds the weight gradient, K4 (``conv2d_k4s2p1_dw``) against
 ``torch.nn.grad.conv2d_weight``, and K5b (``halo_conv2d_k4s2p1_dw``) where
-the generator's route takes the layer to K5f (enc1 at >= 256px);
+the generator's route takes the layer to K5f (enc1 at >= 256px), each
+beside its bound (``dw_bound_us``, ``dw_bound_by``: the larger of its
+flops over the dtype's peak and its bytes, x, dy and dw once each, over
+the memory rate) and its share of it (``dw_kernel_share``,
+``dw_halo_share``);
 ``--fused`` the train form with its BatchNorm and LeakyReLU, K3 with its
 statistics then K2, against cuDNN, ``F.batch_norm`` and ``F.leaky_relu``;
 ``--dx`` cuDNN's input gradient alone (the port has no dx kernel but the
@@ -59,6 +63,7 @@ def bench_layer(n, s, ci, co, dtype, timer, device, *, dw=False, dx=False, fused
     from ..ops.conv_k4s2p1 import conv2d_k4s2p1, conv2d_k4s2p1_dw
     from ..ops.fused import bn_act
     from ..ops.halo_conv import halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_dw, takes_halo
+    from .timing import bound_ms
 
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(n, s, s, ci, generator=g, device=device).to(dtype)
@@ -116,13 +121,18 @@ def bench_layer(n, s, ci, co, dtype, timer, device, *, dw=False, dx=False, fused
 
         want = lib_dw().permute(2, 3, 1, 0)
         _check(f"{s}px {ci}->{co} dw", conv2d_k4s2p1_dw(x, dy), want)
+        bound, by = bound_ms(flops, (x.numel() + dy.numel() + w.numel()) * x.element_size(),
+                             dtype)
         row["dw_library_us"] = timer.ms(lib_dw) * 1e3
         row["dw_kernel_us"] = timer.ms(lambda: conv2d_k4s2p1_dw(x, dy)) * 1e3
         row["dw_ratio"] = row["dw_library_us"] / row["dw_kernel_us"]
+        row.update(dw_bound_us=bound * 1e3, dw_bound_by=by,
+                   dw_kernel_share=bound * 1e3 / row["dw_kernel_us"])
         if takes_halo(x, w):
             _check(f"{s}px {ci}->{co} halo dw", halo_conv2d_k4s2p1_dw(x, dy), want)
             row["dw_halo_kernel_us"] = timer.ms(lambda: halo_conv2d_k4s2p1_dw(x, dy)) * 1e3
             row["dw_halo_ratio"] = row["dw_library_us"] / row["dw_halo_kernel_us"]
+            row["dw_halo_share"] = bound * 1e3 / row["dw_halo_kernel_us"]
     return row
 
 

@@ -1,8 +1,9 @@
 """Text-patched variants of the port's CUDA sources for the A/B tools
-(``conv_ab``, ``head_ab``, ``fused_ab``): each variant a copy of csrc/ with
-its source patched, built alone into its own library by one nvcc (all
-started at once), and its C entry loaded with ctypes under the signature
-the wrapper's entry has (ops/_build.py ``_SIGNATURES``).
+(``conv_ab``, ``head_ab``, ``fused_ab``, ``halo_ab``, ``dw_ab``): each
+variant a copy of csrc/ with its source patched, built alone into its own
+library by one nvcc (all started at once), and its C entry loaded with
+ctypes under the signature the wrapper's entry has (ops/_build.py
+``_SIGNATURES``).
 
 ``start`` launches the builds and returns at once, so that a caller can
 overlap them with other work (chip_smoke.py starts them beside the main

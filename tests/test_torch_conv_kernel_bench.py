@@ -38,3 +38,29 @@ def test_bench_layer_times_k5f_where_the_route_takes_it(n, s, ci, co, halo):
         assert row["halo_kernel_us"] == 2000.0 and timer.calls == 3
     else:
         assert not halo_keys & set(row) and timer.calls == 2
+
+
+@pytest.mark.parametrize("n,s,ci,co,halo", [
+    (1, 16, 3, 8, False),      # the stem's 3 channels
+    (2, 16, 16, 24, False),    # K4 alone
+    (1, 128, 8, 16, True),     # K5f's route: K5b beside K4
+])
+def test_bench_layer_dw_rows_carry_the_bound(n, s, ci, co, halo):
+    """``--dw``'s rows: K4 (and K5b where the route takes the layer to K5f)
+    against the library's time, beside the bound of the weight gradient
+    (flops 2 x MACs over f32's peak, bytes of x, dy and dw once over the
+    memory rate) and the kernel's share of it."""
+    from discogan_modernized_torch.tools.timing import bound_ms
+
+    timer = _StubTimer()
+    row = conv_kernel_bench.bench_layer(n, s, ci, co, torch.float32, timer, "cpu", dw=True)
+    m = n * (s // 2) ** 2
+    want, by = bound_ms(2 * m * 16 * ci * co, (n * s * s * ci + m * co + 16 * ci * co) * 4,
+                        torch.float32)
+    assert row["dw_kernel_us"] == row["dw_library_us"] == 2000.0 and row["dw_ratio"] == 1.0
+    assert row["dw_bound_us"] == pytest.approx(want * 1e3) and row["dw_bound_by"] == by
+    assert row["dw_kernel_share"] == pytest.approx(want * 1e3 / 2000.0)
+    assert ("dw_halo_share" in row) == halo
+    if halo:
+        assert row["dw_halo_share"] == pytest.approx(want * 1e3 / 2000.0)
+    assert timer.calls == 4 + 2 * halo

@@ -374,17 +374,33 @@ def test_conv_k4s2p1_with_stats(gen, dtype, n, h, w, ci, co):
     (2, 32, 32, 128, 256), (3, 6, 10, 16, 72), (1, 8, 8, 24, 40),
     (2, 16, 16, 16, 64), (2, 32, 32, 32, 64), (3, 16, 16, 48, 72),
     (1, 8, 8, 2048, 2048), (3, 14, 10, 16, 72), (2, 128, 128, 128, 256),
-    (2, 16, 16, 1, 8), (2, 32, 32, 4, 72)])
+    (2, 16, 16, 1, 8), (2, 32, 32, 4, 72), (3, 10, 6, 12, 6), (2, 16, 16, 4, 12),
+    (8, 128, 128, 128, 256), (8, 16, 16, 1024, 2048),  # enc2, enc5 at batch 8
+    (8, 68, 128, 128, 256), (8, 260, 512, 3, 64),  # bands of h/2 + 4 rows
+    (8, 128, 128, 128, 128), (8, 16, 16, 1024, 1024)])  # enc2's and enc5's CO/2
 def test_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
     """In bf16 the wgmma kernel with parity planes (W/2 a multiple of 8) and
     per-tap windows (W/2 of 5 and 4), with and without its split over M
     (enc2 at batch 2), at CI 16/32/48 under one channel block, CO off the
     128 tile (72, 40), M under one chunk (enc6 at batch 1: 16 pixels) and
-    ragged (105 pixels); the stem's kernel at CI 1, 3 and 4. In f32 the FMA
-    kernel, split over M for the stem."""
+    ragged (105 pixels); the stem's kernel at CI 1, 3 and 4; the FMA kernel
+    (conv_dw_fma_kernel, scalar loads) at CI 12 and at CO 12. In f32 the FMA
+    kernel at every shape: 16-byte copies where CI and CO are multiples of
+    4, scalar x loads at CI 1 and 3, scalar loads of both at CO 6; split over
+    M for the stem, enc2 and enc3; at the training step's batch-8 shapes, on
+    the bands of h/2 + 4 rows of spatial sharding and at the CO/2 of tensor
+    parallelism. One launch each."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.conv_k4s2p1 import dw_plan
+
+    if dtype == torch.float32:
+        assert dw_plan(n, h, w, ci, co, dtype).path == "fma"
     x = _rand(gen, dtype, n, h, w, ci)
     dy = _rand(gen, dtype, n, h // 2, w // 2, co, scale=0.1)
-    _close(conv2d_k4s2p1_dw(x, dy), conv2d_k4s2p1_dw_plain(x, dy), dtype)
+    before = _build.launches["conv_k4s2p1_dw"]
+    got = conv2d_k4s2p1_dw(x, dy)
+    assert _build.launches["conv_k4s2p1_dw"] == before + 1
+    _close(got, conv2d_k4s2p1_dw_plain(x, dy), dtype)
 
 
 @pytest.mark.parametrize("n,h,w,ci,co", [
@@ -414,8 +430,9 @@ def test_two_launches_give_the_same_bits(gen, dtype):
     paths: in bf16 the wgmma kernel split and unsplit, with a split that
     does not divide its K steps, and the stem's, in f32 the FMA kernel
     (split at enc5 and enc6, y and the statistics, and at an edge shape);
-    K4's split sums on the stem's and the tensor-core path in bf16 and the
-    FMA path in f32; K5b's on its wgmma path in bf16 and its FMA path in
+    K4's split sums on the stem's and the tensor-core path in bf16 and on
+    the FMA kernel (conv_dw_fma_kernel, split over M at the stem and enc2)
+    in f32; K5b's on its wgmma path in bf16 and its FMA path in
     f32) sums its partials in a fixed order."""
     x = _rand(gen, dtype, 2, 256, 256, 64)
     dy = _rand(gen, dtype, 2, 128, 128, 128, scale=0.1)
@@ -610,9 +627,10 @@ def test_pair_stride_off_16_bytes_raises(gen):
 
 # ---- CUDA graphs: each kernel captured, then replayed on new inputs --------
 
-# One 512px batch-8 training shape a kernel (bf16): (fn, operand shapes, the
-# operands' scales, keyword arguments). K1 at dec6 takes several splits, so
-# its tile counters take part.
+# One 512px batch-8 training shape a kernel (bf16; a name ending " f32":
+# that kernel in f32): (fn, operand shapes, the operands' scales, keyword
+# arguments). K1 at dec6 takes several splits, so its tile counters take
+# part; K4 in f32 at enc2 splits M, so its reduce pass takes part.
 CAPTURE_CASES = {
     "batch_stats": (batch_stats, [(8, 256, 256, 64)], [1.0], {}),
     "bn_act": (lambda x, s, o: bn_act(x, s, o, "leaky"),
@@ -621,6 +639,8 @@ CAPTURE_CASES = {
                     {"with_stats": True}),
     "conv_k4s2p1_dw": (conv2d_k4s2p1_dw, [(8, 128, 128, 128), (8, 64, 64, 256)], [1.0, 0.1],
                        {}),
+    "conv_k4s2p1_dw f32": (conv2d_k4s2p1_dw, [(8, 128, 128, 128), (8, 64, 64, 256)],
+                           [1.0, 0.1], {}),
     "halo_conv_k4s2p1": (halo_conv2d_k4s2p1, [(8, 256, 256, 64), (4, 4, 64, 128)],
                          [1.0, 1 / 32], {"act": "leaky"}),
     "halo_conv_k4s2p1_dw": (halo_conv2d_k4s2p1_dw, [(8, 256, 256, 64), (8, 128, 128, 128)],
@@ -639,8 +659,10 @@ def test_captured_kernel_replays_equal_eager_launches(gen, kernel, paired):
     for bit, and the capture counted one launch, the replays none."""
     from discogan_modernized_torch.ops import _build
 
-    configure(BF16)
+    dtype = torch.float32 if kernel.endswith(" f32") else torch.bfloat16
+    configure(F32 if dtype == torch.float32 else BF16)
     fn, shapes, scales, kw = CAPTURE_CASES[kernel]
+    kernel = kernel.split()[0]
     lead = (2,) if paired else ()
 
     def operands():
@@ -649,7 +671,7 @@ def test_captured_kernel_replays_equal_eager_launches(gen, kernel, paired):
             if len(shape) == 1:  # K2's scale and offset: f32
                 out.append(torch.rand(*lead, *shape, device="cuda", generator=gen) + 0.5)
             else:
-                out.append(_rand(gen, torch.bfloat16, *lead, *shape, scale=scale))
+                out.append(_rand(gen, dtype, *lead, *shape, scale=scale))
         return out
 
     static = operands()

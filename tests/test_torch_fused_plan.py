@@ -349,8 +349,11 @@ class _Entry:
 
 def _ab_patches(tool: str) -> list:
     """(source file, text patch) of every variant of an A/B tool."""
-    from discogan_modernized_torch.tools import conv_ab, fused_ab, halo_ab, head_ab
+    from discogan_modernized_torch.tools import conv_ab, dw_ab, fused_ab, halo_ab, head_ab
 
+    if tool == "dw_ab":
+        return [("conv_k4s2p1_dw.cu", old) for patches, _ in dw_ab.VARIANTS.values()
+                for old, _ in patches]
     if tool == "fused_ab":
         return [(source, old) for source, patches, _ in fused_ab.VARIANTS.values()
                 for old, _ in patches]
@@ -368,9 +371,15 @@ def _ab_calls(tool: str) -> list:
     """Each C entry an A/B tool calls, as an ``_Entry``, after one call
     through the tool's own call function on small CPU tensors."""
     from discogan_modernized_torch.ops.head import head_plan
-    from discogan_modernized_torch.tools import conv_ab, fused_ab, halo_ab, head_ab
+    from discogan_modernized_torch.tools import conv_ab, dw_ab, fused_ab, halo_ab, head_ab
 
     x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
+    if tool == "dw_ab":  # conv_dw_fma_kernel's, in f32
+        k4 = _Entry("discogan_conv_k4s2p1_dw")
+        for name in dw_ab.VARIANTS:
+            dw_ab._k4_call(k4, name, x.float(), torch.zeros(2, 2, 2, 128),
+                           torch.empty(4, 4, 64, 128))[1]()
+        return [k4]
     if tool == "halo_ab":  # halo_fma_kernel's, in f32
         k5f = _Entry("discogan_halo_conv_k4s2p1")
         wt = torch.zeros(4, 4, 64, 128)
@@ -401,12 +410,12 @@ def _ab_calls(tool: str) -> list:
     return [k6]
 
 
-@pytest.mark.parametrize("tool", ["fused_ab", "conv_ab", "head_ab", "halo_ab"])
+@pytest.mark.parametrize("tool", ["fused_ab", "conv_ab", "head_ab", "halo_ab", "dw_ab"])
 def test_ab_tool_matches_the_sources_and_entries(tool, monkeypatch):
     """An A/B tool's variants are text patches of its csrc/ sources
     (tools/fused_ab.py: bn_act.cu and batch_stats.cu; conv_ab.py:
     conv_k4s2p1.cu; head_ab.py: head_convt.cu; halo_ab.py:
-    halo_conv_k4s2p1.cu): each matches its source
+    halo_conv_k4s2p1.cu; dw_ab.py: conv_k4s2p1_dw.cu): each matches its source
     once; and its calls of the C entries pass as many arguments as their
     signatures take (the pair axis's included)."""
     from discogan_modernized_torch.ops import _build

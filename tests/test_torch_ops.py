@@ -301,6 +301,18 @@ def test_k4_k5b_weight_gradient_pairs(fn, jax_fn, shape):
     _equal_to_singles(port, lambda p: fn(xt[p], dyt[p]))
 
 
+@pytest.mark.parametrize("shape", [(3, 14, 10, 12, 24), (3, 14, 10, 3, 8)])
+def test_k4_weight_gradient_ragged_f32(shape):
+    """K4 in f32 at a ragged M (105 pixels on a 7 x 5 map), CI 12 (a 16-row
+    slice of dw spans taps) and the stem's CI 3, against the Pallas kernel
+    in interpret mode."""
+    n, h, w_, ci, co = shape
+    rng = np.random.RandomState(9)
+    x = rng.randn(n, h, w_, ci).astype(np.float32)
+    dy = rng.randn(n, h // 2, w_ // 2, co).astype(np.float32)
+    close(conv2d_k4s2p1_dw(*_t(x, dy)), jax_k4(jnp.asarray(x), jnp.asarray(dy), interpret=True))
+
+
 def test_pair_operands_are_checked():
     """A paired operand with another count of pairs than x is refused."""
     x = torch.zeros(2, 1, 8, 8, 16)
