@@ -52,7 +52,9 @@ card machine ends a call after 45 GiB of writes):
               edge shapes (K6_EDGE: W off a multiple of 16, three strips,
               bands that do not divide H, H 1 and 2, CO 1/3/8, CI
               16/32/48/64/128, a ring of 4 rows), each bf16 call on the
-              tensor-core path (head_plan) and counted once; K1 and K2
+              tensor-core path (head_plan) and counted once, each f32 call
+              (and bf16 "odd 40x24", CI 8) on the CUDA-core path
+              (head_fma_plan, its plan printed) and counted once; K1 and K2
               at their edge shapes (FUSED_EDGE: C 3 and 24, C 100 at 75
               rows, one row, rows fewer than K1's splits, C 2048 at batch
               1, a ragged last split), every K1 call launched twice for
@@ -91,7 +93,9 @@ card machine ends a call after 45 GiB of writes):
               forward and backward < step) and roofline --measure at 64px
               batch 64 (every time positive, every roofline or peak share at
               most SHARE_LIMIT); the A/B tools conv_ab (K3's AB_VARIANTS at
-              AB_CONV_SHAPE), head_ab (K6's at batch 1) and dw_ab (K4's f32
+              AB_CONV_SHAPE), head_ab (K6's at batch 1, the tensor-core
+              kernel's AB_VARIANTS and head_fma_kernel's F32_AB_VARIANTS in
+              f32) and dw_ab (K4's f32
               DW_AB_VARIANTS at DW_AB_LAYER batch 1), one round each, each
               kernel held against its plain version; memory_report at
               TOOL_SIZE batch 8, its model beside the measured peak;
@@ -121,7 +125,9 @@ card machine ends a call after 45 GiB of writes):
               versions and cuDNN (LIBRARY_OPS), timed, held together and
               profiled: K3's time under conv_fma_kernel and its split sums,
               K5f's under halo_fma_kernel and none under halo_wgmma_kernel
-              or the kernel halo_fma_kernel replaced (halo_conv_kernel).
+              or the kernel halo_fma_kernel replaced (halo_conv_kernel),
+              K6's under head_fma_kernel and none under head_convt_mma_kernel
+              or the kernel head_fma_kernel replaced (head_convt_kernel).
   5. serve    the daemon at 512px: 3 /translate and 1 /reconstruct over
               HTTP (through Translator when PIL is missing), p50/p99 and
               each request's round trip; the daemon's Translator held
@@ -157,7 +163,9 @@ card machine ends a call after 45 GiB of writes):
               time under its CUDA-core kernel (conv_dw_fma_kernel) and its
               split sums (conv_dw_reduce_kernel), none under its wgmma
               kernels or the kernel conv_dw_fma_kernel replaced
-              (conv_dw_kernel).
+              (conv_dw_kernel); K6's (the stems' input gradient) under
+              head_fma_kernel, none under head_convt_mma_kernel or
+              head_convt_kernel.
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the synthetic task cut to its first 128 image pairs
               (SYNTHETIC_IMAGES: 16 iterations, 6 D, 10 G; a line every 8;
@@ -175,7 +183,7 @@ card machine ends a call after 45 GiB of writes):
               conv_dw_stem_kernel), K5b's under halo_dw_wgmma_kernel and
               K6's under head_convt_mma_kernel, and none under their FMA
               kernels (K4's conv_dw_fma_kernel and conv_dw_kernel before
-              it); K2's as in phase 4 and K1's under its one-launch
+              it, K6's head_fma_kernel and head_convt_kernel before it); K2's as in phase 4 and K1's under its one-launch
               batch_stats_kernel, none under the two kernels it replaced.
               Then the step's graph variants (VARIANTS: remat under the
               "full", "latent" and "conv" policies, the lean D step,
@@ -749,7 +757,7 @@ def run_case(kernel, args, dtype, timer, g, band=None):
         halo_conv2d_k4s2p1_plain)
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.ops.head import (head_convt, head_convt_plain,
-                                                    head_plan)
+                                                    head_fma_plan, head_plan)
 
     dev = "cuda"
     size = torch.finfo(dtype).bits // 8
@@ -761,6 +769,7 @@ def run_case(kernel, args, dtype, timer, g, band=None):
     stats_tol = None  # tolerance of the statistics outputs, where there are some
     copy = None  # x.clone(), the practical copy rate, beside K1 and K2
     plan = None  # K3's or K4's plan, where the call is theirs
+    head_text = None  # K6's CUDA-core plan, where the call takes it
     if kernel == "bn_act":
         n, h, w, c, act = args
         x = rand(n, h, w, c)
@@ -846,6 +855,11 @@ def run_case(kernel, args, dtype, timer, g, band=None):
         wt = rand(4, 4, ci, co, scale=(16 * co) ** -0.5)
         if dtype == torch.bfloat16 and ci % 16 == 0:  # the tensor-core path
             assert head_plan(n, h, w, ci, co, dtype) is not None
+        else:  # the CUDA-core path: f32, and bf16 CI 8
+            assert head_plan(n, h, w, ci, co, dtype) is None
+            fp = head_fma_plan(n, h, w, ci, co, dtype)
+            head_text = (f"fma {fp.rows}x{fp.cols} {fp.stages} stages "
+                         f"{'vec' if fp.vec else 'scalar'} {fp.blocks} blocks")
         x_nchw, w_iohw = x.permute(0, 3, 1, 2), wt.permute(2, 3, 0, 1).contiguous()
         kern = lambda: head_convt(x, wt)  # noqa: E731
         plain = lambda: head_convt_plain(x, wt)  # noqa: E731
@@ -897,6 +911,8 @@ def run_case(kernel, args, dtype, timer, g, band=None):
            "flops": flops, "bytes": nbytes}
     if plan is not None:
         out["plan"] = f"{plan.path} {plan.tile[0]}x{plan.tile[1]} x{plan.splits}"
+    if head_text is not None:
+        out["plan"] = head_text
     if copy is not None:
         out["clone_ms"] = timer.ms(copy)
     return out
@@ -1117,9 +1133,16 @@ def per_layer_lines(results) -> None:
     rows.append(("K5f f32 enc1", [(f"b{BATCHES[v['path']]}", v) for k, v in results.items()
                                   if k[2] == torch.float32 and k[0] == "halo_conv_k4s2p1"
                                   and v["path"] in BATCHES]))
+    # K6 in f32 (TF32 off for cuDNN's convT) at the head and the stems' dx:
+    # the daemon's batch 1, the CLI's 4, a training step's 8, with the plans
+    rows.append(("K6 f32 head", [(f"{k[1]} b{BATCHES[v['path']]}", v)
+                                 for k, v in results.items()
+                                 if k[2] == torch.float32 and k[0] == "head_convt"
+                                 and v["path"] in BATCHES]))
     for what, cases in rows:
         print(f"{what} (ms: kernel / library / bound): " + "; ".join(
             f"{label} {v['ms']:.4f} / {v['library_ms']:.4f} / {v['bound_ms']:.4f}"
+            + (f" [{v['plan']}]" if what.startswith("K6") and "plan" in v else "")
             for label, v in cases))
     # K1 and K2, with x.clone() of the same tensor as the practical copy rate
     for what, kernel, path in (("K2 batch 8", "bn_act", "train"),
@@ -1202,7 +1225,11 @@ def kernel_summary(results, launches, pair_ms):
         if name in SERVING_KERNELS:
             f32_cli, by = _sums([v for v in f32 if v["path"] == "cli"], lambda v: 1,
                                 torch.float32)
-            entry.update({f"f32_{k}": v for k, v in f32_cli.items()}, f32_bound_by=by)
+            entry.update({f"f32_{k}": v for k, v in f32_cli.items()}, f32_bound_by=by,
+                         f32_ms_batch1=sum(v["ms"] for v in f32 if v["path"] == "serve"))
+        f32_plans = sorted({v["plan"] for v in f32 if v["path"] == "train" and "plan" in v})
+        if f32_plans:
+            entry["f32_train_step_plans"] = f32_plans
         entry.update({f"train_step_{k}": v for k, v in train.items()},
                      train_step_bound_by=by_train,
                      calls_per_g_step=PER_STEP["gen"][name],
@@ -1617,7 +1644,7 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "halo_dw_wgmma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
     "bn_act_vec_kernel": "K2 bn_act", "bn_act_any_kernel": "K2 bn_act",
-    "head_convt_kernel": "K6 head_convt",
+    "head_fma_kernel": "K6 head_convt",
     "head_convt_mma_kernel": "K6 head_convt"}
 # Library kernels (cuDNN convolutions and their gradients, cuBLAS products)
 LIBRARY_MARKERS = ("cudnn", "xmma", "gemm", "cutlass", "sm90_", "sm80_",
@@ -1750,7 +1777,7 @@ def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> 
     the kernels, through the plain versions and through cuDNN
     (``LIBRARY_OPS``), the three outputs held together (1e-4), and its
     profile, with K3's time under its CUDA-core kernel and split sums and
-    K5f's under its CUDA-core kernel."""
+    K5f's and K6's under their CUDA-core kernels."""
     from discogan_modernized_torch.cli.inference import load_generators
     from discogan_modernized_torch.core.precision import F32, configure
     from discogan_modernized_torch.models.generator import eval_forward
@@ -1787,11 +1814,13 @@ def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> 
         h, ci = h // 2, co
     for _ in range(3):  # the profiler now and then keeps only a window's tail
         by_kernel = profile_forward(fwd, x, F32)
-        if all(any(k in name for name in by_kernel) for k in (K3_F32_KERNEL, K5F_F32_KERNEL)):
+        wanted = (K3_F32_KERNEL, K5F_F32_KERNEL, K6_F32_KERNEL)
+        if all(any(k in name for name in by_kernel) for k in wanted):
             break
-        print(f"the profile holds no {K3_F32_KERNEL} or no {K5F_F32_KERNEL}; profiling again")
+        print(f"the profile holds no {' or no '.join(wanted)}; profiling again")
     check_k3_f32_route(by_kernel, f"f32 forward batch {batch}", splits)
     check_k5f_f32_route(by_kernel, f"f32 forward batch {batch}")
+    check_k6_f32_route(by_kernel, f"f32 forward batch {batch}")
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
@@ -1825,19 +1854,37 @@ def check_fused_route(by_kernel: dict, what: str, stats: bool) -> None:
 
 
 K6_TC_KERNEL = "head_convt_mma_kernel"
+# K6's f32 kernel on the CUDA cores, and the one it replaced
+K6_F32_KERNEL = "head_fma_kernel"
+K6_OFF_ROUTE = "head_convt_kernel"
 
 
 def check_k6_route(by_kernel: dict, what: str) -> None:
     """The profile shows K6's time under its tensor-core kernel and none
-    under the FMA one: every bf16 K6 call of the path (the head, and in a G
-    step the stems' input gradient) takes the tensor cores."""
+    under the CUDA-core ones (the f32 kernel and the one it replaced): every
+    bf16 K6 call of the path (the head, and in a G step the stems' input
+    gradient) takes the tensor cores."""
     tc = sum(us for name, us in by_kernel.items() if K6_TC_KERNEL in name)
-    fma = sum(us for name, us in by_kernel.items() if "head_convt_kernel" in name)
+    fma = sum(us for name, us in by_kernel.items()
+              if K6_F32_KERNEL in name or K6_OFF_ROUTE in name)
     if not tc > 0 or fma > 0:
         raise AssertionError(f"{what}: K6 {tc:.1f} us under {K6_TC_KERNEL}, "
-                             f"{fma:.1f} us under head_convt_kernel")
+                             f"{fma:.1f} us under {K6_F32_KERNEL} or {K6_OFF_ROUTE}")
     print(f"{what}: K6 {tc / 1e3:.4f} ms under {K6_TC_KERNEL}, none under "
-          "head_convt_kernel")
+          f"{K6_F32_KERNEL} or {K6_OFF_ROUTE}")
+
+
+def check_k6_f32_route(by_kernel: dict, what: str) -> None:
+    """The profile of an f32 path shows K6's time under its CUDA-core kernel
+    and none under the tensor cores' kernel or the FMA kernel it replaced."""
+    fma = sum(us for name, us in by_kernel.items() if K6_F32_KERNEL in name)
+    off = {k: sum(us for name, us in by_kernel.items() if k in name)
+           for k in (K6_TC_KERNEL, K6_OFF_ROUTE)}
+    if not fma > 0 or any(us > 0 for us in off.values()):
+        raise AssertionError(f"{what}: K6 {fma:.1f} us under {K6_F32_KERNEL}, {off} us off "
+                             "its route")
+    print(f"{what}: K6 {fma / 1e3:.4f} ms under {K6_F32_KERNEL}, none under "
+          + " or ".join(off))
 
 
 def check_k4_route(by_kernel: dict, what: str) -> None:
@@ -2139,7 +2186,8 @@ def check_equivalence() -> None:
 def profile_f32_g_step(ts, A, B, cfg) -> None:
     """torch.profiler over one of phase 6's f32 G steps through the kernels
     (512px, batch EQUIV_BATCH): K4's time under its CUDA-core kernel and,
-    where a layer's plan splits M, its split sums."""
+    where a layer's plan splits M, its split sums; K6's (the heads and the
+    stems' input gradients) under its CUDA-core kernel."""
     from discogan_modernized_torch.core.precision import F32
     from discogan_modernized_torch.models.geometry import encoder_channels
     from discogan_modernized_torch.ops.conv_k4s2p1 import dw_plan
@@ -2156,10 +2204,11 @@ def profile_f32_g_step(ts, A, B, cfg) -> None:
     what = f"one f32 G step (512px, batch {EQUIV_BATCH}, through the kernels)"
     for _ in range(3):  # the profiler now and then keeps only a window's tail
         by_kernel = profile_call(lambda: loss_and_grads(ts, A, B, 0.01, cfg, F32, "gen"), what)
-        if any(K4_F32_KERNEL in name for name in by_kernel):
+        if all(any(k in name for name in by_kernel) for k in (K4_F32_KERNEL, K6_F32_KERNEL)):
             break
-        print(f"the profile holds no {K4_F32_KERNEL}; profiling again")
+        print(f"the profile holds no {K4_F32_KERNEL} or no {K6_F32_KERNEL}; profiling again")
     check_k4_f32_route(by_kernel, what, splits)
+    check_k6_f32_route(by_kernel, what)
 
 
 # -- phase 7: the trainer ----------------------------------------------------
@@ -4269,6 +4318,9 @@ AB_CONV_SHAPE = "enc6 b1"  # conv_ab's shape: the wgmma path
 # halves (13 nvcc runs of the two sources for all of them cost the next
 # phase ~25 s of the host's cores)
 AB_VARIANTS = ("kernel", "copies only", "no copies")
+# head_ab's f32 variants built here (head_fma_kernel at batch 1; the
+# kernel's own library and one build)
+F32_AB_VARIANTS = ("kernel", "no copies")
 # dw_ab's variants built here and its layer (K4's f32 kernel at batch 1)
 DW_AB_VARIANTS, DW_AB_LAYER = ("kernel", "no copies"), "enc5"
 TRAIN_ITER = re.compile(r"Iter \[(\d+)/\d+\]")
@@ -4559,22 +4611,26 @@ def start_ab_builds() -> dict:
 
     started = {"conv_ab": conv_ab.start_variants(AB_VARIANTS),
                "head_ab": head_ab.start_variants(AB_VARIANTS),
+               "head_ab f32": head_ab.start_variants(F32_AB_VARIANTS, "f32"),
                "dw_ab": dw_ab.start_variants(DW_AB_VARIANTS)}
     _started_builds.extend(b for builds in started.values() for b in builds.values())
     return started
 
 
 def drive_ab_tools(started: dict) -> None:
-    """conv_ab (K3's AB_VARIANTS at AB_CONV_SHAPE), head_ab (K6's, batch 1)
-    and dw_ab (K4's f32 DW_AB_VARIANTS at DW_AB_LAYER, batch 1), one round
-    each through their ``run``, from the builds started after the build
-    phase: each variant builds and launches, the kernel holds its plain
-    version (the tools check it)."""
+    """conv_ab (K3's AB_VARIANTS at AB_CONV_SHAPE), head_ab (K6's, batch 1:
+    the tensor-core kernel's AB_VARIANTS, then head_fma_kernel's
+    F32_AB_VARIANTS in f32) and dw_ab (K4's f32 DW_AB_VARIANTS at
+    DW_AB_LAYER, batch 1), one round each through their ``run``, from the
+    builds started after the build phase: each variant builds and launches,
+    the kernel holds its plain version (the tools check it)."""
     from discogan_modernized_torch.tools import conv_ab, dw_ab, head_ab
 
     for name, call in (("conv_ab", lambda: conv_ab.run(
             1, [s_ for s_ in conv_ab.SHAPES if s_[0] == AB_CONV_SHAPE], started["conv_ab"])),
                        ("head_ab", lambda: head_ab.run([1], 1, started["head_ab"])),
+                       ("head_ab f32", lambda: head_ab.run([1], 1, started["head_ab f32"], "f32",
+                                                           F32_AB_VARIANTS)),
                        ("dw_ab", lambda: dw_ab.run([DW_AB_LAYER], 1, 1, started["dw_ab"],
                                                    DW_AB_VARIANTS))):
         t0 = time.perf_counter()

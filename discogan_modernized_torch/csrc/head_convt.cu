@@ -13,23 +13,75 @@
 // (2i+a, 2j+b) reads the 2x2 input window x[i+a+u-1, j+b+v-1] (u, v in
 // {0,1}, zero outside) through taps wf[a+2u, b+2v] = w[3-a-2u, 3-b-2v].
 //
-// Bound on the H100: bytes. At 512px, batch 8, it reads 67.1 MB of x and
+// Bound on the H100 in bf16: bytes. At 512px, batch 8, it reads 67.1 MB of x and
 // writes 12.6 MB of y (bf16) for 3.2 GFLOP of useful products, about 40
 // flop/byte, far under the bf16 ridge of 295: 23.8 us at 3.35 TB/s. What
 // counts is reading x once and writing y in whole lines.
 //
-// Two paths; the wrapper picks one by dtype and shape (ops/head.py::
-// head_plan) and passes the plan's `rows` > 0 for the first:
+// Two paths; the wrapper picks one by dtype and shape and passes its plan
+// (ops/head.py: head_plan for the first, head_fma_plan for the second):
 // - bf16 with CI % 16 == 0, 16 <= CI <= 128 and 1 <= CO <= 8 (the head and
 //   the stems' input gradient at every geometry): head_convt_mma_kernel on
 //   the tensor cores, below (namespace tc).
 // - everything else (f32, which --precision f32 and the f32 equivalence
-//   step use, and other channel counts): head_convt_kernel, f32 FMA on the
-//   CUDA cores. A block owns one input row i of one image, 256 columns
-//   wide, and each thread one input position (i, j): it computes the four
-//   output pixels the position's 3x3 neighbourhood feeds, for all CO
-//   channels, in registers, from 16-channel chunks of rows i-1..i+1 staged
-//   as f32 with an odd per-column pitch, and weights staged once as f32.
+//   step use, and bf16 off those shapes): head_fma_kernel, exact f32 FMA on
+//   the CUDA cores (namespace fma).
+//
+// head_fma_kernel. In f32 the head is balanced between the card's two
+// roofs: at 512px batch 8 it reads 134.2 MB of x and writes 25.2 MB of y
+// (47.6 us at 3.35 TB/s) for 1.61 G useful FMAs (48.1 us at 67 TFLOP/s). So
+// it reads x from device memory once, does only the useful products, and
+// keeps the shared-memory reads a product low enough for the FMAs to run:
+// - Exact four-phase form: output (2i+a, 2j+b) takes its own 4 taps only,
+//   16 CI CO FMAs a position (the 9-window GEMM of the tensor-core path
+//   does 36 CI CO).
+// - A block owns one image (and pair), `rows` input rows (4 or 8 from the
+//   plan: 2 or 4 warps, two blocks of 4 an SM; the entry takes up to 16)
+//   and TC input columns (128 at CO <= 3, 64 at CO 4..8). Each warp owns 2
+//   of the rows across the TC columns; each lane a register tile of 2 rows
+//   x TCT neighbouring columns (TCT = 4, or 2 at CO 4..8), with the 4
+//   phases x CO f32 accumulators of each position (96 at CO 3, 128 at CO
+//   8).
+// - CI goes in chunks of KC = 8 channels through a ring of STAGES = 2 (a
+//   third was slower: 229 KB of shared memory at 16 rows). A stage holds
+//   the block's halo tile, rows + 2 input rows by TC + 2 columns of the
+//   chunk's channels (zero outside the map and past CI), as planes of one
+//   16-byte unit a pixel (f32: 2 planes of 4 channels; bf16: one of 8,
+//   converted on read), and the chunk's weights [tap][KC][CO] as f32 (zero
+//   past CO and CI). The copies of chunk q + 1 are issued before chunk q's
+//   products: with VEC (f32 CI % 4 == 0, bf16 CI % 8 == 0) 16-byte
+//   cp.async, zero-filled through their source size, so each x value
+//   leaves device memory once and the halo comes from L2; otherwise scalar
+//   loads stored at once. Weights: f32 by 4-byte cp.async, bf16 by loads
+//   converted and stored. A thread copies the same few units of every
+//   staged row (their columns' sources and destinations computed once,
+//   walked down the rows by one add each); a chunk moves the channel
+//   offset alone.
+// - Products: per 4 channels, for each of the window's 4 rows the lane
+//   reads its TCT + 2 pixels as float4 over the channels, then for each
+//   tap that reads that row the tap's 4 x CO weights as CO float4 (the
+//   same address across the warp: one broadcast wavefront each), and does
+//   4 CO FMAs per position the tap feeds. Neighbouring positions share
+//   their window pixels. At 2 x 4 that is 24 x reads (4 wavefronts each)
+//   and 96 w reads a lane per 1536 FMAs, 48 wavefronts a channel for a
+//   warp against 96 that the SM's shared memory gives it a channel.
+// - Banks: lane l reads staged column TCT l + dx of one row; a staged row
+//   is TC + 2 units and column c sits at unit c ^ ((c >> 3) & SWZ) (SWZ =
+//   3 at TCT 4, 1 at TCT 2), so the eight lanes of a quarter warp fall on
+//   eight distinct 16-byte bank groups for every dx
+//   (tests/test_torch_head_plan.py checks the addresses).
+// - Epilogue: after the ring drains, each warp writes its 4 output lines
+//   (input rows 2w, 2w+1 of the block, phases a = 0, 1; 2 TC CO values
+//   each, laid out as in y, started at y's 16-byte phase) into shared
+//   memory, 16 bytes at a time where a line starts on a 16-byte boundary
+//   of y and CO is the template's, then stores them in aligned 16-byte
+//   units, the ragged lead and tail by value.
+// - No split over CI and no atomics: two launches give the same bits; the
+//   launch neither syncs nor allocates (CUDA-graph capture).
+// - What holds it (tools/head_ab.py --dtype f32): its copies alone (32
+//   bytes a pixel a chunk at a 256-byte stride) and its products alone
+//   each take about two thirds of its time, and they overlap poorly; the
+//   products run at 255 registers, two warps a scheduler.
 //
 // head_convt_mma_kernel:
 // - One GEMM for the four phases. The four output pixels (2i+a, 2j+b) of
@@ -75,117 +127,336 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // input columns per block
-constexpr int CC = 16;        // input channels staged per chunk
-constexpr int PITCH = CC + 1;  // floats per staged column, odd against bank conflicts
-constexpr int COLS = THREADS + 2;
+// ---- CUDA-core path (f32, and bf16 off the tensor-core shapes) ----------
 
-template <typename T, int CO>
-__global__ void __launch_bounds__(THREADS)
-    head_convt_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int n,
-                      int h, int wd, int ci, PairStrides ps) {
-  extern __shared__ float smem[];
-  float* ws = smem;                 // [4][4][ci][CO], the HWIO weight as f32
-  float* xs = smem + 16 * ci * CO;  // [3][COLS][PITCH]
-  const int i = blockIdx.y, b = blockIdx.z % n, pair = blockIdx.z / n;  // z = pair * N + image
-  x += pair * ps.x;
-  w += pair * ps.w;
-  y += pair * ps.y;
-  const int j0 = blockIdx.x * THREADS;
-  const int j = j0 + threadIdx.x;
-  for (int e = threadIdx.x; e < 16 * ci * CO; e += THREADS) ws[e] = to_f32(w[e]);
+namespace fma {
 
-  float acc[2][2][CO];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int bb = 0; bb < 2; ++bb)
-#pragma unroll
-      for (int o = 0; o < CO; ++o) acc[a][bb][o] = 0.f;
+constexpr int KC = 8;             // channels of a CI chunk (a ring stage)
+constexpr int STAGES = 2;         // the ring: copies run a chunk ahead (3 was slower)
+constexpr int TRT = 2;            // input rows of a lane's tile: a warp's rows
+constexpr int MIN_ROWS = 4;       // a block's input rows: 2 warps ...
+constexpr int MAX_ROWS = 16;      // ... to 8
+constexpr int MAX_THREADS = 32 * MAX_ROWS / TRT;
 
+// The kernel's CO (3 or 8) for co output channels (1..3 -> 3, 4..8 -> 8:
+// the weights past co are zeros); a lane's columns (TCT) and a block's (TC).
+__host__ __device__ constexpr int co_of(int co) { return co <= 3 ? 3 : 8; }
+__host__ __device__ constexpr int thread_cols(int CO) { return CO <= 3 ? 4 : 2; }
+__host__ __device__ constexpr int tile_cols(int CO) { return 32 * thread_cols(CO); }
+// A stage: PL planes of the halo tile, each rows + 2 staged rows of TC + 2
+// 16-byte units (one a pixel), then the chunk's weights [tap][KC][CO] f32.
+__host__ __device__ constexpr int planes(int itemsize) { return (KC * itemsize + 15) / 16; }
+__host__ __device__ constexpr int stage_bytes(int itemsize, int CO, int rows) {
+  return 16 * planes(itemsize) * (rows + 2) * (tile_cols(CO) + 2) + 4 * 16 * KC * CO;
+}
+// An epilogue line: an output row's 2 TC CO values of T and room for a
+// lead of up to 15 bytes (a multiple of 16 bytes in all).
+__host__ __device__ constexpr int line_vals(int itemsize, int CO) {
+  return 2 * tile_cols(CO) * CO + 16 / itemsize;
+}
+// The ring, or the epilogue's lines (4 a warp) where larger.
+__host__ __device__ constexpr int smem_bytes(int itemsize, int CO, int rows, int stages) {
+  const int ring = stages * stage_bytes(itemsize, CO, rows);
+  const int lines = rows / TRT * 4 * line_vals(itemsize, CO) * itemsize;
+  return ring > lines ? ring : lines;
+}
+
+template <int N>
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Column c of a staged row at unit c ^ ((c >> 3) & SWZ): lanes TCT apart
+// then fall on distinct 16-byte bank groups in each quarter warp; the last
+// two columns, TC and TC + 1, keep their units.
+template <int TCT>
+__host__ __device__ constexpr int swz_col(int c) {
+  return c ^ ((c >> 3) & (TCT == 4 ? 3 : 1));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+// Four channels of a staged pixel as f32: f32 a float4 of its plane;
+// bf16 the half `g` (8 bytes) of its one unit, at p.
+__device__ __forceinline__ float4 read4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 read4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = Vec16<__nv_bfloat16>::half(u.x), hi = Vec16<__nv_bfloat16>::half(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z): input columns j0 .. j0 + TC -
+// 1 (x = band * strips + strip) and rows i0 .. i0 + rows - 1 of image y,
+// pair z. Staged row r, column c is input pixel (i0 - 1 + r, j0 - 1 + c).
+// Lane `lane` of warp `warp` owns input rows i0 + 2 warp + t (t < 2) and
+// columns j0 + TCT lane + s (s < TCT); phase (a, b) of position (t, s)
+// reads window row dy = t + a + u, staged row 2 warp + dy, and column dx =
+// s + b + v, staged column TCT lane + dx, through tap w[3-a-2u][3-b-2v]
+// (u, v in {0, 1}).
+template <typename T, int CO, bool VEC>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    head_fma_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int h,
+                    int wd, int ci, int co, int rows, PairStrides ps) {
+  constexpr int TCT = thread_cols(CO), TC = tile_cols(CO), XS = TC + 2;  // staged columns
+  constexpr int PL = planes(sizeof(T));        // planes of a stage
+  constexpr int U = 16 / sizeof(T);            // channels of a 16-byte unit
+  constexpr int NW = TCT + 2;                  // pixels of a window row
+  // a thread's x units of a staged row: most at the fewest threads
+  constexpr int X_SLOTS = (PL * XS + 16 * MIN_ROWS - 1) / (16 * MIN_ROWS);
+  constexpr int W_VALS = 16 * KC * CO;
+  constexpr int W_COPIES = (W_VALS + 16 * MIN_ROWS - 1) / (16 * MIN_ROWS);
+  constexpr int LV = line_vals(sizeof(T), CO);
+  static_assert(swz_col<TCT>(TC) == TC && swz_col<TCT>(TC + 1) == TC + 1,
+                "the last two columns keep their units");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int threads = blockDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int strips = (wd + TC - 1) / TC;
+  const int j0 = (blockIdx.x % strips) * TC, i0 = (blockIdx.x / strips) * rows;
+  const int b = blockIdx.y;
+  x += blockIdx.z * ps.x;  // z: the pair
+  w += blockIdx.z * ps.w;
+  y += blockIdx.z * ps.y;
   const T* xb = x + static_cast<long long>(b) * h * wd * ci;
-  for (int c0 = 0; c0 < ci; c0 += CC) {
-    const int cc = min(CC, ci - c0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < 3 * COLS * CC; e += THREADS) {
-      const int c = e % CC;
-      const int col = (e / CC) % COLS;
-      const int r = e / (CC * COLS);
-      const int iy = i - 1 + r, ix = j0 - 1 + col;
-      float v = 0.f;
-      if (c < cc && iy >= 0 && iy < h && ix >= 0 && ix < wd) {
-        v = to_f32(xb[(static_cast<long long>(iy) * wd + ix) * ci + c0 + c]);
+  const int stage = stage_bytes(sizeof(T), CO, rows);
+  const int plane_bytes = 16 * (rows + 2) * XS;
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  // x: unit k of a staged row is plane k % PL of column k / PL; this thread
+  // copies units tid + threads m (m < X_SLOTS) of every row: plane tid % PL
+  // (threads is a multiple of 32). x_col: the column's first channel in its
+  // input row, x_cdst: the unit's byte offset in a staged row.
+  const int plane = tid % PL;
+  int x_col[X_SLOTS], x_cdst[X_SLOTS];
+  uint32_t x_live = 0, x_ok = 0;
+#pragma unroll
+  for (int m = 0; m < X_SLOTS; ++m) {
+    const int k = tid + threads * m, c = k / PL, ix = j0 - 1 + c;
+    const bool live = k < PL * XS, ok = live && ix >= 0 && ix < wd;
+    x_live |= static_cast<uint32_t>(live) << m;
+    x_ok |= static_cast<uint32_t>(ok) << m;
+    x_col[m] = ok ? ix * ci + plane * U : 0;
+    x_cdst[m] = plane * plane_bytes + swz_col<TCT>(live ? c : 0) * 16;
+  }
+
+  // Stage chunk q (channels KC q ..) into its slot, if `go`: staged row r
+  // is input row i0 - 1 + r, its units XS * 16 bytes further.
+  auto stage_chunk = [&](int q, bool go) {
+    if (!go) return;
+    const int c0 = q * KC, slot = (q % STAGES) * stage;
+    const bool ch_ok = c0 + plane * U < ci;  // the unit's channels inside CI
+    const T* src_row = xb + static_cast<long long>(i0 - 1) * wd * ci + c0;
+    int dst_row = slot;
+#pragma unroll 1
+    for (int r = 0; r < rows + 2; ++r, src_row += wd * ci, dst_row += XS * 16) {
+      const bool row_ok = ch_ok && i0 - 1 + r >= 0 && i0 - 1 + r < h;
+#pragma unroll
+      for (int m = 0; m < X_SLOTS; ++m) {
+        if (!((x_live >> m) & 1)) continue;
+        const bool ok = row_ok && ((x_ok >> m) & 1);
+        const T* src = src_row + x_col[m];
+        if constexpr (VEC) {
+          hopper::cp_async16(sbase + dst_row + x_cdst[m], ok ? src : x, ok);
+        } else {
+          alignas(16) T v[U];
+#pragma unroll
+          for (int e = 0; e < U; ++e)
+            v[e] = ok && c0 + plane * U + e < ci ? src[e] : from_f32<T>(0.f);
+          *reinterpret_cast<uint4*>(smem + dst_row + x_cdst[m]) =
+              *reinterpret_cast<const uint4*>(v);
+        }
       }
-      xs[(r * COLS + col) * PITCH + c] = v;
     }
-    __syncthreads();
-    if (j >= wd) continue;
-    for (int c = 0; c < cc; ++c) {
-      float xv[3][3];
+    // w: value e = tid + threads j of [tap][KC][CO] is w[tap][c0 + c][o]
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
+    for (int j = 0; j < W_COPIES; ++j) {
+      const int e = tid + threads * j;
+      if (e >= W_VALS) continue;
+      const int tap = e / (KC * CO), c = e / CO % KC, o = e % CO;
+      const bool ok = o < co && c0 + c < ci;
+      const T* src = w + (tap * ci + c0 + c) * co + o;
+      const int dst = slot + PL * plane_bytes + 4 * e;
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(sbase + dst, ok ? src : w, ok);
+      } else {
+        *reinterpret_cast<float*>(smem + dst) = ok ? to_f32(*src) : 0.f;
+      }
+    }
+  };
+
+  float acc[TRT][TCT][2][2][CO];
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          xv[dy][dx] = xs[(dy * COLS + threadIdx.x + dx) * PITCH + c];
+  for (int t = 0; t < TRT; ++t)
+#pragma unroll
+    for (int s = 0; s < TCT; ++s)
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int bb = 0; bb < 2; ++bb)
 #pragma unroll
-          for (int u = 0; u < 2; ++u)
+          for (int o = 0; o < CO; ++o) acc[t][s][a][bb][o] = 0.f;
+
+  const int nchunks = (ci + KC - 1) / KC;
+  for (int q = 0; q < STAGES - 1; ++q) {
+    stage_chunk(q, q < nchunks);
+    hopper::cp_async_commit();
+  }
+  // This lane's window pixels in a plane: staged row 2 warp, columns TCT
+  // lane + dx; window row dy is dy XS units further.
+  int x_read[NW];
 #pragma unroll
-            for (int v = 0; v < 2; ++v) {
-              const int kh = 3 - a - 2 * u, kw = 3 - bb - 2 * v;
-              const float xval = xv[a + u][bb + v];
-              const float* wt = ws + ((kh * 4 + kw) * ci + c0 + c) * CO;
+  for (int dx = 0; dx < NW; ++dx)
+    x_read[dx] = (TRT * warp * XS + swz_col<TCT>(TCT * lane + dx)) * 16;
+
+  // Chunk q: its copies landed (this thread's, then everyone's at the
+  // barrier, which also sees every warp past chunk q - 1's reads); chunk q +
+  // STAGES - 1 staged into chunk q - 1's slot; then chunk q's products.
+#pragma unroll 1
+  for (int q = 0; q < nchunks; ++q) {
+    copies_landed<STAGES - 2>();
+    __syncthreads();
+    stage_chunk(q + STAGES - 1, q + STAGES - 1 < nchunks);
+    hopper::cp_async_commit();
+    const unsigned char* xs = smem + (q % STAGES) * stage;
+    const float* ws = reinterpret_cast<const float*>(xs + PL * plane_bytes);
 #pragma unroll
-              for (int o = 0; o < CO; ++o) acc[a][bb][o] = fmaf(xval, wt[o], acc[a][bb][o]);
+    for (int g = 0; g < KC / 4; ++g) {  // 4 channels: f32 plane g, bf16 half g of the unit
+      const unsigned char* xg = xs + (PL > 1 ? g * plane_bytes : g * 8);
+#pragma unroll
+      for (int dy = 0; dy < 4; ++dy) {
+        float4 xr[NW];
+#pragma unroll
+        for (int dx = 0; dx < NW; ++dx)
+          xr[dx] = read4(reinterpret_cast<const T*>(xg + x_read[dx] + dy * XS * 16));
+#pragma unroll
+        for (int t = 0; t < TRT; ++t)
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const int u = dy - t - a;
+            if (u < 0 || u > 1) continue;
+#pragma unroll
+            for (int kw = 0; kw < 4; ++kw) {
+              const int bb = (3 - kw) & 1, v = (3 - kw - bb) >> 1;
+              const float* wt = ws + (((3 - a - 2 * u) * 4 + kw) * KC + 4 * g) * CO;
+              float wv[4 * CO];  // [channel][o]
+#pragma unroll
+              for (int m = 0; m < CO; ++m) {
+                const float4 f = *reinterpret_cast<const float4*>(wt + 4 * m);
+                wv[4 * m] = f.x, wv[4 * m + 1] = f.y, wv[4 * m + 2] = f.z, wv[4 * m + 3] = f.w;
+              }
+#pragma unroll
+              for (int s = 0; s < TCT; ++s)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const float xv = comp(xr[s + bb + v], c);
+#pragma unroll
+                  for (int o = 0; o < CO; ++o)
+                    acc[t][s][a][bb][o] = fmaf(xv, wv[c * CO + o], acc[t][s][a][bb][o]);
+                }
             }
+          }
+      }
     }
   }
-  if (j >= wd) return;
+  copies_landed<0>();
+  __syncthreads();
 
+  // Epilogue: this warp's lines (input row 2 warp + t, phase a) in the
+  // drained ring; line (t, a) holds output row 2i + a from column 2 j0 at
+  // offset `lead`, y's 16-byte phase there, so that its 16-byte units are
+  // y's. The lane's 2 TCT CO values of a line are contiguous: 16-byte
+  // stores where the line has no lead and co is the kernel's CO.
+  T* lines = reinterpret_cast<T*>(smem) + warp * 4 * LV;
+  const int npos = max(0, min(TC, wd - j0));
+  const int len = npos * 2 * co;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+  for (int t = 0; t < TRT; ++t)
 #pragma unroll
-    for (int bb = 0; bb < 2; ++bb) {
-      T* yp = y + ((static_cast<long long>(b) * 2 * h + 2 * i + a) * 2 * wd + 2 * j + bb) * CO;
+    for (int a = 0; a < 2; ++a) {
+      const int i = i0 + TRT * warp + t;
+      if (i >= h) continue;
+      T* line = lines + (2 * t + a) * LV;
+      const T* row = y + ((static_cast<long long>(b) * 2 * h + 2 * i + a) * 2 * wd + 2 * j0) * co;
+      const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(row) / sizeof(T) % U);
+      if (co == CO && lead == 0) {
+        float v[2 * TCT * CO];
 #pragma unroll
-      for (int o = 0; o < CO; ++o) yp[o] = from_f32<T>(acc[a][bb][o]);
+        for (int s = 0; s < TCT; ++s)
+#pragma unroll
+          for (int bb = 0; bb < 2; ++bb)
+#pragma unroll
+            for (int o = 0; o < CO; ++o) v[(s * 2 + bb) * CO + o] = acc[t][s][a][bb][o];
+#pragma unroll
+        for (int k = 0; k < 2 * TCT * CO / U; ++k) {
+          float part[U];
+#pragma unroll
+          for (int e = 0; e < U; ++e) part[e] = v[k * U + e];
+          *reinterpret_cast<uint4*>(line + 2 * TCT * CO * lane + k * U) = Vec16<T>::pack(part);
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < TCT; ++s)
+#pragma unroll
+          for (int bb = 0; bb < 2; ++bb)
+#pragma unroll
+            for (int o = 0; o < CO; ++o)
+              if (o < co)
+                line[lead + ((TCT * lane + s) * 2 + bb) * co + o] =
+                    from_f32<T>(acc[t][s][a][bb][o]);
+      }
+    }
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < TRT; ++t)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int i = i0 + TRT * warp + t;
+      if (i >= h) continue;
+      const T* line = lines + (2 * t + a) * LV;
+      T* row = y + ((static_cast<long long>(b) * 2 * h + 2 * i + a) * 2 * wd + 2 * j0) * co;
+      const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(row) / sizeof(T) % U);
+      T* dst = row - lead;
+      for (int k = lane; k * U < lead + len; k += 32) {
+        if (k * U >= lead && k * U + U <= lead + len) {
+          *reinterpret_cast<uint4*>(dst + k * U) = *reinterpret_cast<const uint4*>(line + k * U);
+        } else {
+          for (int e = max(k * U, lead); e < min(k * U + U, lead + len); ++e) dst[e] = line[e];
+        }
+      }
     }
 }
 
-template <typename T, int CO>
-int launch(const void* x, const void* w, void* y, int n, int h, int wd, int ci, int pairs,
-           const PairStrides& ps, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((wd + THREADS - 1) / THREADS), static_cast<unsigned>(h),
-                  static_cast<unsigned>(n * pairs));
-  const int smem = (16 * ci * CO + 3 * COLS * PITCH) * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        head_convt_kernel<T, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  head_convt_kernel<T, CO><<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), n, h, wd, ci, ps);
+template <typename T, int CO, bool VEC>
+int launch(dim3 grid, int threads, int smem, cudaStream_t s, const void* x, const void* w,
+           void* y, int h, int wd, int ci, int co, int rows, const PairStrides& ps) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      head_fma_kernel<T, CO, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  head_fma_kernel<T, CO, VEC><<<grid, threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), h, wd, ci, co,
+      rows, ps);
   return launch_status();
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, void* y, int n, int h, int wd, int ci, int co,
-             int pairs, const PairStrides& ps, cudaStream_t s) {
-  switch (co) {
-    case 1: return launch<T, 1>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 2: return launch<T, 2>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 3: return launch<T, 3>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 4: return launch<T, 4>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 5: return launch<T, 5>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 6: return launch<T, 6>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 7: return launch<T, 7>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    case 8: return launch<T, 8>(x, w, y, n, h, wd, ci, pairs, ps, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int dispatch(bool vec, dim3 grid, int threads, int smem, cudaStream_t s, const void* x,
+             const void* w, void* y, int h, int wd, int ci, int co, int rows,
+             const PairStrides& ps) {
+  if (co_of(co) == 3)
+    return vec ? launch<T, 3, true>(grid, threads, smem, s, x, w, y, h, wd, ci, co, rows, ps)
+               : launch<T, 3, false>(grid, threads, smem, s, x, w, y, h, wd, ci, co, rows, ps);
+  return vec ? launch<T, 8, true>(grid, threads, smem, s, x, w, y, h, wd, ci, co, rows, ps)
+             : launch<T, 8, false>(grid, threads, smem, s, x, w, y, h, wd, ci, co, rows, ps);
 }
+
+}  // namespace fma
 
 // ---- tensor-core path (bf16, CI % 16 == 0, 16 <= CI <= 128, CO <= 8) ----
 
@@ -447,32 +718,33 @@ int launch_ks(int np, int slots, dim3 grid, long long smem, cudaStream_t s, cons
 
 }  // namespace
 
-// rows > 0: the tensor-core path with the wrapper's plan (bands of `rows`
-// input rows, `strips` strips of 128 columns, a ring of `slots` rows,
-// `smem` bytes), refused unless it covers every input row and column once
-// and matches the kernel's own layout; rows == 0: the FMA path. pairs,
-// x_ps, w_ps: the pair axis (common.cuh); pair p's y starts N*2H*2W*CO
-// values after pair 0's.
+// The wrapper's plan, refused unless it covers every input row and column
+// once and matches the kernel's own layout: path 1, the tensor-core path
+// (bands of `rows` input rows, `strips` strips of `cols` = 128 columns, a
+// ring of `slots` rows, `smem` bytes; kc and vec unused); path 0, the
+// CUDA-core path (bands of `rows` input rows, `strips` strips of `cols`
+// columns, a ring of `slots` stages of `kc` channels, 16-byte copies where
+// `vec`, `smem` bytes). pairs, x_ps, w_ps: the pair axis (common.cuh); pair
+// p's y starts N*2H*2W*CO values after pair 0's.
 extern "C" int discogan_head_convt(const void* x, const void* w, void* y, int n, int h, int wd,
-                                   int ci, int co, int dtype, int rows, int bands, int strips,
-                                   int slots, long long smem, int pairs, long long x_ps,
-                                   long long w_ps, void* stream) {
+                                   int ci, int co, int dtype, int path, int rows, int cols,
+                                   int bands, int strips, int slots, int kc, int vec,
+                                   long long smem, int pairs, long long x_ps, long long w_ps,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pairs == 0) return 0;
   const int itemsize = dtype == DT_F32 ? 4 : 2;
   if (pairs < 1 || static_cast<long long>(pairs) * n > 65535 ||
-      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, w_ps, itemsize))
+      !pair_aligned(pairs, x_ps, itemsize) || !pair_aligned(pairs, w_ps, itemsize) || co < 1 ||
+      co > tc::MAX_CO || (dtype != DT_F32 && dtype != DT_BF16))
     return static_cast<int>(cudaErrorInvalidValue);
   const PairStrides ps{x_ps, w_ps, 4LL * n * h * wd * co, 0, 0, 0};
-  if (rows > 0) {
-    if (dtype != DT_BF16 || ci % 16 != 0 || ci < 16 || ci > tc::MAX_CI || co < 1 ||
-        co > tc::MAX_CO || (slots != 4 && slots != 5) ||
-        smem != tc::smem_bytes(ci, co, slots))
+  if (path == 1) {
+    if (dtype != DT_BF16 || ci % 16 != 0 || ci < 16 || ci > tc::MAX_CI || cols != tc::STRIP ||
+        (slots != 4 && slots != 5) || smem != tc::smem_bytes(ci, co, slots))
       return static_cast<int>(cudaErrorInvalidValue);
     if (static_cast<long long>(n) * h * wd == 0) return 0;
-    const bool rows_once = static_cast<long long>(bands) * rows >= h &&
-                           static_cast<long long>(bands - 1) * rows < h;
-    if (!rows_once || strips != (wd + tc::STRIP - 1) / tc::STRIP)
+    if (!covers_once(h, bands, rows) || !covers_once(wd, strips, cols))
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>(strips * bands), static_cast<unsigned>(n),
                     static_cast<unsigned>(pairs));
@@ -488,7 +760,20 @@ extern "C" int discogan_head_convt(const void* x, const void* w, void* y, int n,
       default: return tc::launch_ks<8>(np, slots, grid, smem, s, x, w, y, h, wd, co, rows, ps);
     }
   }
+  const int cot = fma::co_of(co);
+  if (path != 0 || ci < 1 || kc != fma::KC || rows % fma::TRT != 0 || rows < fma::MIN_ROWS ||
+      rows > fma::MAX_ROWS || cols != fma::tile_cols(cot) || slots != fma::STAGES ||
+      vec != static_cast<int>(ci % (16 / itemsize) == 0) ||
+      smem != fma::smem_bytes(itemsize, cot, rows, slots))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(n) * h * wd == 0) return 0;
-  if (dtype == DT_F32) return dispatch<float>(x, w, y, n, h, wd, ci, co, pairs, ps, s);
-  return dispatch<__nv_bfloat16>(x, w, y, n, h, wd, ci, co, pairs, ps, s);
+  if (!covers_once(h, bands, rows) || !covers_once(wd, strips, cols))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(strips * bands), static_cast<unsigned>(n),
+                  static_cast<unsigned>(pairs));
+  const int threads = 32 * rows / fma::TRT, bytes = static_cast<int>(smem);
+  if (dtype == DT_F32)
+    return fma::dispatch<float>(vec, grid, threads, bytes, s, x, w, y, h, wd, ci, co, rows, ps);
+  return fma::dispatch<__nv_bfloat16>(vec, grid, threads, bytes, s, x, w, y, h, wd, ci, co, rows,
+                                      ps);
 }

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11
                                      + [_I, _LL, _LL, _P]),
     "discogan_halo_conv_k4s2p1": (_I, [_P] * 5 + [_I] * 14 + [_I] + [_LL] * 3 + [_P]),
-    "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 10 + [_LL] + [_I, _LL, _LL, _P]),
+    "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 14 + [_LL] + [_I, _LL, _LL, _P]),
     "discogan_pipe_probe": (_I, [_P, _P, _P, _LL, _LL] + [_I] * 4 + [_LL, _I, _P]),
 }
 

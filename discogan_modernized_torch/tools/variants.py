@@ -6,16 +6,22 @@ ctypes under the signature the wrapper's entry has (ops/_build.py
 ``_SIGNATURES``).
 
 ``start`` launches the builds and returns at once, so that a caller can
-overlap them with other work (chip_smoke.py starts them beside the main
-build); ``load`` waits for them.
+overlap them with other work (chip_smoke.py starts them beside its kernel
+checks), at the lowest CPU priority so that the work they overlap keeps
+its cores; ``load`` waits for them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import shutil
 import subprocess
 from pathlib import Path
+
+
+def _lowest_priority() -> None:
+    os.nice(19)
 
 
 def start(variants: dict, out: Path) -> dict:
@@ -38,7 +44,8 @@ def start(variants: dict, out: Path) -> dict:
         (d / source).write_text(text)
         started[name] = (d, subprocess.Popen(
             [_build._nvcc(), *flags, "-shared", str(d / source), "-o", str(d / "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=_lowest_priority))
     return started
 
 

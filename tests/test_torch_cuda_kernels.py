@@ -289,11 +289,66 @@ def test_halo_conv_refuses_a_plan_off_its_arithmetic(gen, field, value):
 
 @pytest.mark.parametrize("n,h,w,ci,co", [
     (2, 8, 8, 16, 1), (1, 40, 24, 8, 3), (2, 8, 300, 16, 3), (1, 6, 10, 24, 8),
-    (4, 256, 256, 64, 3)])
+    (4, 256, 256, 64, 3),
+    # the 512px head and stems' dx at batch 1, 2 and 8, a tp-2 spatial band
+    # (h/2 + 2 rows), the 64px head at the angle trainer's batch
+    (1, 256, 256, 64, 3), (2, 256, 256, 64, 3), (8, 256, 256, 64, 3), (2, 130, 256, 64, 3),
+    (64, 32, 32, 64, 3),
+    # the tensor-core path's edge shapes (chip_smoke.py's K6_EDGE)
+    (2, 10, 24, 64, 3), (1, 6, 40, 16, 1), (1, 8, 300, 32, 3), (60, 10, 24, 64, 3),
+    (40, 58, 40, 16, 3), (2, 6, 40, 48, 3), (2, 1, 256, 64, 3), (2, 2, 128, 64, 8),
+    (24, 16, 40, 32, 8), (1, 16, 256, 128, 3), (30, 20, 40, 128, 8),
+    # no 16-byte copies (f32 CI 6, bf16 CI 12 and 6), CO 5 and 7 on the
+    # CO-8 kernel, CO 2 on the CO-3 one, a 200-channel bf16 input past the
+    # tensor cores' 128, a CI of 20 (a half chunk)
+    (2, 7, 9, 6, 3), (2, 7, 9, 12, 3), (2, 9, 70, 6, 7), (1, 5, 33, 12, 5),
+    (1, 5, 33, 200, 3), (3, 9, 5, 20, 2)])
 def test_head_convt(gen, dtype, n, h, w, ci, co):
+    """Each call launches one kernel: head_convt_mma_kernel where head_plan
+    takes the shape (bf16, CI % 16 == 0, CI <= 128), head_fma_kernel with
+    head_fma_plan's plan for every other (every f32 call)."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.head import head_entry_plan, head_plan
+
     x = _rand(gen, dtype, n, h, w, ci)
     wt = _rand(gen, dtype, 4, 4, ci, co, scale=(16 * co) ** -0.5)
-    _close(head_convt(x, wt), head_convt_plain(x, wt), dtype)
+    tc = dtype == torch.bfloat16 and ci % 16 == 0 and ci <= 128
+    assert (head_plan(n, h, w, ci, co, dtype) is not None) == tc
+    assert head_entry_plan(n, h, w, ci, co, dtype)[0] == ("wgmma" if tc else "fma")
+    before = _build.launches["head_convt"]
+    got = head_convt(x, wt)
+    assert _build.launches["head_convt"] == before + 1
+    _close(got, head_convt_plain(x, wt), dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, head_convt(x, wt))  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("field,value", [("rows", 6), ("cols", 64), ("bands", 33),
+                                         ("strips", 1), ("slots", 4), ("kc", 4), ("vec", 0),
+                                         ("smem", 86_288)])
+def test_head_fma_refuses_a_plan_off_its_arithmetic(gen, field, value):
+    """The C entry checks the CUDA-core plan it is given against its own
+    arithmetic (block rows and columns covering the map once, the ring's
+    stages and chunk, 16-byte copies where CI allows them, the shared
+    memory) and refuses one field off it, launching nothing."""
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.head import HEAD_PATH_CODES, head_entry_plan
+
+    configure(F32)
+    x = _rand(gen, torch.float32, 8, 256, 256, 64)
+    wt = _rand(gen, torch.float32, 4, 4, 64, 3, scale=1 / 16)
+    y = torch.empty(8, 512, 512, 3, device="cuda")
+    path, *plan = head_entry_plan(8, 256, 256, 64, 3, torch.float32)
+    names = ["rows", "cols", "bands", "strips", "slots", "kc", "vec", "smem"]
+    assert (path, dict(zip(names, plan))) == ("fma", {
+        "rows": 8, "cols": 128, "bands": 32, "strips": 2, "slots": 2, "kc": 8, "vec": 1,
+        "smem": 86_272})
+    plan[names.index(field)] = value
+    err = _build.library().discogan_head_convt(
+        x.data_ptr(), wt.data_ptr(), y.data_ptr(), 8, 256, 256, 64, 3,
+        _build.DTYPE_CODES[torch.float32], HEAD_PATH_CODES[path], *plan, 1, x.numel(), 0,
+        _build.stream_of(x))
+    assert err != 0
 
 
 @pytest.mark.parametrize("n,h,w,ci,co", [
@@ -583,7 +638,11 @@ def test_halo_conv_pairs(gen, dt, n, h, w, ci, co, shared):
     (torch.bfloat16, 8, 256, 256, 64, 3),      # the head at 512px, batch 8
     (torch.bfloat16, 8, 256, 256, 64, 3),
     (torch.bfloat16, 2, 37, 150, 128, 8),      # partial bands, two strips
-    (torch.float32, 2, 16, 16, 64, 3)])        # the FMA kernel
+    (torch.float32, 2, 16, 16, 64, 3),         # the FMA kernel
+    (torch.float32, 8, 256, 256, 64, 3),       # the FMA kernel at the 512px head, batch 8
+    (torch.float32, 2, 130, 256, 64, 3),       # a tp-2 spatial band
+    (torch.bfloat16, 1, 40, 24, 8, 3),         # bf16 CI 8 on the FMA kernel
+    (torch.float32, 1, 13, 150, 12, 6)])       # CO 6 on the CO-8 kernel, y pairs off 16 bytes
 def test_head_convt_pairs(gen, dt, n, h, w, ci, co):
     configure(F32 if dt == torch.float32 else BF16)
     x = _rand(gen, dt, 2, n, h, w, ci)
@@ -630,7 +689,8 @@ def test_pair_stride_off_16_bytes_raises(gen):
 # One 512px batch-8 training shape a kernel (bf16; a name ending " f32":
 # that kernel in f32): (fn, operand shapes, the operands' scales, keyword
 # arguments). K1 at dec6 takes several splits, so its tile counters take
-# part; K4 in f32 at enc2 splits M, so its reduce pass takes part.
+# part; K4 in f32 at enc2 splits M, so its reduce pass takes part; K6 in f32
+# runs head_fma_kernel.
 CAPTURE_CASES = {
     "batch_stats": (batch_stats, [(8, 256, 256, 64)], [1.0], {}),
     "bn_act": (lambda x, s, o: bn_act(x, s, o, "leaky"),
@@ -646,6 +706,7 @@ CAPTURE_CASES = {
     "halo_conv_k4s2p1_dw": (halo_conv2d_k4s2p1_dw, [(8, 256, 256, 64), (8, 128, 128, 128)],
                             [1.0, 0.1], {}),
     "head_convt": (head_convt, [(8, 256, 256, 64), (4, 4, 64, 3)], [1.0, 1 / 16], {}),
+    "head_convt f32": (head_convt, [(8, 256, 256, 64), (4, 4, 64, 3)], [1.0, 1 / 16], {}),
 }
 
 

@@ -363,14 +363,14 @@ def _ab_patches(tool: str) -> list:
     if tool == "conv_ab":
         return [("conv_k4s2p1.cu", old) for table in (conv_ab.VARIANTS, conv_ab.F32_VARIANTS)
                 for patches, _ in table.values() for old, _ in patches]
-    return [("head_convt.cu", old) for patches in head_ab.VARIANTS.values()
+    return [("head_convt.cu", old) for patches in (*head_ab.VARIANTS.values(),
+                                                   *(p for p, _ in head_ab.F32_VARIANTS.values()))
             for old, _ in patches]
 
 
 def _ab_calls(tool: str) -> list:
     """Each C entry an A/B tool calls, as an ``_Entry``, after one call
     through the tool's own call function on small CPU tensors."""
-    from discogan_modernized_torch.ops.head import head_plan
     from discogan_modernized_torch.tools import conv_ab, dw_ab, fused_ab, halo_ab, head_ab
 
     x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
@@ -405,8 +405,12 @@ def _ab_calls(tool: str) -> list:
         return [k3]
     k6 = _Entry("discogan_head_convt")
     wt = torch.zeros(4, 4, 64, 3, dtype=torch.bfloat16)
-    head_ab._k6_call(k6, x, wt, torch.empty(2, 8, 8, 3, dtype=torch.bfloat16),
-                     head_plan(2, 4, 4, 64, 3, torch.bfloat16, 132))
+    y = torch.empty(2, 8, 8, 3, dtype=torch.bfloat16)
+    for name in head_ab.VARIANTS:  # the tensor-core kernel's
+        head_ab._k6_call(k6, x, wt, y, head_ab.entry_plan(name, 2, 4, 4, 64, 3, x.dtype))
+    for name in head_ab.F32_VARIANTS:  # head_fma_kernel's, in f32
+        head_ab._k6_call(k6, x.float(), wt.float(), y.float(),
+                         head_ab.entry_plan(name, 2, 4, 4, 64, 3, torch.float32))
     return [k6]
 
 
