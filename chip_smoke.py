@@ -46,7 +46,9 @@ card machine ends a call after 45 GiB of writes):
               gradient) at enc1 at batch 1 and at its edge shapes (CI
               16/32/48 under one channel block, CO 24/72/136 off the 128
               tile, W/2 off a multiple of 8, a ragged M, two images), each
-              K5b call launched twice for the same bits; K6 (the head and
+              K5b call launched twice for the same bits, and in f32 (its
+              CUDA-core kernel, halo_dw_fma_kernel) also on the mesh's
+              bands (mesh_cases' "enc1 dw band" cases); K6 (the head and
               the stems' input gradient) at dec7 at batch 1, 4 and 8 and
               the stem dx at batch 8 on its tensor-core path, and at its
               edge shapes (K6_EDGE: W off a multiple of 16, three strips,
@@ -78,7 +80,8 @@ card machine ends a call after 45 GiB of writes):
               and K5f also with one weight both pairs share (stride 0): each
               pair launch counted once, each pair's outputs bit for bit a
               single launch's, within the tolerances above of the plain pair
-              version, and timed beside the two single launches.
+              version, and timed beside the two single launches; K5b's
+              F32_PAIR_CASES the same in f32.
   3b. tools   the port's tools (M11), each through its main() with its
               launches counted and its kernels phase 3's: the read probe P
               (tools/pipe_probe.py, csrc/pipe_probe.cu) at its six block
@@ -95,8 +98,8 @@ card machine ends a call after 45 GiB of writes):
               most SHARE_LIMIT); the A/B tools conv_ab (K3's AB_VARIANTS at
               AB_CONV_SHAPE), head_ab (K6's at batch 1, the tensor-core
               kernel's AB_VARIANTS and head_fma_kernel's F32_AB_VARIANTS in
-              f32) and dw_ab (K4's f32
-              DW_AB_VARIANTS at DW_AB_LAYER batch 1), one round each, each
+              f32) and dw_ab (K4's f32 DW_AB_VARIANTS at DW_AB_LAYER
+              batch 1, and K5b's at enc1 batch 1), one round each, each
               kernel held against its plain version; memory_report at
               TOOL_SIZE batch 8, its model beside the measured peak;
               batch_size_optimization --image_size 512 --train_step in its
@@ -159,13 +162,15 @@ card machine ends a call after 45 GiB of writes):
               or EQUIV_FLOOR_FACTOR times the plain path's own change when
               its images move by one ulp; the readings are printed, with
               the plain path run twice, which must agree bit for bit. Then
-              one f32 G step through the kernels under torch.profiler: K4's
-              time under its CUDA-core kernel (conv_dw_fma_kernel) and its
-              split sums (conv_dw_reduce_kernel), none under its wgmma
-              kernels or the kernel conv_dw_fma_kernel replaced
-              (conv_dw_kernel); K6's (the stems' input gradient) under
-              head_fma_kernel, none under head_convt_mma_kernel or
-              head_convt_kernel.
+              one f32 G step through the kernels under torch.profiler,
+              held to F32_ROUTES (check_f32_route): K4's time under its
+              CUDA-core kernel (conv_dw_fma_kernel) and its split sums
+              (conv_dw_reduce_kernel), K5b's under halo_dw_fma_kernel and
+              its split sums (halo_dw_reduce_kernel), K6's (the heads and
+              the stems' input gradient) under head_fma_kernel, K3's under
+              conv_fma_kernel and K5f's under halo_fma_kernel; none under
+              a tensor-core kernel or a kernel a CUDA-core one replaced
+              (conv_dw_kernel, halo_dw_kernel, head_convt_kernel, ...).
   7. train    the trainer CLI at 512px, batch 8, bf16, slim_state=mv, one
               epoch of the synthetic task cut to its first 128 image pairs
               (SYNTHETIC_IMAGES: 16 iterations, 6 D, 10 G; a line every 8;
@@ -183,7 +188,9 @@ card machine ends a call after 45 GiB of writes):
               conv_dw_stem_kernel), K5b's under halo_dw_wgmma_kernel and
               K6's under head_convt_mma_kernel, and none under their FMA
               kernels (K4's conv_dw_fma_kernel and conv_dw_kernel before
-              it, K6's head_fma_kernel and head_convt_kernel before it); K2's as in phase 4 and K1's under its one-launch
+              it, K5b's halo_dw_fma_kernel and halo_dw_kernel before it,
+              K6's head_fma_kernel and head_convt_kernel before it); K2's
+              as in phase 4 and K1's under its one-launch
               batch_stats_kernel, none under the two kernels it replaced.
               Then the step's graph variants (VARIANTS: remat under the
               "full", "latent" and "conv" policies, the lean D step,
@@ -939,7 +946,9 @@ def check_kernels(timer):
         configure(policy)
         dtype = policy.compute_dtype
         for kernel, label, args, path, calls in kernel_cases():
-            if path in MESH_PATHS and dtype != torch.bfloat16:
+            # the mesh's shapes in bf16, and K5b's bands in f32 too
+            if (path in MESH_PATHS and dtype != torch.bfloat16
+                    and (kernel, path) != ("halo_conv_k4s2p1_dw", "mesh_band")):
                 continue
             r = run_case(kernel, args, dtype, timer, g, case_band(label))
             results[(KIND_KERNEL.get(kernel, kernel), label, dtype)] = dict(
@@ -988,11 +997,11 @@ def _flat(out) -> list:
     return [out]
 
 
-def run_pair_case(kernel, args, shared, timer, g):
-    """One bf16 pair launch: counted once; each pair's outputs equal, bit
-    for bit, a single launch's on that pair's operands; within TOL (the
-    statistics 1e-4) of the plain pair version; timed beside the two single
-    launches it replaces."""
+def run_pair_case(kernel, args, shared, timer, g, dtype=torch.bfloat16):
+    """One pair launch in ``dtype``: counted once; each pair's outputs
+    equal, bit for bit, a single launch's on that pair's operands; within
+    TOL (the statistics 1e-4) of the plain pair version; timed beside the
+    two single launches it replaces."""
     from discogan_modernized_torch.ops import _build
     from discogan_modernized_torch.ops.conv_k4s2p1 import (
         conv2d_k4s2p1, conv2d_k4s2p1_dw, conv2d_k4s2p1_dw_plain, conv2d_k4s2p1_plain)
@@ -1002,8 +1011,6 @@ def run_pair_case(kernel, args, shared, timer, g):
         halo_conv2d_k4s2p1, halo_conv2d_k4s2p1_dw, halo_conv2d_k4s2p1_dw_plain,
         halo_conv2d_k4s2p1_plain)
     from discogan_modernized_torch.ops.head import head_convt, head_convt_plain
-
-    dtype = torch.bfloat16
 
     def rand(*shape, scale=1.0):
         return (torch.randn(*shape, device="cuda", generator=g) * scale).to(dtype)
@@ -1075,10 +1082,17 @@ def run_pair_case(kernel, args, shared, timer, g):
             "singles_ms": timer.ms(lambda: (single(0), single(1)))}
 
 
+# K5b's f32 pair launches (its CUDA-core kernel): the training step's shape
+# and its PAIR_EDGE shape
+F32_PAIR_CASES = [("halo_conv_k4s2p1_dw", "enc1 dw", (TRAIN_BATCH, 256, 256, 64, 128)),
+                  ("halo_conv_k4s2p1_dw", "w/2 20", (3, 30, 40, 16, 72))]
+
+
 def check_pair_launches(timer) -> dict:
-    """Every case of ``pair_cases``; returns kernel -> (pair ms, two singles'
-    ms) summed over its batch-8 training shapes, each counted once."""
-    from discogan_modernized_torch.core.precision import BF16, configure
+    """Every case of ``pair_cases`` in bf16, and F32_PAIR_CASES in f32;
+    returns kernel -> (pair ms, two singles' ms) summed over its batch-8
+    training shapes in bf16, each counted once."""
+    from discogan_modernized_torch.core.precision import BF16, F32, configure
 
     configure(BF16)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -1098,6 +1112,12 @@ def check_pair_launches(timer) -> dict:
     for name, (ms, singles) in sums.items():
         print(f"{name}: pair launches {ms:.4f} ms against two single launches "
               f"{singles:.4f} ms, summed over its batch-8 training shapes (bf16)")
+    configure(F32)
+    for kind, label, args in F32_PAIR_CASES:
+        r = run_pair_case(kind, args, False, timer, g, torch.float32)
+        print(f"{kind:18} {label:12} {'f32':6} {r['err']:10.3e} {r['ms']:9.4f} "
+              f"{r['singles_ms']:9.4f}  {r['ms'] / r['singles_ms']:.3f}", flush=True)
+    configure(BF16)
     return sums
 
 
@@ -1640,7 +1660,7 @@ KERNEL_SYMBOLS = {  # device function name -> the kernel it belongs to
     "conv_dw_fma_kernel": "K4 conv_k4s2p1_dw", "conv_dw_wgmma_kernel": "K4 conv_k4s2p1_dw",
     "conv_dw_stem_kernel": "K4 conv_k4s2p1_dw", "conv_dw_reduce_kernel": "K4 conv_k4s2p1_dw",
     "halo_fma_kernel": "K5f halo_conv_k4s2p1", "halo_wgmma_kernel": "K5f halo_conv_k4s2p1",
-    "halo_dw_kernel": "K5b halo_conv_k4s2p1_dw",
+    "halo_dw_fma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_wgmma_kernel": "K5b halo_conv_k4s2p1_dw",
     "halo_dw_reduce_kernel": "K5b halo_conv_k4s2p1_dw",
     "bn_act_vec_kernel": "K2 bn_act", "bn_act_any_kernel": "K2 bn_act",
@@ -1686,20 +1706,6 @@ def check_k5f_route(by_kernel: dict, what: str) -> None:
           f"{K5F_F32_KERNEL} or {K5F_OFF_ROUTE}")
 
 
-def check_k5f_f32_route(by_kernel: dict, what: str) -> None:
-    """The profile of an f32 path shows K5f's time under its CUDA-core
-    kernel and none under the tensor cores' kernel or the FMA kernel it
-    replaced."""
-    fma = sum(us for name, us in by_kernel.items() if K5F_F32_KERNEL in name)
-    off = {k: sum(us for name, us in by_kernel.items() if k in name)
-           for k in (K5F_TC_KERNEL, K5F_OFF_ROUTE)}
-    if not fma > 0 or any(us > 0 for us in off.values()):
-        raise AssertionError(f"{what}: K5f {fma:.1f} us under {K5F_F32_KERNEL}, {off} us off "
-                             "its route")
-    print(f"{what}: K5f {fma / 1e3:.4f} ms under {K5F_F32_KERNEL}, none under "
-          + " or ".join(off))
-
-
 K3_TC_KERNELS = ("conv_wgmma_kernel", "conv_stem_wgmma_kernel")
 K3_SPLIT_KERNELS = ("splitk_epilogue_kernel", "splitk_stats_epilogue_kernel",
                     "conv_stats_finalize_kernel")
@@ -1728,22 +1734,6 @@ def check_k3_route(by_kernel: dict, what: str) -> None:
 # second pass; the statistics' last pass runs on every call that takes them)
 K3_F32_KERNEL = "conv_fma_kernel"
 K3_F32_SPLIT_SUMS = ("splitk_epilogue_kernel", "splitk_stats_epilogue_kernel")
-
-
-def check_k3_f32_route(by_kernel: dict, what: str, splits: bool) -> None:
-    """The profile of an f32 path shows K3's time under its CUDA-core kernel
-    and, where a call's plan splits K (``splits``), under the split sums;
-    none under the tensor cores' kernels or the FMA kernel it replaced."""
-    fma = sum(us for name, us in by_kernel.items() if K3_F32_KERNEL in name)
-    sums = sum(us for name, us in by_kernel.items()
-               if any(k in name for k in K3_F32_SPLIT_SUMS))
-    off = {k: sum(us for name, us in by_kernel.items() if k in name)
-           for k in (*K3_TC_KERNELS, "conv_k4s2p1_kernel")}
-    if not fma > 0 or (splits and not sums > 0) or any(us > 0 for us in off.values()):
-        raise AssertionError(f"{what}: K3 {fma:.1f} us under {K3_F32_KERNEL}, {sums:.1f} us "
-                             f"under its split sums, {off} us off its route")
-    print(f"{what}: K3 {fma / 1e3:.4f} ms under {K3_F32_KERNEL} and {sums / 1e3:.4f} ms under "
-          "its split sums, none under " + " or ".join(off))
 
 
 def _library_conv(x, w, *, scale=None, offset=None, act=None):
@@ -1818,9 +1808,9 @@ def time_forward_f32(model_dir: Path, images: np.ndarray, timer, batch: int) -> 
         if all(any(k in name for name in by_kernel) for k in wanted):
             break
         print(f"the profile holds no {' or no '.join(wanted)}; profiling again")
-    check_k3_f32_route(by_kernel, f"f32 forward batch {batch}", splits)
-    check_k5f_f32_route(by_kernel, f"f32 forward batch {batch}")
-    check_k6_f32_route(by_kernel, f"f32 forward batch {batch}")
+    check_f32_route(by_kernel, f"f32 forward batch {batch}", "K3", splits)
+    check_f32_route(by_kernel, f"f32 forward batch {batch}", "K5f")
+    check_f32_route(by_kernel, f"f32 forward batch {batch}", "K6")
 
 
 K4_TC_KERNELS = ("conv_dw_wgmma_kernel", "conv_dw_stem_kernel")
@@ -1874,19 +1864,6 @@ def check_k6_route(by_kernel: dict, what: str) -> None:
           f"{K6_F32_KERNEL} or {K6_OFF_ROUTE}")
 
 
-def check_k6_f32_route(by_kernel: dict, what: str) -> None:
-    """The profile of an f32 path shows K6's time under its CUDA-core kernel
-    and none under the tensor cores' kernel or the FMA kernel it replaced."""
-    fma = sum(us for name, us in by_kernel.items() if K6_F32_KERNEL in name)
-    off = {k: sum(us for name, us in by_kernel.items() if k in name)
-           for k in (K6_TC_KERNEL, K6_OFF_ROUTE)}
-    if not fma > 0 or any(us > 0 for us in off.values()):
-        raise AssertionError(f"{what}: K6 {fma:.1f} us under {K6_F32_KERNEL}, {off} us off "
-                             "its route")
-    print(f"{what}: K6 {fma / 1e3:.4f} ms under {K6_F32_KERNEL}, none under "
-          + " or ".join(off))
-
-
 def check_k4_route(by_kernel: dict, what: str) -> None:
     """The profile shows K4's time under its wgmma kernels (and its split
     sums) and none under the CUDA-core ones (the f32 kernel and the one it
@@ -1902,37 +1879,60 @@ def check_k4_route(by_kernel: dict, what: str) -> None:
           + f", none under {K4_F32_KERNEL} or {K4_OFF_ROUTE}")
 
 
-def check_k4_f32_route(by_kernel: dict, what: str, splits: bool) -> None:
-    """The profile of an f32 step shows K4's time under its CUDA-core
-    kernel and, where a call's plan splits M (``splits``), under its split
-    sums; none under the tensor cores' kernels or the FMA kernel it
-    replaced."""
-    fma = sum(us for name, us in by_kernel.items() if K4_F32_KERNEL in name)
-    sums = sum(us for name, us in by_kernel.items() if K4_SPLIT_SUMS in name)
-    off = {k: sum(us for name, us in by_kernel.items() if k in name)
-           for k in (*K4_TC_KERNELS, K4_OFF_ROUTE)}
-    if not fma > 0 or (splits and not sums > 0) or any(us > 0 for us in off.values()):
-        raise AssertionError(f"{what}: K4 {fma:.1f} us under {K4_F32_KERNEL}, {sums:.1f} us "
-                             f"under {K4_SPLIT_SUMS}, {off} us off its route")
-    print(f"{what}: K4 {fma / 1e3:.4f} ms under {K4_F32_KERNEL} and {sums / 1e3:.4f} ms under "
-          f"{K4_SPLIT_SUMS}, none under " + " or ".join(off))
-
-
 K5B_TC_KERNEL = "halo_dw_wgmma_kernel"
+# K5b's f32 kernel on the CUDA cores, the one it replaced, and the split sums
+# of a call whose plan splits (both dtypes)
+K5B_F32_KERNEL = "halo_dw_fma_kernel"
+K5B_OFF_ROUTE = "halo_dw_kernel"
+K5B_SPLIT_SUMS = "halo_dw_reduce_kernel"
 
 
 def check_k5b_route(by_kernel: dict, what: str) -> None:
     """The profile shows K5b's time under its wgmma kernel (and its split
-    sums) and none under the FMA one: every bf16 K5b call of the training
-    step takes the tensor cores."""
+    sums) and none under the CUDA-core ones (the f32 kernel and the one it
+    replaced): every bf16 K5b call of the training step takes the tensor
+    cores."""
     tc = sum(us for name, us in by_kernel.items() if K5B_TC_KERNEL in name)
-    sums = sum(us for name, us in by_kernel.items() if "halo_dw_reduce_kernel" in name)
-    fma = sum(us for name, us in by_kernel.items() if "halo_dw_kernel" in name)
+    sums = sum(us for name, us in by_kernel.items() if K5B_SPLIT_SUMS in name)
+    fma = sum(us for name, us in by_kernel.items()
+              if K5B_F32_KERNEL in name or K5B_OFF_ROUTE in name)
     if not tc > 0 or fma > 0:
         raise AssertionError(f"{what}: K5b {tc:.1f} us under {K5B_TC_KERNEL}, "
-                             f"{fma:.1f} us under halo_dw_kernel")
+                             f"{fma:.1f} us under {K5B_F32_KERNEL} or {K5B_OFF_ROUTE}")
     print(f"{what}: K5b {tc / 1e3:.4f} ms under {K5B_TC_KERNEL} and {sums / 1e3:.4f} ms "
-          "under its split sums, none under halo_dw_kernel")
+          f"under its split sums, none under {K5B_F32_KERNEL} or {K5B_OFF_ROUTE}")
+
+
+# Each kernel's f32 route: its CUDA-core kernel, the split sums that a call
+# whose plan splits runs, and the kernels off the route (the tensor cores'
+# and the FMA kernel the CUDA-core one replaced).
+F32_ROUTES = {
+    "K3": (K3_F32_KERNEL, K3_F32_SPLIT_SUMS, (*K3_TC_KERNELS, "conv_k4s2p1_kernel")),
+    "K5f": (K5F_F32_KERNEL, (), (K5F_TC_KERNEL, K5F_OFF_ROUTE)),
+    "K4": (K4_F32_KERNEL, (K4_SPLIT_SUMS,), (*K4_TC_KERNELS, K4_OFF_ROUTE)),
+    "K6": (K6_F32_KERNEL, (), (K6_TC_KERNEL, K6_OFF_ROUTE)),
+    "K5b": (K5B_F32_KERNEL, (K5B_SPLIT_SUMS,), (K5B_TC_KERNEL, K5B_OFF_ROUTE)),
+}
+
+
+def check_f32_route(by_kernel: dict, what: str, kernel: str, splits: bool = False) -> None:
+    """The profile of an f32 path shows ``kernel``'s time (an F32_ROUTES
+    key) under its CUDA-core kernel and, where a call's plan splits
+    (``splits``), under its split sums; none under the kernels off its
+    route."""
+    main, split_sums, off_route = F32_ROUTES[kernel]
+
+    def us(symbol):
+        return sum(v for name, v in by_kernel.items() if symbol in name)
+
+    fma, sums = us(main), sum(us(k) for k in split_sums)
+    off = {k: us(k) for k in off_route}
+    if not fma > 0 or (splits and not sums > 0) or any(v > 0 for v in off.values()):
+        raise AssertionError(f"{what}: {kernel} {fma:.1f} us under {main}, {sums:.1f} us "
+                             f"under its split sums, {off} us off its route")
+    print(f"{what}: {kernel} {fma / 1e3:.4f} ms under {main}"
+          + (f" and {sums / 1e3:.4f} ms under its split sums" if split_sums else "")
+          + ", none under " + " or ".join(off))
 
 
 def profile_call(fn, what: str, top: int = 12, ops: int = 0, out: dict | None = None) -> dict:
@@ -2185,30 +2185,33 @@ def check_equivalence() -> None:
 
 def profile_f32_g_step(ts, A, B, cfg) -> None:
     """torch.profiler over one of phase 6's f32 G steps through the kernels
-    (512px, batch EQUIV_BATCH): K4's time under its CUDA-core kernel and,
-    where a layer's plan splits M, its split sums; K6's (the heads and the
-    stems' input gradients) under its CUDA-core kernel."""
+    (512px, batch EQUIV_BATCH): K4's and K5b's time under their CUDA-core
+    kernels and, where a layer's plan splits, their split sums; K6's (the
+    heads and the stems' input gradients), K3's and K5f's under their
+    CUDA-core kernels; none under a tensor-core kernel or a replaced one."""
     from discogan_modernized_torch.core.precision import F32
     from discogan_modernized_torch.models.geometry import encoder_channels
     from discogan_modernized_torch.ops.conv_k4s2p1 import dw_plan
-    from discogan_modernized_torch.ops.halo_conv import takes_halo
+    from discogan_modernized_torch.ops.halo_conv import halo_dw_plan, takes_halo
     from discogan_modernized_torch.train.step import loss_and_grads
 
-    splits, h, ci = False, SIZE, 3
+    splits = {"K4": False, "K5b": False}
+    h, ci = SIZE, 3
     for co in encoder_channels(SIZE):
         xs, ws = torch.empty(EQUIV_BATCH, h, h, ci, device="meta"), torch.empty(
             4, 4, ci, co, device="meta")
-        if not takes_halo(xs, ws):
-            splits |= dw_plan(EQUIV_BATCH, h, h, ci, co, torch.float32).splits > 1
+        kernel, plan = (("K5b", halo_dw_plan) if takes_halo(xs, ws) else ("K4", dw_plan))
+        splits[kernel] |= plan(EQUIV_BATCH, h, h, ci, co, torch.float32).splits > 1
         h, ci = h // 2, co
     what = f"one f32 G step (512px, batch {EQUIV_BATCH}, through the kernels)"
+    wanted = [F32_ROUTES[k][0] for k in ("K4", "K5b", "K6", "K3", "K5f")]
     for _ in range(3):  # the profiler now and then keeps only a window's tail
         by_kernel = profile_call(lambda: loss_and_grads(ts, A, B, 0.01, cfg, F32, "gen"), what)
-        if all(any(k in name for name in by_kernel) for k in (K4_F32_KERNEL, K6_F32_KERNEL)):
+        if all(any(k in name for name in by_kernel) for k in wanted):
             break
-        print(f"the profile holds no {K4_F32_KERNEL} or no {K6_F32_KERNEL}; profiling again")
-    check_k4_f32_route(by_kernel, what, splits)
-    check_k6_f32_route(by_kernel, what)
+        print(f"the profile holds no {' or no '.join(wanted)}; profiling again")
+    for kernel in ("K4", "K5b", "K6", "K3", "K5f"):
+        check_f32_route(by_kernel, what, kernel, splits.get(kernel, False))
 
 
 # -- phase 7: the trainer ----------------------------------------------------
@@ -4321,7 +4324,8 @@ AB_VARIANTS = ("kernel", "copies only", "no copies")
 # head_ab's f32 variants built here (head_fma_kernel at batch 1; the
 # kernel's own library and one build)
 F32_AB_VARIANTS = ("kernel", "no copies")
-# dw_ab's variants built here and its layer (K4's f32 kernel at batch 1)
+# dw_ab's variants built here and its layer (K4's f32 kernel at batch 1; K5b's
+# at enc1, batch 1)
 DW_AB_VARIANTS, DW_AB_LAYER = ("kernel", "no copies"), "enc5"
 TRAIN_ITER = re.compile(r"Iter \[(\d+)/\d+\]")
 
@@ -4612,7 +4616,8 @@ def start_ab_builds() -> dict:
     started = {"conv_ab": conv_ab.start_variants(AB_VARIANTS),
                "head_ab": head_ab.start_variants(AB_VARIANTS),
                "head_ab f32": head_ab.start_variants(F32_AB_VARIANTS, "f32"),
-               "dw_ab": dw_ab.start_variants(DW_AB_VARIANTS)}
+               "dw_ab": dw_ab.start_variants(DW_AB_VARIANTS),
+               "dw_ab k5b": dw_ab.start_variants(DW_AB_VARIANTS, "k5b")}
     _started_builds.extend(b for builds in started.values() for b in builds.values())
     return started
 
@@ -4631,8 +4636,10 @@ def drive_ab_tools(started: dict) -> None:
                        ("head_ab", lambda: head_ab.run([1], 1, started["head_ab"])),
                        ("head_ab f32", lambda: head_ab.run([1], 1, started["head_ab f32"], "f32",
                                                            F32_AB_VARIANTS)),
-                       ("dw_ab", lambda: dw_ab.run([DW_AB_LAYER], 1, 1, started["dw_ab"],
-                                                   DW_AB_VARIANTS))):
+                       ("dw_ab", lambda: dw_ab.run([DW_AB_LAYER], [1], 1, started["dw_ab"],
+                                                   DW_AB_VARIANTS)),
+                       ("dw_ab k5b", lambda: dw_ab.run(["enc1"], [1], 1, started["dw_ab k5b"],
+                                                       DW_AB_VARIANTS, "k5b"))):
         t0 = time.perf_counter()
         if call():
             raise AssertionError(f"{name} exited non-zero")
@@ -4689,6 +4696,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(argv: list) -> int:
+    started = time.perf_counter()
     phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4805,6 +4813,7 @@ def run_phases(argv: list) -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     phase("report")
+    print(f"phases: {time.perf_counter() - started:.1f} s", flush=True)
     launches = {k: {"cli": counts.get(k, 0), "serve": serve_counts.get(k, 0),
                     "export": export_counts.get(k, 0), "train": train_counts[k],
                     "distributed": dist_counts.get(k, 0), "mesh": mesh_counts.get(k, 0),

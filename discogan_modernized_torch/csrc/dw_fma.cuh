@@ -2,11 +2,14 @@
 // over a contraction along pixels, in exact f32 FMA (no tensor cores, no
 // TF32). K4's conv_dw_fma_kernel (conv_k4s2p1_dw.cu) is built on it; the
 // copies that stage a step are the caller's, so another weight gradient
-// (K5b's, over row bands) can stage its own pixels and reuse the rest.
+// (K5b's, over row bands: halo_conv_k4s2p1_dw.cu) stages its own pixels and
+// reuses the rest.
 //
 // A step of BK pixels sits in shared memory as f32 pixel rows: A [pixel][BM
 // dw rows] and B [pixel][BN o columns], both contiguous along dw's own
-// dimensions (x's channels of a tap, dy's channels), so no transpose. A
+// dimensions (x's channels of a tap, dy's channels), so no transpose. A's
+// pixel rows lie BM floats apart (K4), or at another stride (K5b: 2*CI
+// floats into one contiguous input segment, where they may overlap). A
 // block of 256 threads holds a BM x BN tile of dw: 8 warps of (BM/4) x
 // (BN/2), each lane a TM x TN register micro-tile (8 x 8 on 128 x 128
 // tiles, 4 x 4 on 64 x 64). Lane 8 ty + tx of warp (wm, wn) holds dw rows
@@ -58,17 +61,19 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
 
 // The products of one staged step: acc += A[p]^T B[p] over its BK pixels.
 // `as`, `bs`: the step's A and B, already offset to this lane's first row
-// and column (as + lane.row, bs + lane.col).
+// and column (as + lane.row, bs + lane.col); `a_stride`: floats from one of
+// A's pixel rows to the next (a multiple of 4).
 template <int BM, int BN, int BK>
 __device__ __forceinline__ void step_products(float (&acc)[lane_rows<BM>()][lane_cols<BN>()],
-                                              const float* as, const float* bs) {
+                                              const float* as, const float* bs,
+                                              int a_stride = BM) {
   constexpr int TM = lane_rows<BM>(), TN = lane_cols<BN>();
 #pragma unroll
   for (int p = 0; p < BK; ++p) {
     float4 a[TM / 4], b[TN / 4];
 #pragma unroll
     for (int i = 0; i < TM / 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(as + p * BM + 16 * i);
+      a[i] = *reinterpret_cast<const float4*>(as + p * a_stride + 16 * i);
 #pragma unroll
     for (int j = 0; j < TN / 4; ++j)
       b[j] = *reinterpret_cast<const float4*>(bs + p * BN + 32 * j);

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "discogan_bn_act": (_I, [_P, _P, _P, _P, _LL] + [_I] * 8 + [_I] + [_LL] * 3 + [_P]),
     "discogan_conv_k4s2p1": (_I, [_P] * 7 + [_I] * 17 + [_I] + [_LL] * 3 + [_P]),
     "discogan_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 14 + [_I, _LL, _LL, _P]),
-    "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 11
+    "discogan_halo_conv_k4s2p1_dw": (_I, [_P, _P, _P, _P] + [_I] * 14
                                      + [_I, _LL, _LL, _P]),
     "discogan_halo_conv_k4s2p1": (_I, [_P] * 5 + [_I] * 14 + [_I] + [_LL] * 3 + [_P]),
     "discogan_head_convt": (_I, [_P, _P, _P] + [_I] * 14 + [_LL] + [_I, _LL, _LL, _P]),

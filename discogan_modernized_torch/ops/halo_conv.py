@@ -18,8 +18,11 @@ CUDA-core kernel, ``halo_fma_kernel`` (exact f32 FMA, 8 x 8 register
 micro-tiles, the band staged once per CI chunk through a cp.async ring),
 with the plan of ``halo_fma_plan``. K5b computes K4's function: in bf16 it
 runs K4's wgmma design under its own kernel name, with the plan of
-``halo_dw_plan`` (K4's ``dw_plan``); in f32 its FMA kernel over runs of
-output rows.
+``halo_dw_plan`` (K4's ``dw_plan``); in f32 its CUDA-core kernel,
+``halo_dw_fma_kernel`` (exact f32 FMA on K4's 8 x 8 register micro-tiles,
+each step's x one contiguous segment of an input row through a cp.async
+ring), with the plan of ``halo_dw_fma_plan``. ``halo_dw_entry_args`` is the
+C entry's argument list, for the wrapper and tools/dw_ab.py alike.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -67,16 +70,25 @@ HALO_FMA_CO_TILE = 128
 HALO_FMA_CK = 4
 HALO_FMA_STAGES = 4
 HALO_PATH_CODES = {"fma": 0, "wgmma": 1}
-# K5b's f32 FMA kernel (csrc/halo_conv_k4s2p1_dw.cu, halo_dw_kernel): a block
-# owns one kernel row, a FMA_TILE tile of CI and of CO and a run of output
-# rows; runs are halved while the blocks fill fewer than two waves and each
-# keeps FMA_MIN_ROWS rows.
-FMA_TILE = 64
-FMA_MIN_ROWS = 4
+# K5b's f32 kernel (csrc/halo_conv_k4s2p1_dw.cu, halo_dw_fma_kernel): a
+# block owns one kernel row, a window of HALO_DW_ROWS of that row's 4 CI dw
+# rows (256: all of enc1's, in two halves of 256 threads), HALO_DW_COLS
+# output channels and a run of output rows, each row in steps of
+# HALO_DW_STEP pixels (HALO_DW_STEP_SHORT where that ring would not fit a
+# block): one contiguous segment of the input row (2 CI (step - 1) +
+# HALO_DW_ROWS floats) and dy's step x HALO_DW_COLS, f32, through a ring of
+# HALO_DW_STAGES stages. HALO_DW_BLOCKS_PER_SM blocks share an SM; the rows
+# are split while the tiles fill less than a wave of them, each part of at
+# least HALO_DW_MIN_ROWS rows. tools/dw_ab.py's K5b variants time the
+# alternatives.
+HALO_DW_ROWS, HALO_DW_COLS, HALO_DW_STAGES = 256, 128, 3
+HALO_DW_STEP, HALO_DW_STEP_SHORT = 64, 32
+HALO_DW_BLOCKS_PER_SM, HALO_DW_MIN_ROWS = 1, 2
 
 __all__ = ["halo_conv2d_k4s2p1", "halo_conv2d_k4s2p1_plain",
            "halo_conv2d_k4s2p1_dw", "halo_conv2d_k4s2p1_dw_plain", "takes_halo",
-           "tc_plan", "TilePlan", "halo_fma_plan", "HaloFmaPlan", "halo_dw_plan"]
+           "tc_plan", "TilePlan", "halo_fma_plan", "HaloFmaPlan", "halo_dw_plan",
+           "halo_dw_fma_plan", "halo_dw_entry_args"]
 
 
 class TilePlan(NamedTuple):
@@ -225,26 +237,56 @@ def halo_conv2d_k4s2p1(x, w, *, scale=None, offset=None, act=None):
     return y
 
 
+def halo_dw_fma_plan(n: int, h: int, w: int, ci: int, co: int,
+                     sms: int = H100_SMS, pairs: int = 1) -> DwPlan:
+    """The f32 kernel's plan for x (n,h,w,ci) and dy with CO channels: tiles
+    of one kernel row x HALO_DW_ROWS of its 4 CI dw rows x HALO_DW_COLS
+    columns (``tile`` = (rows, columns, pixels a step): HALO_DW_STEP pixels,
+    HALO_DW_STEP_SHORT where that ring would not fit a block), its ring, and the
+    N*H/2 output rows split while the tiles fill less than a wave of
+    HALO_DW_BLOCKS_PER_SM blocks an SM of ``sms``, into as many parts as fit
+    in it, each of at least HALO_DW_MIN_ROWS rows (``steps_per_split``
+    counts rows). The shared memory is the ring of segments and dy runs.
+    ``pairs`` sizes the grid and the workspace alone."""
+    rows = n * (h // 2)
+    out_tiles = 4 * -(-4 * ci // HALO_DW_ROWS) * -(-co // HALO_DW_COLS)
+    splits = max(1, min(HALO_DW_BLOCKS_PER_SM * sms // out_tiles, rows // HALO_DW_MIN_ROWS))
+    per = max(1, -(-rows // splits))
+    splits = max(1, -(-rows // per))
+    def ring(step):
+        return HALO_DW_STAGES * (2 * ci * (step - 1) + HALO_DW_ROWS + step * HALO_DW_COLS) * 4
+
+    step = HALO_DW_STEP if ring(HALO_DW_STEP) <= SMEM_PER_BLOCK else HALO_DW_STEP_SHORT
+    return DwPlan("fma", (HALO_DW_ROWS, HALO_DW_COLS, step), 0, splits, per,
+                  out_tiles * splits, out_tiles * splits, ring(step), pairs, HALO_DW_STAGES)
+
+
 def halo_dw_plan(n: int, h: int, w: int, ci: int, co: int, dtype,
                  sms: int = H100_SMS, pairs: int = 1) -> DwPlan:
     """K5b's plan for x (n,h,w,ci) and dy with CO channels (both multiples
     of 8). bf16: K4's ``dw_plan``, whose wgmma path takes every such shape
-    (parity planes where W/2 % 8 == 0, else per-tap windows). f32: the FMA
-    kernel's tiles of one kernel row x FMA_TILE channels of CI and CO, its
-    steps whole output rows (``tile[2]`` = W/2 pixels), split while the
-    blocks fill fewer than two waves of ``sms``. ``pairs`` sizes the grid
-    and the workspace alone."""
+    (parity planes where W/2 % 8 == 0, else per-tap windows). f32:
+    ``halo_dw_fma_plan``. ``pairs`` sizes the grid and the workspace
+    alone."""
     if dtype == torch.bfloat16:
         return dw_plan(n, h, w, ci, co, dtype, sms, pairs)
-    rows = n * (h // 2)
-    out_tiles = 4 * -(-ci // FMA_TILE) * -(-co // FMA_TILE)
-    s = 1
-    while out_tiles * s < 2 * sms and rows // (2 * s) >= FMA_MIN_ROWS:
-        s *= 2
-    rows_per_split = max(1, -(-rows // s))
-    splits = max(1, -(-rows // rows_per_split))
-    return DwPlan("fma", (4 * FMA_TILE, FMA_TILE, w // 2), 4, splits,
-                  rows_per_split, out_tiles * splits, out_tiles * splits, 0, pairs)
+    return halo_dw_fma_plan(n, h, w, ci, co, sms, pairs)
+
+
+def halo_dw_entry_args(x, dy, dw, ws, plan: DwPlan, pairs: int = 0) -> tuple:
+    """Every argument of the C entry ``discogan_halo_conv_k4s2p1_dw``, in
+    order, for x (n,h,w,ci) and dy (with a leading pair axis of ``pairs``
+    where it is not 0) into dw with the f32 workspace ``ws``, under
+    ``plan``: the pointers, the shape, the plan's fields (the FMA kernel's
+    window, step and ring; the split, the blocks and the shared memory),
+    the pair axis and the stream."""
+    x1, dy1 = (x[0], dy[0]) if pairs else (x, dy)
+    n, h, wd, ci = x1.shape
+    return (x.data_ptr(), dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n, h, wd, ci,
+            dy1.shape[3], _build.DTYPE_CODES[x.dtype], DW_PATH_CODES[plan.path],
+            plan.tile[0], plan.tile[2], plan.stages, plan.splits, plan.steps_per_split,
+            plan.blocks, plan.smem_bytes, max(pairs, 1), x1.numel(), dy1.numel(),
+            _build.stream_of(x))
 
 
 def halo_conv2d_k4s2p1_dw(x, dy):
@@ -266,9 +308,5 @@ def halo_conv2d_k4s2p1_dw(x, dy):
     ws = _build.workspace(plan.workspace_floats(ci, co), x)
     lib = _build.library()
     _build.launch("halo_conv_k4s2p1_dw", lib.discogan_halo_conv_k4s2p1_dw,
-                  x.data_ptr(), dy.data_ptr(), dw.data_ptr(), _build.ptr(ws), n,
-                  h, wd, ci, co, _build.DTYPE_CODES[x.dtype],
-                  DW_PATH_CODES[plan.path], plan.splits, plan.steps_per_split,
-                  plan.blocks, plan.smem_bytes, max(pairs, 1), x1.numel(), dy1.numel(),
-                  _build.stream_of(x))
+                  *halo_dw_entry_args(x, dy, dw, ws, plan, pairs))
     return dw

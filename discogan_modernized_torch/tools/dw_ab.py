@@ -1,13 +1,11 @@
-"""Where K4's f32 time goes on the card: interleaved A/B of its CUDA-core
-kernel (``conv_dw_fma_kernel``, csrc/conv_k4s2p1_dw.cu) against variants of
-its own source and plan, beside one PyTorch call for the same function
-(``torch.nn.grad.conv2d_weight``, cuDNN's wgrad, TF32 off), in f32 at
-enc2 and enc5 of the 512px model (x (N,128,128,128), dy (N,64,64,256);
-x (N,16,16,1024), dy (N,8,8,2048)).
+"""Where the f32 weight gradients' time goes on the card: interleaved A/B of
+a CUDA-core kernel against variants of its own source and plan, beside one
+PyTorch call for the same function (``torch.nn.grad.conv2d_weight``,
+cuDNN's wgrad, TF32 off), in f32. Two kernels (``--kernel``):
 
-Variants, each a text patch of the source built alone into its own library
-and called with its own plan (the outputs of those that drop work are
-wrong; only their times count):
+k4: K4's ``conv_dw_fma_kernel`` (csrc/conv_k4s2p1_dw.cu) at enc2 and enc5
+of the 512px model (x (N,128,128,128), dy (N,64,64,256); x
+(N,16,16,1024), dy (N,8,8,2048)). Variants:
   kernel        the kernel as the wrapper launches it (held against the
                 plain version first, 1e-4 of max|ref|)
   no copies     no copies after the ring's first fill: the FMAs, the
@@ -20,11 +18,31 @@ wrong; only their times count):
                 stages and 167 registers a thread (the plan's two blocks an
                 SM, 3 stages and 128 registers, let one block's fill and
                 epilogue run beside the other's FMAs)
-Times are tools/timing.py's (median of 20 runs, L2 evicted, a device sleep
-before each), in turns (a, b, ..., b, a, ...), beside the f32 bound (the
-FMAs at 67 TFLOP/s, or the bytes at 3.35 TB/s).
 
-    python -m discogan_modernized_torch.tools.dw_ab [--layers enc2 enc5] [--batch 8] [--rounds 2]
+k5b: K5b's ``halo_dw_fma_kernel`` (csrc/halo_conv_k4s2p1_dw.cu) at enc1
+(x (N,256,256,64), dy (N,128,128,128)); the kernel's window is a kernel
+row's 256 dw rows in two halves of 256 threads that share each staged
+segment, its steps 64 pixels, its ring 3 stages (198 KB), one block an SM.
+Variants:
+  kernel        as the wrapper launches it (checked as K4's)
+  no copies     as K4's
+  step 32       steps of 32 pixels (33 KB stages, a barrier per 32)
+  step 16       steps of 16 pixels
+  step 32, 4 stages  a ring of 4 stages of 32 pixels
+  half row      windows of 128 dw rows (one dw_fma tile, 256 threads): two
+                blocks stage the same dy run and most of one segment
+  half row, 2/SM  windows of 128, steps of 32, two blocks an SM (128
+                registers a thread): the first design
+
+Each variant is a text patch of the source built alone into its own
+library and called with its own plan (the outputs of those that drop work
+are wrong; only their times count). Times are tools/timing.py's (median of
+20 runs, L2 evicted, a device sleep before each), in turns (a, b, ..., b,
+a, ...), beside the f32 bound (the FMAs at 67 TFLOP/s, or the bytes at
+3.35 TB/s).
+
+    python -m discogan_modernized_torch.tools.dw_ab [--kernel k4] [--layers enc2 enc5] [--batch 8] [--rounds 2]
+    python -m discogan_modernized_torch.tools.dw_ab --kernel k5b --batch 8 1
 
 Needs a CUDA card and nvcc; prints the card's name and power limit.
 """
@@ -42,6 +60,7 @@ OUT = ROOT / "build" / "dw_ab"
 LAYERS = {"enc0": (512, 512, 3, 64), "enc2": (128, 128, 128, 256),
           "enc3": (64, 64, 256, 512), "enc4": (32, 32, 512, 1024),
           "enc5": (16, 16, 1024, 2048), "enc6": (8, 8, 2048, 2048)}
+K5B_LAYERS = {"enc1": (256, 256, 64, 128)}
 
 # name -> (text patches, ops/conv_k4s2p1.py constants of its plan): an empty
 # patch list shares the kernel's library
@@ -55,31 +74,56 @@ VARIANTS = {
                      {"DW_FMA_STAGES": 3, "DW_FMA_STAGES_WIDE": 2}),
     "1 block/SM": ([], {"DW_FMA_WIDE_BLOCKS": 1}),
 }
+# K5b's variants: text patches of csrc/halo_conv_k4s2p1_dw.cu, ops/halo_conv.py
+# constants of their plan
+_STEP_32 = ("constexpr int STEP = 64,", "constexpr int STEP = 32,")
+_HALF_ROW = ("constexpr int WINDOW = 256;", "constexpr int WINDOW = 128;")
+K5B_VARIANTS = {
+    "kernel": ([], {}),
+    "no copies": ([("    stage(q + RING - 1 < nsteps);\n", "    stage(false);\n")], {}),
+    "step 32": ([_STEP_32], {"HALO_DW_STEP": 32}),
+    "step 16": ([("constexpr int STEP = 64,", "constexpr int STEP = 16,")],
+                {"HALO_DW_STEP": 16}),
+    "step 32, 4 stages": ([_STEP_32, ("constexpr int RING = 3;", "constexpr int RING = 4;")],
+                          {"HALO_DW_STEP": 32, "HALO_DW_STAGES": 4}),
+    "half row": ([_HALF_ROW], {"HALO_DW_ROWS": 128}),
+    "half row, 2/SM": ([_HALF_ROW, _STEP_32, ("constexpr int MIN_BLOCKS = 1;",
+                                              "constexpr int MIN_BLOCKS = 2;")],
+                       {"HALO_DW_ROWS": 128, "HALO_DW_STEP": 32, "HALO_DW_BLOCKS_PER_SM": 2}),
+}
+# --kernel -> (its csrc/ source, C entry, variants, layers)
+KERNELS = {"k4": ("conv_k4s2p1_dw.cu", "discogan_conv_k4s2p1_dw", VARIANTS, LAYERS),
+           "k5b": ("halo_conv_k4s2p1_dw.cu", "discogan_halo_conv_k4s2p1_dw", K5B_VARIANTS,
+                   K5B_LAYERS)}
 
 
 @contextlib.contextmanager
 def _plan_constants(**values):
-    """Plan with some of ops/conv_k4s2p1.py's constants replaced."""
+    """Plan with some of ops/conv_k4s2p1.py's (K4's) or ops/halo_conv.py's
+    (K5b's HALO_DW_*) constants replaced."""
     from ..ops import conv_k4s2p1 as k4
+    from ..ops import halo_conv as k5b
 
-    old = {name: getattr(k4, name) for name in values}
+    where = {name: k5b if name.startswith("HALO_DW_") else k4 for name in values}
+    old = {name: getattr(where[name], name) for name in values}
     for name, v in values.items():
-        setattr(k4, name, v)
+        setattr(where[name], name, v)
     try:
         yield
     finally:
         for name, v in old.items():
-            setattr(k4, name, v)
+            setattr(where[name], name, v)
 
 
-def start_variants(names=None) -> dict:
-    """Start the build of each variant with patches (of ``names``, default
-    all: tools/variants.py); ``run`` times them with the others."""
+def start_variants(names=None, kernel: str = "k4") -> dict:
+    """Start the build of each of ``kernel``'s variants with patches (of
+    ``names``, default all: tools/variants.py); ``run`` times them with the
+    others."""
     from . import variants
 
-    return variants.start({name: ("conv_k4s2p1_dw.cu", patches)
-                           for name, (patches, _) in VARIANTS.items()
-                           if patches and (names is None or name in names)}, OUT)
+    source, _, table, _ = KERNELS[kernel]
+    return variants.start({name: (source, patches) for name, (patches, _) in table.items()
+                           if patches and (names is None or name in names)}, OUT / kernel)
 
 
 def _k4_call(fn, name, x, dy, dw, sms: int = 132):
@@ -106,10 +150,41 @@ def _k4_call(fn, name, x, dy, dw, sms: int = 132):
     return plan, call
 
 
-def run(layers, batch: int, rounds: int, started=None, names=None) -> int:
-    """The A/B at each layer; ``started``: ``start_variants()``'s builds
-    (started here where None); ``names``: the variants timed (default
-    all)."""
+def _k5b_call(fn, name, x, dy, dw, sms: int = 132):
+    """(plan, call) of one K5b variant's C entry on (x, dy) into dw with its
+    own plan (``halo_dw_fma_plan``'s under the variant's constants), its
+    arguments from ops/halo_conv.py's ``halo_dw_entry_args``, as the
+    wrapper's."""
+    from ..ops import _build
+    from ..ops.halo_conv import halo_dw_entry_args, halo_dw_fma_plan
+
+    n, h, w, ci = x.shape
+    co = dy.shape[3]
+    with _plan_constants(**K5B_VARIANTS[name][1]):
+        plan = halo_dw_fma_plan(n, h, w, ci, co, sms)
+    ws = _build.workspace(plan.workspace_floats(ci, co), x)
+    args = halo_dw_entry_args(x, dy, dw, ws, plan)
+
+    def call():
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    return plan, call
+
+
+def _plan_text(kernel: str, plan) -> str:
+    if kernel == "k5b":
+        return (f"plan: windows of {plan.tile[0]} dw rows x {plan.tile[1]}, {plan.tile[2]} "
+                f"pixels a step, {plan.stages} stages, {plan.splits} splits of "
+                f"{plan.steps_per_split} rows, {plan.blocks} blocks")
+    return (f"plan {plan.tile[0]} x {plan.tile[1]}, {plan.tile[2]} pixels a step, "
+            f"{plan.stages} stages, {plan.splits} splits, {plan.blocks} blocks")
+
+
+def run(layers, batches, rounds: int, started=None, names=None, kernel: str = "k4") -> int:
+    """The A/B of ``kernel`` ("k4" or "k5b") at each layer and batch; ``started``:
+    ``start_variants()``'s builds (started here where None); ``names``: the
+    variants timed (default all)."""
     import torch
     from torch.nn import grad as nn_grad
 
@@ -120,23 +195,24 @@ def run(layers, batch: int, rounds: int, started=None, names=None) -> int:
     from .timing import Timer, bound_ms, smi_line
 
     configure(F32)  # TF32 off for cuDNN's wgrad and the plain version's products
-    names = [v for v in VARIANTS if names is None or v in names]
+    _, entry, table, shapes = KERNELS[kernel]
+    names = [v for v in table if names is None or v in names]
     print(torch.cuda.get_device_name(0), "|", smi_line(), flush=True)
-    built = variants.load(started or start_variants(names), "discogan_conv_k4s2p1_dw")
-    kernel_fn = _build.library().discogan_conv_k4s2p1_dw
+    built = variants.load(started or start_variants(names, kernel), entry)
+    kernel_fn = getattr(_build.library(), entry)
+    call_of = _k5b_call if kernel == "k5b" else _k4_call
     g = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer()
-    for layer in layers:
-        h, w, ci, co = LAYERS[layer]
-        n = batch
+    for layer, n in ((layer, n) for layer in layers for n in batches):
+        h, w, ci, co = shapes[layer]
         x = torch.randn(n, h, w, ci, device="cuda", generator=g)
         dy = torch.randn(n, h // 2, w // 2, co, device="cuda", generator=g) * 0.1
         dw = torch.empty(4, 4, ci, co, device="cuda")
         calls, plans = {}, {}
         for name in names:
-            plans[name], calls[name] = _k4_call(built.get(name, kernel_fn), name, x, dy, dw,
-                                                torch.cuda.get_device_properties(0)
-                                                .multi_processor_count)
+            plans[name], calls[name] = call_of(built.get(name, kernel_fn), name, x, dy, dw,
+                                               torch.cuda.get_device_properties(0)
+                                               .multi_processor_count)
             if name == "kernel":
                 calls[name]()
                 want = conv2d_k4s2p1_dw_plain(x, dy)
@@ -155,11 +231,9 @@ def run(layers, batch: int, rounds: int, started=None, names=None) -> int:
         m = n * (h // 2) * (w // 2)
         bound, by = bound_ms(2 * m * 16 * ci * co, (x.numel() + dy.numel() + dw.numel()) * 4,
                              torch.float32)
-        kp = plans["kernel"]
-        print(f"{layer} b{n} f32 (plan {kp.tile[0]} x {kp.tile[1]}, {kp.tile[2]} pixels a step, "
-              f"{kp.stages} stages, {kp.splits} splits, {kp.blocks} blocks; the kernel's max "
-              f"error {err:.3e}; bound {bound:.4f} ms by {by}), ms per call in {rounds} rounds:",
-              flush=True)
+        print(f"{kernel} {layer} b{n} f32 ({_plan_text(kernel, plans['kernel'])}; the kernel's "
+              f"max error {err:.3e}; bound {bound:.4f} ms by {by}), ms per call in {rounds} "
+              "rounds:", flush=True)
         for name, ts in times.items():
             print(f"  {name:12} " + " ".join(f"{t:.4f}" for t in ts)
                   + f"  ({bound / min(ts):.3f} of the bound)", flush=True)
@@ -168,16 +242,22 @@ def run(layers, batch: int, rounds: int, started=None, names=None) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", nargs="+", default=["enc2", "enc5"], choices=list(LAYERS))
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--kernel", choices=list(KERNELS), default="k4")
+    ap.add_argument("--layers", nargs="+", choices=[*LAYERS, *K5B_LAYERS],
+                    help="default: enc2 enc5 (k4), enc1 (k5b)")
+    ap.add_argument("--batch", type=int, nargs="+", default=[8])
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
+    shapes = KERNELS[args.kernel][3]
+    layers = args.layers or (["enc1"] if args.kernel == "k5b" else ["enc2", "enc5"])
+    if any(layer not in shapes for layer in layers):
+        ap.error(f"--kernel {args.kernel} takes --layers from {list(shapes)}")
     import torch
 
     if not torch.cuda.is_available():
         print("dw_ab: CUDA is not available", file=sys.stderr)
         return 2
-    return run(args.layers, args.batch, args.rounds)
+    return run(layers, args.batch, args.rounds, kernel=args.kernel)
 
 
 if __name__ == "__main__":

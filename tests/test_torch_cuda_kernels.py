@@ -462,14 +462,21 @@ def test_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
     (2, 16, 16, 8, 16), (3, 14, 22, 8, 24), (1, 64, 40, 16, 8),
     (2, 256, 256, 64, 128), (8, 256, 256, 64, 128), (1, 256, 256, 64, 128),
     (2, 64, 64, 16, 128), (1, 48, 256, 32, 72), (2, 40, 128, 48, 136),
-    (2, 128, 128, 64, 24), (3, 30, 40, 16, 72), (1, 10, 208, 64, 128)])
+    (2, 128, 128, 64, 24), (3, 30, 40, 16, 72), (1, 10, 208, 64, 128),
+    (8, 132, 256, 64, 128)])
 def test_halo_conv_k4s2p1_dw(gen, dtype, n, h, w, ci, co):
     """In bf16 the wgmma kernel (halo_dw_wgmma_kernel) at enc1 at batch 1,
     2 and 8 (split over M), with parity planes and per-tap windows (W/2 of
     11, 20), at CI 8/16/32/48 under one channel block, CO off the 128 tile
-    (8, 16, 24, 72, 136) and a ragged M; in f32 the FMA kernel. One launch
-    each."""
+    (8, 16, 24, 72, 136) and a ragged M; in f32 the CUDA-core kernel
+    (halo_dw_fma_kernel: its segments, ragged steps at W/2 11 and 20, its
+    windows past 4 CI, its split over the output rows); both also on the
+    mesh's band of 132 rows at batch 8. One launch each."""
     from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.halo_conv import halo_dw_plan
+
+    if dtype == torch.float32:
+        assert halo_dw_plan(n, h, w, ci, co, dtype).path == "fma"
 
     x = _rand(gen, dtype, n, h, w, ci)
     dy = _rand(gen, dtype, n, h // 2, w // 2, co, scale=0.1)

@@ -500,22 +500,31 @@ def test_fma_reads_are_free_of_bank_conflicts(tile):
 def test_kernel_symbols_name_each_kernel_once():
     """chip_smoke.py labels a profiled kernel by the first KERNEL_SYMBOLS
     key inside its name: no key may lie inside another, or a kernel would
-    be counted under the wrong one. K4's FMA kernel is named; the one it
-    replaced is gone."""
+    be counted under the wrong one. K4's and K5b's FMA kernels are named;
+    the ones they replaced are gone, and no f32 route's off-route name lies
+    inside a kernel of that route."""
     import chip_smoke
 
     keys = list(chip_smoke.KERNEL_SYMBOLS)
     assert not [(a, b) for a in keys for b in keys if a != b and a in b]
     assert chip_smoke.KERNEL_SYMBOLS["conv_dw_fma_kernel"].startswith("K4 ")
-    assert "conv_dw_kernel" not in keys
+    assert chip_smoke.KERNEL_SYMBOLS["halo_dw_fma_kernel"].startswith("K5b ")
+    assert "conv_dw_kernel" not in keys and "halo_dw_kernel" not in keys
+    for main, sums, off in chip_smoke.F32_ROUTES.values():
+        assert not [(o, k) for o in off for k in (main, *sums) if o in k]
 
 
 def test_dw_ab_variants_keep_an_instantiated_plan():
-    """tools/dw_ab.py's variants: each text patch matches
+    """tools/dw_ab.py's K4 variants: each text patch matches
     csrc/conv_k4s2p1_dw.cu once, and under its plan constants every K4
     layer's f32 plan at batch 1 and 8 asks for a ring and a step the patched
     source instantiates (RING at one block an SM, RING_WIDE at two for the
-    16-byte copies' 128 x 128 tiles; step_px) and fits a block."""
+    16-byte copies' 128 x 128 tiles; step_px) and fits a block. Its K5b
+    variants: each patch matches csrc/halo_conv_k4s2p1_dw.cu once, and under
+    its plan constants enc1's f32 plan at batch 1 and 8 and on the mesh's
+    band asks for the window, step and ring the patched source has, with as
+    many blocks an SM as its launch bounds allow (128 registers a thread at
+    least), and its ring fits a block (and two of them an SM at two)."""
     import re
 
     from discogan_modernized_torch.ops import _build
@@ -540,3 +549,30 @@ def test_dw_ab_variants_keep_an_instantiated_plan():
                     assert plan.path == "fma" and plan.tile[2] == (step if vec else 16), name
                     assert plan.stages == ring or (wide_ok and plan.stages == ring_wide), name
                     assert plan.smem_bytes <= SMEM_PER_BLOCK, name
+
+    from discogan_modernized_torch.ops import halo_conv
+
+    source = (_build.CSRC / "halo_conv_k4s2p1_dw.cu").read_text()
+    for name, (patches, constants) in dw_ab.K5B_VARIANTS.items():
+        text = source
+        for old, new in patches:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+
+        def const(pattern):
+            return int(re.search(pattern, text).group(1))
+        window, ring = const(r"constexpr int WINDOW = (\d+);"), const(r"constexpr int RING = (\d+);")
+        step, short = map(int, re.search(r"constexpr int STEP = (\d+), STEP_SHORT = (\d+);",
+                                         text).groups())
+        min_blocks = const(r"constexpr int MIN_BLOCKS = (\d+);")
+        assert min_blocks * 256 * (window // 128) <= 512, name  # 128 registers a thread at least
+        with dw_ab._plan_constants(**constants):
+            assert halo_conv.HALO_DW_BLOCKS_PER_SM == min_blocks, name
+            for shape in ((1, 256, 256, 64, 128), (8, 256, 256, 64, 128), (8, 132, 256, 64, 128)):
+                plan = halo_conv.halo_dw_plan(*shape, torch.float32)
+                assert plan.tile == (window, 128, step) and plan.stages == ring, name
+                assert plan.smem_bytes <= SMEM_PER_BLOCK, name
+                if min_blocks == 2:
+                    assert 2 * plan.smem_bytes <= 228 * 1024 - 2 * 1024, name
+            assert halo_conv.halo_dw_plan(1, 16, 16, 128, 128,
+                                          torch.float32).tile[2] in (step, short), name

@@ -352,8 +352,8 @@ def _ab_patches(tool: str) -> list:
     from discogan_modernized_torch.tools import conv_ab, dw_ab, fused_ab, halo_ab, head_ab
 
     if tool == "dw_ab":
-        return [("conv_k4s2p1_dw.cu", old) for patches, _ in dw_ab.VARIANTS.values()
-                for old, _ in patches]
+        return [(source, old) for source, _, table, _ in dw_ab.KERNELS.values()
+                for patches, _ in table.values() for old, _ in patches]
     if tool == "fused_ab":
         return [(source, old) for source, patches, _ in fused_ab.VARIANTS.values()
                 for old, _ in patches]
@@ -374,12 +374,15 @@ def _ab_calls(tool: str) -> list:
     from discogan_modernized_torch.tools import conv_ab, dw_ab, fused_ab, halo_ab, head_ab
 
     x = torch.zeros(2, 4, 4, 64, dtype=torch.bfloat16)
-    if tool == "dw_ab":  # conv_dw_fma_kernel's, in f32
-        k4 = _Entry("discogan_conv_k4s2p1_dw")
+    if tool == "dw_ab":  # conv_dw_fma_kernel's and halo_dw_fma_kernel's, in f32
+        k4, k5b = _Entry("discogan_conv_k4s2p1_dw"), _Entry("discogan_halo_conv_k4s2p1_dw")
         for name in dw_ab.VARIANTS:
             dw_ab._k4_call(k4, name, x.float(), torch.zeros(2, 2, 2, 128),
                            torch.empty(4, 4, 64, 128))[1]()
-        return [k4]
+        for name in dw_ab.K5B_VARIANTS:
+            dw_ab._k5b_call(k5b, name, x.float(), torch.zeros(2, 2, 2, 128),
+                            torch.empty(4, 4, 64, 128))[1]()
+        return [k4, k5b]
     if tool == "halo_ab":  # halo_fma_kernel's, in f32
         k5f = _Entry("discogan_halo_conv_k4s2p1")
         wt = torch.zeros(4, 4, 64, 128)
@@ -419,7 +422,8 @@ def test_ab_tool_matches_the_sources_and_entries(tool, monkeypatch):
     """An A/B tool's variants are text patches of its csrc/ sources
     (tools/fused_ab.py: bn_act.cu and batch_stats.cu; conv_ab.py:
     conv_k4s2p1.cu; head_ab.py: head_convt.cu; halo_ab.py:
-    halo_conv_k4s2p1.cu; dw_ab.py: conv_k4s2p1_dw.cu): each matches its source
+    halo_conv_k4s2p1.cu; dw_ab.py: conv_k4s2p1_dw.cu and
+    halo_conv_k4s2p1_dw.cu): each matches its source
     once; and its calls of the C entries pass as many arguments as their
     signatures take (the pair axis's included)."""
     from discogan_modernized_torch.ops import _build
