@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import trace
 from ..ops import recompute
 
 REMAT_POLICIES = ("full", "latent", "conv")
@@ -29,9 +30,14 @@ def materialize(views: list, dtype: torch.dtype):
     tensor in ``dtype``, contiguous in the view's order; with two members,
     a pair buffer with member p's in slice p. Each view is cast in its
     parameter's memory order first (``to`` keeps the strides), then
-    copied in the view's order."""
+    copied in the view's order. Runs in the span ``cast`` (core/trace.py)."""
+    with trace.span("cast"):
+        return _materialize(views, dtype)
+
+
+def _materialize(views: list, dtype: torch.dtype):
     if isinstance(views[0], list):
-        return [materialize(list(layer), dtype) for layer in zip(*views)]
+        return [_materialize(list(layer), dtype) for layer in zip(*views)]
     first = views[0]
     if len(views) == 1:
         return torch.empty(first.shape, dtype=dtype, device=first.device).copy_(

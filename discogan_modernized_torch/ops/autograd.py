@@ -38,7 +38,10 @@ backward:
 
 The backward passes compute in f32 and hand back each gradient in its
 input's dtype. Activation masks are read off the saved outputs: LeakyReLU
-and ReLU keep the sign of their input.
+and ReLU keep the sign of their input. The BatchNorm and activation terms
+of the backward run in the span ``bn_backward`` (core/trace.py): ``conv``'s
+up to its dy, without its dw and dx, and the whole of ``batch_stats``'
+and ``bn_act``'s.
 
 Every function takes a leading pair axis (ops/pairs.py): activations
 (P,N,H,W,C), weights per pair or shared, statistics, scale and offset
@@ -56,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn import grad as nn_grad
 
+from ..core import trace
 from . import recompute
 from .activations import NEGATIVE_SLOPE
 from .pairs import member
@@ -162,12 +166,13 @@ class _Conv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, g_mean=None, g_mean_sq=None):
         x, w, y = ctx.saved_tensors
-        g = _act_grad(gy.float(), y, ctx.act)
-        if ctx.with_stats:
-            cnt = _rows(y)
-            g = (g + _per_channel(g_mean, y) / cnt
-                 + y.float() * (2.0 * _per_channel(g_mean_sq, y) / cnt))
-        dy = g.to(x.dtype)
+        with trace.span("bn_backward"):
+            g = _act_grad(gy.float(), y, ctx.act)
+            if ctx.with_stats:
+                cnt = _rows(y)
+                g = (g + _per_channel(g_mean, y) / cnt
+                     + y.float() * (2.0 * _per_channel(g_mean_sq, y) / cnt))
+            dy = g.to(x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[1]:
             dw = ctx.ops["halo_dw" if ctx.halo else "conv_dw"](x, dy)
@@ -189,11 +194,12 @@ class _BatchStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_mean, g_var):
         x, mean, var = ctx.saved_tensors
-        cnt = _rows(x)
-        g_var = torch.where(var > 0, g_var, torch.zeros_like(g_var))
-        dx = (_per_channel(g_mean, x) / cnt
-              + (x.float() - _per_channel(mean, x)) * (2.0 * _per_channel(g_var, x) / cnt))
-        return dx.to(x.dtype), None
+        with trace.span("bn_backward"):
+            cnt = _rows(x)
+            g_var = torch.where(var > 0, g_var, torch.zeros_like(g_var))
+            dx = (_per_channel(g_mean, x) / cnt
+                  + (x.float() - _per_channel(mean, x)) * (2.0 * _per_channel(g_var, x) / cnt))
+            return dx.to(x.dtype), None
 
 
 class _BnAct(torch.autograd.Function):
@@ -207,11 +213,12 @@ class _BnAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, scale, y = ctx.saved_tensors
-        g = _act_grad(gy.float(), y, ctx.act)
-        dx = (g * _per_channel(scale, x)).to(x.dtype) if ctx.needs_input_grad[0] else None
-        dscale = _channel_sums(g * x.float(), x) if ctx.needs_input_grad[1] else None
-        doffset = _channel_sums(g, x) if ctx.needs_input_grad[2] else None
-        return dx, dscale, doffset, None, None
+        with trace.span("bn_backward"):
+            g = _act_grad(gy.float(), y, ctx.act)
+            dx = (g * _per_channel(scale, x)).to(x.dtype) if ctx.needs_input_grad[0] else None
+            dscale = _channel_sums(g * x.float(), x) if ctx.needs_input_grad[1] else None
+            doffset = _channel_sums(g, x) if ctx.needs_input_grad[2] else None
+            return dx, dscale, doffset, None, None
 
 
 class _HeadConvT(torch.autograd.Function):

@@ -42,7 +42,16 @@ that fails raises; there is no fallback to the per-step loop.
 ``replays`` counts the graph replays of each kind in this process, as
 ``ops/_build.launches`` counts the kernels' launches; a kernel launched in
 a captured step is counted once, at its capture (``ChunkProgram.launches``
-keeps each kind's), and not at its replays.
+keeps each kind's), and not at its replays. ``host_ns`` counts the host's
+nanoseconds (``time.perf_counter_ns``) in this process inside the graphs'
+replays (``replay``), the eager step bodies (``eager``) and the captures,
+instantiation included (``capture``); it is always on, two clock reads a
+call. On the card the kernel library is built or loaded when the program
+is made, so no build falls in ``eager``. ``reset_replays`` zeroes both
+counters. A step body runs in the span ``step.<kind>`` (core/trace.py),
+which a profiler records; a replay has no span of its own (a span would
+add a device-side range around the graph's kernels to the trace), and its
+kernels share the correlation of their ``cudaGraphLaunch``.
 
 Under data parallelism (``dp``, a parallel.DataParallel) each rank runs
 its own program over its shard of the dataset, and the steps' all-reduces
@@ -59,9 +68,12 @@ gather the same batch rows.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.precision import Policy
 from ..ops import _build
 from ..parallel import dp as dp_counts
@@ -72,11 +84,13 @@ LOSS_KEYS = ("gen_A", "gen_B", "fm_A", "fm_B", "recon_A", "recon_B", "dis_A", "d
 KINDS = ("dis", "lean", "gen")
 
 replays = dict.fromkeys(KINDS, 0)
+host_ns = dict.fromkeys(("replay", "eager", "capture"), 0)
 
 
 def reset_replays() -> None:
-    for kind in replays:
-        replays[kind] = 0
+    for counts in (replays, host_ns):
+        for k in counts:
+            counts[k] = 0
 
 
 def _low_words(values, dtype) -> np.ndarray:
@@ -103,6 +117,8 @@ class ChunkProgram:
         graphs = device.type == "cuda" if graphs is None else graphs
         if graphs and device.type != "cuda":
             raise ValueError("CUDA graphs need the dataset on the card")
+        if device.type == "cuda":
+            _build.library()  # built here, not inside the first timed eager body
         n_seeds = max(len(ts.opt_gen.params), len(ts.opt_dis.params))
         self.width = 2 * batch + 3 + n_seeds
         words = 1 + steps * self.width
@@ -128,16 +144,18 @@ class ChunkProgram:
         rows = self.table[1:].view(self.steps, self.width)
 
         def body():
-            r = rows.index_select(0, slot)[0]
-            A = data_A.index_select(0, r[:b])
-            B = data_B.index_select(0, r[b:2 * b])
-            f32 = r[2 * b:2 * b + 3].view(torch.float32)[0::2]  # rate, bc1, bc2
-            seeds = r[2 * b + 3:2 * b + 3 + n_seeds].view(torch.int32)[0::2]
-            losses, grads = loss_and_grads(ts, A, B, f32[0], cfg, policy, which,
-                                           lean=kind == "lean", dp=self.dp)
-            opt.apply(grads, f32[1:], seeds)
-            self.losses.index_copy_(0, slot, torch.stack([losses[k] for k in LOSS_KEYS])[None])
-            slot.add_(1)
+            with trace.span("step." + kind):
+                r = rows.index_select(0, slot)[0]
+                A = data_A.index_select(0, r[:b])
+                B = data_B.index_select(0, r[b:2 * b])
+                f32 = r[2 * b:2 * b + 3].view(torch.float32)[0::2]  # rate, bc1, bc2
+                seeds = r[2 * b + 3:2 * b + 3 + n_seeds].view(torch.int32)[0::2]
+                losses, grads = loss_and_grads(ts, A, B, f32[0], cfg, policy, which,
+                                               lean=kind == "lean", dp=self.dp)
+                opt.apply(grads, f32[1:], seeds)
+                self.losses.index_copy_(0, slot,
+                                        torch.stack([losses[k] for k in LOSS_KEYS])[None])
+                slot.add_(1)
         return body
 
     def _fill(self, iters0: int, kinds: list, idx_A, idx_B) -> None:
@@ -173,6 +191,7 @@ class ChunkProgram:
         """Each kind of ``kinds`` as a CUDA graph on the side stream, all in
         one memory pool; the kernel launches and all-reduces of each capture
         counted."""
+        t0 = time.perf_counter_ns()
         pool = torch.cuda.graph_pool_handle()
         for kind in sorted(self.kinds):
             graph = torch.cuda.CUDAGraph()
@@ -185,6 +204,7 @@ class ChunkProgram:
             self.collectives[kind] = dp_counts.collectives["all_reduce"] - issued["all_reduce"]
             self.gathers[kind] = dp_counts.collectives["all_gather"] - issued["all_gather"]
             self.graphs[kind] = graph
+        host_ns["capture"] += time.perf_counter_ns() - t0
 
     def __call__(self, idx_A, idx_B, iters0: int) -> torch.Tensor:
         """Iterations iters0 .. iters0 + k - 1 on the batches of the index
@@ -218,9 +238,13 @@ class ChunkProgram:
         for kind in kinds:
             graph = self.graphs.get(kind)
             if graph is None:
+                t0 = time.perf_counter_ns()
                 self.bodies[kind]()
+                host_ns["eager"] += time.perf_counter_ns() - t0
                 self.warm.add(kind)
             else:
+                t0 = time.perf_counter_ns()
                 graph.replay()
+                host_ns["replay"] += time.perf_counter_ns() - t0
                 replays[kind] += 1
 

@@ -44,6 +44,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import trace
+
 _SEED_BASE = 0x5EED
 _MASK64 = (1 << 64) - 1
 
@@ -173,22 +175,24 @@ class Adam:
     def apply(self, grads, bc: torch.Tensor, seeds: torch.Tensor) -> None:
         """One step with ``grads`` from device scalars: ``bc`` the two bias
         corrections (f32), ``seeds`` the parameters' rounding seed words
-        (int32, one a parameter; ``step_scalars``). ``step`` is left alone."""
+        (int32, one a parameter; ``step_scalars``). ``step`` is left alone.
+        Runs in the span ``adam`` (core/trace.py)."""
         bc1, bc2 = bc[0], bc[1]
         b1, b2 = self.beta1, self.beta2
-        for i, (p, g, m, v) in enumerate(
-                zip(self.params, grads, self.m, self.v, strict=True)):
-            g = g.float()
-            p32 = p.float()
-            if self.weight_decay:
-                g = g + self.weight_decay * p32
-            m_new = b1 * m.float() + (1.0 - b1) * g
-            v_new = b2 * v.float() + (1.0 - b2) * g.square()
-            upd = self.lr * (m_new / bc1) / ((v_new / bc2).sqrt() + self.eps)
-            if p.dtype == torch.bfloat16:
-                # Not p.sub_, which would round to nearest in bf16.
-                p.copy_(stochastic_round_bf16(p32 - upd, seeds[i], self.shards[i]))
-            else:
-                p.sub_(upd)
-            m.copy_(m_new)
-            v.copy_(v_new)
+        with trace.span("adam"):
+            for i, (p, g, m, v) in enumerate(
+                    zip(self.params, grads, self.m, self.v, strict=True)):
+                g = g.float()
+                p32 = p.float()
+                if self.weight_decay:
+                    g = g + self.weight_decay * p32
+                m_new = b1 * m.float() + (1.0 - b1) * g
+                v_new = b2 * v.float() + (1.0 - b2) * g.square()
+                upd = self.lr * (m_new / bc1) / ((v_new / bc2).sqrt() + self.eps)
+                if p.dtype == torch.bfloat16:
+                    # Not p.sub_, which would round to nearest in bf16.
+                    p.copy_(stochastic_round_bf16(p32 - upd, seeds[i], self.shards[i]))
+                else:
+                    p.sub_(upd)
+                m.copy_(m_new)
+                v.copy_(v_new)

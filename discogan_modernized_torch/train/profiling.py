@@ -7,6 +7,15 @@ the trace stays small. It records CUDA and CPU activity on the card and
 CPU activity on the CPU, and writes one Chrome trace (JSON, for
 ``chrome://tracing`` or Perfetto) into DIR. A start or stop that fails
 prints a warning and training goes on.
+
+While it runs, the program's spans (core/trace.py) are in the trace:
+``discogan.step.<kind>`` around each eager step body, and inside it
+``discogan.adam`` (the optimizer), ``discogan.cast`` (a forward's weight
+casts) and ``discogan.bn_backward`` (the BatchNorm and activation terms of
+the backward, on the autograd engine's thread). On the chunked path a
+replayed step has no span of its own: it shows as one ``cudaGraphLaunch``
+on the host, with the graph's kernels on the device under that launch's
+correlation.
 """
 
 from __future__ import annotations
