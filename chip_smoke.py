@@ -81,7 +81,13 @@ card machine ends a call after 45 GiB of writes):
               pair launch counted once, each pair's outputs bit for bit a
               single launch's, within the tolerances above of the plain pair
               version, and timed beside the two single launches; K5b's
-              F32_PAIR_CASES the same in f32.
+              F32_PAIR_CASES the same in f32. Then Adam (csrc/adam.cu,
+              check_adam): the 512px and 64px optimizers under slim_state
+              off, mv and all, over one D and one G step's gradients as
+              autograd leaves them, as data parallelism's unaligned views
+              and as a mesh's slices, two steps each bit for bit the plain
+              loop's (p, m and v) in one launch a 52 tensors, and each
+              step's graph replay timed beside its bytes' bound.
   3b. tools   the port's tools (M11), each through its main() with its
               launches counted and its kernels phase 3's: the read probe P
               (tools/pipe_probe.py, csrc/pipe_probe.cu) at its six block
@@ -358,7 +364,7 @@ ROOT = Path(__file__).resolve().parent
 # The port must come from this checkout, never from an installed copy.
 sys.path.insert(0, str(ROOT))
 from discogan_modernized_torch.tools.timing import (  # noqa: E402
-    HBM_BYTES_PER_S, PEAK_FLOPS, Timer, bound_ms, smi_line)
+    HBM_BYTES_PER_S, PEAK_FLOPS, Timer, bound_ms, captured, smi_line)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Whole forward, kernels vs plain versions: (max, mean) absolute error of
@@ -421,6 +427,28 @@ PER_STEP64 = {
     "gen": {"conv_k4s2p1": 32, "batch_stats": 20, "bn_act": 44, "head_convt": 8,
             "conv_k4s2p1_dw": 16},
 }
+
+
+def with_adam(table: dict, size: int = SIZE) -> dict:
+    """``table`` (step kind -> kernel -> launches) with the optimizer's
+    launches a step (ops/adam.py): one a MAX_TENSORS of the networks'
+    tensors that the trainers' default arch trains, all of one dtype group.
+    PER_STEP and PER_STEP64 count the graph's kernels alone."""
+    from discogan_modernized_torch.models.discriminator import Discriminator
+    from discogan_modernized_torch.models.generator import Generator
+    from discogan_modernized_torch.ops.adam import MAX_TENSORS
+    from discogan_modernized_torch.train.graph import trainable_subsets
+
+    with torch.device("meta"):
+        count = {"gen": len(list(Generator(size).parameters())),
+                 "dis": len(list(Discriminator(size).parameters()))}
+    gen_keys, dis_keys = trainable_subsets("discogan")
+    tensors = {"gen": len(gen_keys) * count["gen"], "dis": len(dis_keys) * count["dis"]}
+    adam = {kind: -(-tensors["gen" if kind == "gen" else "dis"] // MAX_TENSORS)
+            for kind in ("dis", "lean", "gen")}
+    return {kind: dict(counts, adam=adam[kind]) for kind, counts in table.items()}
+
+
 KERNEL_INFO = {  # name -> (source, TPU kernel it replaces)
     "batch_stats": ("discogan_modernized_torch/csrc/batch_stats.cu",
                     "discogan_modernized_tpu/ops/pallas_fused.py:68"),
@@ -1119,6 +1147,147 @@ def check_pair_launches(timer) -> dict:
               f"{r['singles_ms']:9.4f}  {r['ms'] / r['singles_ms']:.3f}", flush=True)
     configure(BF16)
     return sums
+
+
+# -- phase 3, the optimizer: one Adam step over each optimizer in one launch ----
+
+ADAM_SOURCE = "discogan_modernized_torch/csrc/adam.cu"
+ADAM_REPLACES = "discogan_modernized_tpu/train/optim.py:82"  # adam_update, XLA-fused
+ADAM_BATCH = {SIZE: 2, SIZE64: 8}  # the gradients' batch: their layouts, not the record
+ADAM_CASE = f"{SIZE}px gen mv"  # the kernels line's case: the 512px trainer's default
+
+
+def _in_order_of(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (g's shape) copied into memory in g's order of dims."""
+    order = sorted(range(g.dim()), key=lambda d: -g.stride(d))
+    return t.permute(order).contiguous().permute(np.argsort(order).tolist())
+
+
+def adam_variants(opt, grads):
+    """(variant, optimizer, gradients) over one train step's gradients, each
+    optimizer a copy of ``opt``: as autograd leaves them (the conv weights'
+    in their permuted views' order); as data parallelism hands them back
+    (contiguous views of one flat buffer one element in, so every tensor
+    starts off a 16-byte boundary); and a mesh's slices (the second half of
+    each 4-D weight along its first axis, ``shards`` set, the gradient in
+    the whole one's order)."""
+    import copy
+
+    from discogan_modernized_torch.train.optim import Adam
+
+    yield "autograd", copy.deepcopy(opt), grads
+    sizes = [g.numel() for g in grads]
+    flat = torch.empty(1 + sum(sizes), dtype=grads[0].dtype, device=grads[0].device)
+    views = [t.view(g.shape) for t, g in zip(flat[1:].split(sizes), grads)]
+    for v, g in zip(views, grads):
+        v.copy_(g)
+    yield "dp views", copy.deepcopy(opt), views
+    pieces, shards, sliced = [], [], []
+    for p, g, m, v in zip(opt.params, grads, opt.m, opt.v):
+        if p.dim() == 4 and p.shape[0] > 1:
+            start = p.shape[0] // 2
+            cut = [t.detach().narrow(0, start, p.shape[0] - start) for t in (p, g, m, v)]
+            pieces.append((cut[0].clone(), _in_order_of(g, cut[1]), cut[2].clone(),
+                           cut[3].clone()))
+            shards.append((tuple(p.shape), 0, start))
+        else:
+            pieces.append((p.detach().clone(), g, m.clone(), v.clone()))
+            shards.append(None)
+    mesh = Adam([t[0] for t in pieces], lr=opt.lr, beta1=opt.beta1, beta2=opt.beta2,
+                eps=opt.eps, weight_decay=opt.weight_decay, mv_dtype=opt.m[0].dtype)
+    mesh.m, mesh.v = [t[2] for t in pieces], [t[3] for t in pieces]
+    mesh.shards, mesh.step = shards, opt.step
+    yield "mesh slices", mesh, [t[1] for t in pieces]
+
+
+def adam_bytes(opt, grads) -> int:
+    """The bytes one step moves: p, m and v read and written, g read."""
+    return sum(p.numel() * (2 * p.element_size() + g.element_size()
+                            + 2 * (m.element_size() + v.element_size()))
+               for p, g, m, v in zip(opt.params, grads, opt.m, opt.v))
+
+
+def check_adam(timer) -> dict:
+    """The multi-tensor Adam kernel (ops/adam.py) at the 512px and 64px
+    optimizers under slim_state off, mv and all: one D and one G step's
+    gradients of a seeded state, in each of ``adam_variants``; two steps of
+    ``apply`` (the kernel) against ``_apply_plain`` on a copy, p, m and v
+    equal (torch.equal), and one launch a MAX_TENSORS of tensors each;
+    then the autograd variant's step captured in a CUDA graph and its
+    replay timed (CUDA events, L2 evicted) beside its bytes over 3.35 TB/s.
+    Returns adam's entry of the kernels line."""
+    import copy
+
+    from discogan_modernized_torch.core.precision import default_policy
+    from discogan_modernized_torch.ops import _build
+    from discogan_modernized_torch.ops.adam import MAX_TENSORS
+    from discogan_modernized_torch.train.step import (TrainConfig, cast_parameters,
+                                                      init_train_state, loss_and_grads,
+                                                      make_optimizers)
+
+    cases, launches = {}, 0
+    print(f"{'adam':18} {'case':22} {'tensors':>7} {'launches':>8} {'ms':>9} {'bound_ms':>9}")
+    for size in (SIZE, SIZE64):
+        rng = torch.Generator(device="cuda").manual_seed(size)
+        A, B = (torch.rand(ADAM_BATCH[size], size, size, 3, device="cuda", generator=rng)
+                for _ in range(2))
+        ts = init_train_state(size, TrainConfig(image_size=size, precision="bf16"), "cuda")
+        for slim in ("off", "mv", "all"):
+            cfg = TrainConfig(image_size=size, precision="bf16", slim_state=slim)
+            if slim == "all":  # the same networks, their parameters cast to bf16
+                for m in ts.models.values():
+                    cast_parameters(m, torch.bfloat16)
+            opts = dict(zip(("gen", "dis"), make_optimizers(ts.models, cfg)))
+            for which, opt in opts.items():
+                _, grads = loss_and_grads(ts, A, B, torch.tensor(0.9, device="cuda"), cfg,
+                                          default_policy("bf16"), which)
+                for variant, kernel, g in adam_variants(opt, grads):
+                    plain = copy.deepcopy(kernel)
+                    want = -(-len(kernel.params) // MAX_TENSORS)
+                    for step in (1, 2):
+                        bc1, bc2, seeds = kernel.step_scalars(step)
+                        bc = torch.tensor([bc1, bc2], device="cuda")
+                        seeds = torch.tensor(seeds, dtype=torch.int32, device="cuda")
+                        before = _build.launches["adam"]
+                        kernel.apply(g, bc, seeds)
+                        made = _build.launches["adam"] - before
+                        launches += made
+                        plain._apply_plain(g, bc, seeds)
+                        what = f"adam {size}px {which} {slim} {variant} step {step}"
+                        if made != want:
+                            raise AssertionError(f"{what}: {made} launches, not {want}")
+                        for name in ("params", "m", "v"):
+                            for i, (x, y) in enumerate(zip(getattr(kernel, name),
+                                                           getattr(plain, name))):
+                                if not torch.equal(x, y):
+                                    raise AssertionError(f"{what}: {name}[{i}] "
+                                                         f"{tuple(x.shape)} differs")
+                    if variant != "autograd":
+                        continue
+                    before = _build.launches["adam"]
+                    graph = captured(lambda: kernel.apply(g, bc, seeds))
+                    launches += _build.launches["adam"] - before
+                    ms = timer.ms(graph.replay)
+                    del graph
+                    bound, by = bound_ms(0, adam_bytes(kernel, g), torch.float32)
+                    label = f"{size}px {which} {slim}"
+                    cases[label] = {"tensors": len(kernel.params), "launches": want,
+                                    "ms": ms, "bound_ms": bound, "bound_by": by}
+                    print(f"{'adam':18} {label:22} {len(kernel.params):7d} {want:8d} "
+                          f"{ms:9.4f} {bound:9.4f}", flush=True)
+                    del plain
+                del grads
+            del opts
+        del ts, A, B
+        torch.cuda.empty_cache()
+    for label, r in cases.items():
+        _positive(f"adam {label}", [r["ms"]])
+        _share(f"adam {label}", r["bound_ms"] / r["ms"])
+    r = cases[ADAM_CASE]
+    return {"name": "adam", "route": "cuda", "source": ADAM_SOURCE, "replaces": ADAM_REPLACES,
+            "launches": launches, "max_abs_err": 0.0, "ms": r["ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "case": ADAM_CASE,
+            "cases": cases}
 
 
 def _sums(rows, weight, dtype=torch.bfloat16):
@@ -2223,11 +2392,11 @@ class StepObserver:
     """Around each trainer step: CUDA events, and the launches the step made,
     which ``report`` holds against ``per_step``."""
 
-    def __init__(self, per_step=None, batch: int = TRAIN_BATCH):
+    def __init__(self, per_step=None, batch: int = TRAIN_BATCH, size: int = SIZE):
         from discogan_modernized_torch.ops import _build
 
         self.launches = _build.launches
-        self.per_step, self.batch = per_step or PER_STEP, batch
+        self.per_step, self.batch = with_adam(per_step or PER_STEP, size), batch
         self.steps = []  # (iters, kind, start event, end event, launches, losses)
 
     def begin(self, iters, kind):
@@ -3375,8 +3544,8 @@ def drive_variants() -> dict:
             gen_step, dis_step = make_train_steps(cfg, BF16)
             steps = {"gen": gen_step, "dis": dis_step,
                      "lean": make_lean_dis_step(cfg, BF16) if cfg.lean_dis else None}
-            table = variant_per_step(cfg.paired, cfg.concat_dis and not cfg.paired,
-                                     cfg.remat_policy if cfg.use_remat else None)
+            table = with_adam(variant_per_step(cfg.paired, cfg.concat_dis and not cfg.paired,
+                                               cfg.remat_policy if cfg.use_remat else None))
             d_kind = "lean" if cfg.lean_dis else "dis"
             times = {"dis": [], "gen": []}
             torch.cuda.synchronize()
@@ -3905,12 +4074,12 @@ class ChunkObserver:
     capture, and replays every step; a later chunk replays every step and
     launches nothing."""
 
-    def __init__(self, per_step=None, batch: int = TRAIN_BATCH):
+    def __init__(self, per_step=None, batch: int = TRAIN_BATCH, size: int = SIZE):
         from discogan_modernized_torch.ops import _build
         from discogan_modernized_torch.train import chunk
 
         self.launches, self.replays = _build.launches, chunk.replays
-        self.per_step, self.batch = per_step or PER_STEP, batch
+        self.per_step, self.batch = with_adam(per_step or PER_STEP, size), batch
         self.chunks = []  # (iters0, kinds, start, end, launches, replays, captured, losses)
         self.seen, self.program = set(), None
 
@@ -4256,7 +4425,7 @@ def drive_angle(work: Path) -> dict:
     per_step = args("angle", "--steps_per_call=1")
     if (per_step.image_size, per_step.batch_size) != (SIZE64, BATCH64):
         raise AssertionError("the angle parser's defaults moved")
-    observer = StepObserver(PER_STEP64, batch=BATCH64)
+    observer = StepObserver(PER_STEP64, batch=BATCH64, size=SIZE64)
     _build.reset_launches()
     t0 = time.perf_counter()
     result, model_path = run_training(per_step, observer=observer, angle_variant=True)
@@ -4271,7 +4440,7 @@ def drive_angle(work: Path) -> dict:
           f"in {wall:.1f} s (host clock); {steady_img_s(observer, step_ms):.1f} img/s "
           f"at the median step times; log lines without FM, e.g. {lines[0]!r}")
 
-    chunked = ChunkObserver(PER_STEP64, batch=BATCH64)
+    chunked = ChunkObserver(PER_STEP64, batch=BATCH64, size=SIZE64)
     _build.reset_launches()
     chunk.reset_replays()
     t0 = time.perf_counter()
@@ -4309,8 +4478,8 @@ TOOL_KERNELS = {
                           "halo_conv_k4s2p1_dw", "bn_act"},
     "fwd_profile": {"conv_k4s2p1", "halo_conv_k4s2p1", "batch_stats", "bn_act"},
     "layer_ab": {"halo_conv_k4s2p1", "halo_conv_k4s2p1_dw"},
-    "step_itemize": set(PER_STEP64["gen"]),
-    "roofline": set(PER_STEP64["gen"]),
+    "step_itemize": set(with_adam(PER_STEP64, SIZE64)["gen"]),
+    "roofline": set(with_adam(PER_STEP64, SIZE64)["gen"]),
 }
 SHARE_LIMIT = 1.05  # a roofline or peak share above this is a timing fault
 # the layer tools' image size and batch: plumbing, not the record (batch 2:
@@ -4720,6 +4889,7 @@ def run_phases(argv: list) -> int:
     timer = Timer()
     results = check_kernels(timer)
     pair_ms = check_pair_launches(timer)
+    adam = check_adam(timer)
 
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
@@ -4836,7 +5006,8 @@ def run_phases(argv: list) -> int:
     print(f"G step {step_ms['gen']:.3f} ms, D step {step_ms['dis']:.3f} ms; the seven "
           f"kernels' phase-3 medians over one G step's calls sum to "
           f"{sum(k['train_step_ms'] for k in summary):.3f} ms")
-    print(json.dumps({"kernels": summary + [tools["pipe_probe"]]}))
+    adam["launches"] += sum(launches["adam"].values())
+    print(json.dumps({"kernels": summary + [adam, tools["pipe_probe"]]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> count of launches
-launches = {"batch_stats": 0, "bn_act": 0, "conv_k4s2p1": 0,
+launches = {"adam": 0, "batch_stats": 0, "bn_act": 0, "conv_k4s2p1": 0,
             "conv_k4s2p1_dw": 0, "halo_conv_k4s2p1": 0,
             "halo_conv_k4s2p1_dw": 0, "head_convt": 0, "pipe_probe": 0}
 
@@ -42,9 +42,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 # Each kernel entry ends in the pair axis (pairs, then each operand's pair
-# stride) and the stream; the read probe P has no pair axis.
+# stride) and the stream; the read probe P and Adam have no pair axis.
 _SIGNATURES = {
+    "discogan_adam": (_I, [_P, _P] + [_I] * 3 + [_P, _LL, _P, _LL] + [_D] * 7 + [_I] * 4
+                      + [_P]),
     "discogan_batch_stats": (_I, [_P] * 5 + [_LL] + [_I] * 8 + [_LL, _I, _I]
                              + [_I, _LL, _P]),
     "discogan_bn_act": (_I, [_P, _P, _P, _P, _LL] + [_I] * 8 + [_I] + [_LL] * 3 + [_P]),

@@ -37,7 +37,9 @@ from device scalars (the bias corrections and the rounding seeds) and
 reads no host value, so a captured step replays it (train/chunk.py); it
 leaves ``step``, the host's mirror that checkpoints save, to the caller.
 Both divide by the bias corrections as tensors on the parameters'
-device, so the two give the same bits.
+device, so the two give the same bits. On the card ``apply`` runs one
+multi-tensor kernel a dtype group (ops/adam.py, csrc/adam.cu) that writes
+the bits of the plain loop, ``_apply_plain``, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from ..core import trace
+from ..ops.adam import multi_tensor_adam
 
 _SEED_BASE = 0x5EED
 _MASK64 = (1 << 64) - 1
@@ -176,23 +179,38 @@ class Adam:
         """One step with ``grads`` from device scalars: ``bc`` the two bias
         corrections (f32), ``seeds`` the parameters' rounding seed words
         (int32, one a parameter; ``step_scalars``). ``step`` is left alone.
-        Runs in the span ``adam`` (core/trace.py)."""
+        On the card one multi-tensor kernel a dtype group (ops/adam.py)
+        updates every tensor, and raises for one it does not take; off the
+        card ``_apply_plain`` runs. Runs in the span ``adam``
+        (core/trace.py)."""
+        grads = list(grads)
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        with trace.span("adam"):
+            if self.params[0].device.type == "cuda":
+                multi_tensor_adam(self, grads, bc, seeds)
+            else:
+                self._apply_plain(grads, bc, seeds)
+
+    @torch.no_grad()
+    def _apply_plain(self, grads, bc: torch.Tensor, seeds: torch.Tensor) -> None:
+        """``apply`` as PyTorch elementwise ops: the CPU's path and the
+        kernel's reference."""
         bc1, bc2 = bc[0], bc[1]
         b1, b2 = self.beta1, self.beta2
-        with trace.span("adam"):
-            for i, (p, g, m, v) in enumerate(
-                    zip(self.params, grads, self.m, self.v, strict=True)):
-                g = g.float()
-                p32 = p.float()
-                if self.weight_decay:
-                    g = g + self.weight_decay * p32
-                m_new = b1 * m.float() + (1.0 - b1) * g
-                v_new = b2 * v.float() + (1.0 - b2) * g.square()
-                upd = self.lr * (m_new / bc1) / ((v_new / bc2).sqrt() + self.eps)
-                if p.dtype == torch.bfloat16:
-                    # Not p.sub_, which would round to nearest in bf16.
-                    p.copy_(stochastic_round_bf16(p32 - upd, seeds[i], self.shards[i]))
-                else:
-                    p.sub_(upd)
-                m.copy_(m_new)
-                v.copy_(v_new)
+        for i, (p, g, m, v) in enumerate(
+                zip(self.params, grads, self.m, self.v, strict=True)):
+            g = g.float()
+            p32 = p.float()
+            if self.weight_decay:
+                g = g + self.weight_decay * p32
+            m_new = b1 * m.float() + (1.0 - b1) * g
+            v_new = b2 * v.float() + (1.0 - b2) * g.square()
+            upd = self.lr * (m_new / bc1) / ((v_new / bc2).sqrt() + self.eps)
+            if p.dtype == torch.bfloat16:
+                # Not p.sub_, which would round to nearest in bf16.
+                p.copy_(stochastic_round_bf16(p32 - upd, seeds[i], self.shards[i]))
+            else:
+                p.sub_(upd)
+            m.copy_(m_new)
+            v.copy_(v_new)
