@@ -20,7 +20,9 @@ The spans, each where its work is done:
 - ``cast``: a forward's weights cast and laid out for the kernels
   (models/regions.py ``materialize``);
 - ``bn_backward``: the BatchNorm and activation terms of the backward
-  (ops/autograd.py), up to each conv's dy, without its dw and dx.
+  (ops/autograd.py), up to each conv's dy, without its dw and dx;
+- ``halo``: the halo route's conv (ops/autograd.py), forward (K5f, K1 of
+  its output) and backward (dy, K5b, dx; its dy inside ``bn_backward``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 PREFIX = "discogan."
 
-_NULL = contextlib.nullcontext()
+NULL = contextlib.nullcontext()
 
 
 def span(name: str):
@@ -39,4 +41,4 @@ def span(name: str):
     profiler runs, and does nothing otherwise."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(PREFIX + name)
-    return _NULL
+    return NULL

@@ -13,10 +13,15 @@ same collectives as its first forward. Per function, forward and
 backward:
 
 - ``conv`` (k4/s2/p1): K3, or K5f on the ``takes_halo`` route, with an
-  optional fused LeakyReLU (the stem) or K3's batch statistics
-  (mean, mean_sq). The backward folds the statistics' cotangents into dy
-  (dy + g_mean/cnt + 2*y*g_meansq/cnt), then dw through K4 (K5b on the
-  halo route) and dx through cuDNN's conv2d_input. A 3-channel input (the
+  optional fused LeakyReLU (the stem) or the batch statistics: K3's
+  (mean, mean_sq) from its accumulator, or on the halo route K1's
+  (mean, var) of K5f's y. The backward folds the statistics' cotangents
+  into dy in f32 (dy + g_mean/cnt + 2*y*g_meansq/cnt; on the halo route
+  ``batch_stats``' gradient below) and casts the sum once, then dw
+  through K4 (K5b on the halo route) and dx through cuDNN's
+  conv2d_input. On the halo route K2's function hands its input gradient
+  to the conv's backward in f32 (``_Link``), so the whole BatchNorm
+  gradient of y is summed in f32 before that cast. A 3-channel input (the
   stem) takes its dx through K6 instead: dx of conv(x, w) is the k4/s2/p1
   convT of dy with w's I/O swapped, a convT to 3 channels (the JAX
   package's ``ops/conv.py:160-166`` routes it through its subpixel form for
@@ -41,7 +46,8 @@ input's dtype. Activation masks are read off the saved outputs: LeakyReLU
 and ReLU keep the sign of their input. The BatchNorm and activation terms
 of the backward run in the span ``bn_backward`` (core/trace.py): ``conv``'s
 up to its dy, without its dw and dx, and the whole of ``batch_stats``'
-and ``bn_act``'s.
+and ``bn_act``'s. The halo route's forward (K5f, K1) and backward (the
+sum, K5b, dx) run in the span ``halo``.
 
 Every function takes a leading pair axis (ops/pairs.py): activations
 (P,N,H,W,C), weights per pair or shared, statistics, scale and offset
@@ -148,30 +154,74 @@ def _act_grad(g: torch.Tensor, y: torch.Tensor, act: str | None) -> torch.Tensor
     return g
 
 
+def _stats_grad(x, mean, var, g_mean, g_var) -> torch.Tensor:
+    """The f32 gradient of K1's (mean, var) of x: g_mean/cnt +
+    g_var*2*(x - mean)/cnt, with no var term where the clamp at 0 held."""
+    cnt = _rows(x)
+    g_var = torch.where(var > 0, g_var, torch.zeros_like(g_var))
+    return (_per_channel(g_mean, x) / cnt
+            + (x.float() - _per_channel(mean, x)) * (2.0 * _per_channel(g_var, x) / cnt))
+
+
+class _Link:
+    """y's gradient through K2 in f32, handed from ``_BnAct``'s backward to
+    that of the halo conv that made y (``conv_batch_stats``). y's two
+    gradients, through K2 and through its statistics, nearly cancel (the
+    BatchNorm gradient sums to 0 over a channel): a part rounded to the
+    compute dtype before the sum leaves its rounding error in dy, with a
+    per-channel sum that the weight gradient multiplies by the input's
+    mean. Summed in f32, only the one cast of the sum rounds."""
+
+    __slots__ = ("grad",)
+
+    def __init__(self):
+        self.grad = None
+
+
+_LINK = "_discogan_bn_act_link"  # the attribute of a halo conv's y holding its _Link
+
+
 class _Conv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, ops, halo, act, with_stats):
+    def forward(ctx, x, w, ops, halo, act, with_stats, link=None):
+        """``link`` (a ``_Link``) with ``halo`` and ``with_stats``: y, then K1's
+        (mean, var) of it."""
         ctx.ops, ctx.halo, ctx.act, ctx.with_stats = ops, halo, act, with_stats
-        out = recompute.replay()
-        if out is None:
-            if with_stats:
-                y, (mean, mean_sq) = ops["conv"](x, w, with_stats=True)
-                out = (y, mean, mean_sq)
-            else:
-                out = ops["halo" if halo else "conv"](x, w, act=act)
-            recompute.record(out)
-        ctx.save_for_backward(x, w, out[0] if with_stats else out)
+        ctx.link = link
+        if link is not None:  # K2's part of y's gradient comes through the link
+            ctx.set_materialize_grads(False)
+        with trace.span("halo") if halo else trace.NULL:
+            out = recompute.replay()
+            if out is None:
+                if with_stats and not halo:
+                    y, (mean, mean_sq) = ops["conv"](x, w, with_stats=True)
+                    out = (y, mean, mean_sq)
+                else:
+                    out = ops["halo" if halo else "conv"](x, w, act=act)
+                recompute.record(out)
+            if with_stats and halo:  # K1 of K5f's y: rebuilt, as any statistics
+                out = (out, *ops["stats"](out))
+        y = out[0] if with_stats else out
+        ctx.save_for_backward(x, w, y, *(out[1:] if with_stats and halo else ()))
         return out
 
     @staticmethod
-    def backward(ctx, gy, g_mean=None, g_mean_sq=None):
-        x, w, y = ctx.saved_tensors
+    def backward(ctx, gy, g_mean=None, g_stat=None):
+        with trace.span("halo") if ctx.halo else trace.NULL:
+            return _Conv._backward(ctx, gy, g_mean, g_stat)
+
+    @staticmethod
+    def _backward(ctx, gy, g_mean, g_stat):
+        x, w, y, *stats = ctx.saved_tensors
         with trace.span("bn_backward"):
-            g = _act_grad(gy.float(), y, ctx.act)
-            if ctx.with_stats:
-                cnt = _rows(y)
-                g = (g + _per_channel(g_mean, y) / cnt
-                     + y.float() * (2.0 * _per_channel(g_mean_sq, y) / cnt))
+            if ctx.link is not None:  # the halo route's statistics; g_stat: var's gradient
+                g = _linked_grad(ctx.link, gy, y, stats, g_mean, g_stat)
+            else:
+                g = _act_grad(gy.float(), y, ctx.act)
+                if ctx.with_stats:  # K3's; g_stat: mean_sq's gradient
+                    cnt = _rows(y)
+                    g = (g + _per_channel(g_mean, y) / cnt
+                         + y.float() * (2.0 * _per_channel(g_stat, y) / cnt))
             dy = g.to(x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[1]:
@@ -181,7 +231,18 @@ class _Conv(torch.autograd.Function):
                 dx = ctx.ops["head"](dy, w.transpose(-2, -1).contiguous())
             else:
                 dx = _per_pair(lambda xp, wp, dp: _conv_dx(xp, wp, dp), x, w, dy)
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
+
+
+def _linked_grad(link, gy, y, stats, g_mean, g_var) -> torch.Tensor:
+    """The halo conv's y gradient in f32: K2's part (the link's), then its
+    statistics' (K1's mean and var), then any other consumer's (gy)."""
+    zeros = torch.zeros_like(stats[0])
+    g = _stats_grad(y, *stats, zeros if g_mean is None else g_mean,
+                    zeros if g_var is None else g_var)
+    if link.grad is not None:
+        g, link.grad = link.grad + g, None
+    return g if gy is None else g + gy.float()
 
 
 class _BatchStats(torch.autograd.Function):
@@ -195,18 +256,14 @@ class _BatchStats(torch.autograd.Function):
     def backward(ctx, g_mean, g_var):
         x, mean, var = ctx.saved_tensors
         with trace.span("bn_backward"):
-            cnt = _rows(x)
-            g_var = torch.where(var > 0, g_var, torch.zeros_like(g_var))
-            dx = (_per_channel(g_mean, x) / cnt
-                  + (x.float() - _per_channel(mean, x)) * (2.0 * _per_channel(g_var, x) / cnt))
-            return dx.to(x.dtype), None
+            return _stats_grad(x, mean, var, g_mean, g_var).to(x.dtype), None
 
 
 class _BnAct(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, offset, act, ops):
+    def forward(ctx, x, scale, offset, act, ops, link):
         y = ops["bn_act"](x, scale, offset, act)
-        ctx.act = act
+        ctx.act, ctx.link = act, link
         ctx.save_for_backward(x, scale, y)
         return y
 
@@ -215,10 +272,16 @@ class _BnAct(torch.autograd.Function):
         x, scale, y = ctx.saved_tensors
         with trace.span("bn_backward"):
             g = _act_grad(gy.float(), y, ctx.act)
-            dx = (g * _per_channel(scale, x)).to(x.dtype) if ctx.needs_input_grad[0] else None
+            dx = None
+            if ctx.needs_input_grad[0]:
+                dx = g * _per_channel(scale, x)
+                if ctx.link is not None:  # to the halo conv's backward, in f32
+                    ctx.link.grad, dx = dx, None
+                else:
+                    dx = dx.to(x.dtype)
             dscale = _channel_sums(g * x.float(), x) if ctx.needs_input_grad[1] else None
             doffset = _channel_sums(g, x) if ctx.needs_input_grad[2] else None
-            return dx, dscale, doffset, None, None
+            return dx, dscale, doffset, None, None, None
 
 
 class _HeadConvT(torch.autograd.Function):
@@ -325,13 +388,12 @@ def conv(x, w, ops, *, act=None, with_stats=False):
     return _Conv.apply(x, w, ops, halo, act, with_stats)
 
 
-def batch_stats_fn(x, ops):
-    """Per-channel (mean, biased var) of NHWC x through K1; with
-    ``ops["stats_dp"]``, the global batch's: the ranks' mean of the
-    means, and of each rank's variance plus its mean's squared distance
-    from the global one (equal counts a rank). Over one rank the second
-    term is exactly 0 and the statistics are K1's bits."""
-    mean, var = _BatchStats.apply(x, ops)
+def _global_stats(mean, var, ops):
+    """One rank's K1 (mean, var), or with ``ops["stats_dp"]`` the global
+    batch's: the ranks' mean of the means, and of each rank's variance
+    plus its mean's squared distance from the global one (equal counts a
+    rank). Over one rank the second term is exactly 0 and the statistics
+    are K1's bits."""
     dp = ops.get("stats_dp")
     if dp is not None:
         mean_all = dp.rank_mean(mean)
@@ -340,14 +402,25 @@ def batch_stats_fn(x, ops):
     return mean, var
 
 
+def batch_stats_fn(x, ops):
+    """Per-channel (mean, biased var) of NHWC x through K1; with
+    ``ops["stats_dp"]``, the global batch's (``_global_stats``)."""
+    return _global_stats(*_BatchStats.apply(x, ops), ops)
+
+
 def conv_batch_stats(x, w, ops):
     """The conv of a BatchNorm'd layer and its batch statistics:
     (y, mean, var). K3 takes them from its f32 accumulator (mean and mean
     of squares; with ``ops["stats_dp"]``, the ranks' means of both);
-    the halo route's K5f has none, so K1 reads them off y."""
+    the halo route's K5f has none, so K1 reads them off y inside the
+    conv's function, whose backward adds their gradient to y's in f32;
+    y carries the ``_Link`` that K2's function (``bn_act_fn``) hands its
+    own gradient of y through, in f32."""
     if takes_halo(x, w):
-        y = conv(x, w, ops)
-        return (y, *batch_stats_fn(y, ops))
+        link = _Link()
+        y, mean, var = _Conv.apply(x, w, ops, True, None, True, link)
+        setattr(y, _LINK, link)
+        return (y, *_global_stats(mean, var, ops))
     y, mean, mean_sq = conv(x, w, ops, with_stats=True)
     dp = ops.get("stats_dp")
     if dp is not None:
@@ -356,8 +429,10 @@ def conv_batch_stats(x, w, ops):
 
 
 def bn_act_fn(x, scale, offset, act, ops):
-    """act(x * scale + offset) per channel through K2."""
-    return _BnAct.apply(x, scale, offset, act, ops)
+    """act(x * scale + offset) per channel through K2. Where x is a halo
+    conv's y (``conv_batch_stats``), the backward hands x's gradient to
+    that conv's in f32 (``_Link``) instead of to autograd."""
+    return _BnAct.apply(x, scale, offset, act, ops, getattr(x, _LINK, None))
 
 
 def head_fn(x, w, ops):

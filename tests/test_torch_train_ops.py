@@ -126,21 +126,25 @@ def test_k5b_halo_conv_dw(n, h, w_, ci, co):
                                np.asarray(want), atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.parametrize("route", ["k1", "k3"])
+@pytest.mark.parametrize("route", ["k1", "k3", "halo"])
 def test_batchnorm_train_form(route):
     """Normalized output, running statistics and count against
     batchnorm_apply(training=True), and the gradients of a weighted sum of
     the output for x (through the conv or K1), gamma and beta. Route k3:
-    the statistics come from the conv's fused output; k1: from K1."""
+    the statistics come from the conv's fused output; k1: from K1; halo:
+    ``conv_batch_stats`` at a ``takes_halo`` shape (K5f, then K1 inside the
+    conv's function)."""
     rng = np.random.RandomState(3)
     c = 16
-    x = rng.randn(3, 8, 8, 8).astype(np.float32)
+    n, h = (1, 128) if route == "halo" else (3, 8)
+    x = rng.randn(n, h, h, 8).astype(np.float32)
     w = (rng.randn(4, 4, 8, c) * 0.2).astype(np.float32)
+    assert takes_halo(t(x), t(w)) == (route == "halo")
     gamma = (rng.rand(c) + 0.5).astype(np.float32)
     beta = (rng.randn(c) * 0.1).astype(np.float32)
     rmean = (rng.randn(c) * 0.1).astype(np.float32)
     rvar = (rng.rand(c) + 0.5).astype(np.float32)
-    r = rng.randn(3, 4, 4, c).astype(np.float32)
+    r = rng.randn(n, h // 2, h // 2, c).astype(np.float32)
     state = {"mean": jnp.asarray(rmean), "var": jnp.asarray(rvar),
              "count": jnp.asarray(5, jnp.int32)}
 
@@ -160,7 +164,7 @@ def test_batchnorm_train_form(route):
         bn.running_var.copy_(t(rvar))
         bn.num_batches_tracked.fill_(5)
     px, pw = t(x).requires_grad_(), t(w).requires_grad_()
-    if route == "k3":
+    if route in ("k3", "halo"):
         out = conv_batch_stats(px, pw, PLAIN_OPS)
     else:
         yc = conv(px, pw, PLAIN_OPS)
